@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with :mod:`ctypes` (every pointer and the
+stream pass as ``c_void_p``). The library lands in ``_build/`` beside this
+file, named by a hash of the sources and flags, so the first call after a
+change builds it and later calls reuse it. A missing ``nvcc`` or a failed
+build raises: there is no other route to the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+SIGNATURES = {
+    "am_major_fwd_wire": (_I, _P, _LL, _P, _P, _I, _I, _I, _LL, _P),
+    "am_major_inverse": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_minor_forward": (_P, _P, _P, _P, _I, _I, _P),
+    "am_minor_product": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_block_reduce_packed": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P
+    ),
+}
+
+
+class KernelBuildFailure(RuntimeError):
+    """The kernels could not be built or loaded."""
+
+
+class _Loaded:
+    lib: ctypes.CDLL | None = None
+    log: str = ""
+    seconds: float = 0.0
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then
+    :data:`DEFAULT_CUDA_HOME`; raises :class:`KernelBuildFailure`."""
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(var)
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = DEFAULT_CUDA_HOME / "bin" / "nvcc"
+    if default.is_file():
+        return str(default)
+    raise KernelBuildFailure(
+        "nvcc not found (CUDA_HOME, CUDA_PATH, PATH, "
+        f"{DEFAULT_CUDA_HOME}); the CUDA kernels cannot be built"
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _Loaded.seconds = time.perf_counter() - t0
+    _Loaded.log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildFailure(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_Loaded.log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    if _Loaded.lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _Loaded.lib = lib
+    return _Loaded.lib
+
+
+def build_log() -> str:
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
+    the build this process ran, or "" when the library was already built."""
+    return _Loaded.log
+
+
+def build_seconds() -> float:
+    return _Loaded.seconds
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,402 @@
+"""Two-factor FFT in scrambled order, on hand-written CUDA passes.
+
+Port of ``audio_matcher_tpu/ops/pallas_fft.py``'s batch-scan path. A
+transform of length n = A·M, viewed [A, M] a-major, runs as a DIF pass over
+the strided A axis with the cross twiddle folded in, then a DIF pass over
+each contiguous M row. The spectrum stays in the scrambled layout
+
+    Y[r, q] = X[brev_A(r) + A · brev_M(q)]
+
+end to end; the inverse consumes it directly (reversed DIF, conjugate
+twiddles). Correlation never notices the order, and the query spectra are
+permuted into it once (:func:`scrambled_query_spectra`).
+
+Each pass has a wrapper and a plain PyTorch version beside it. The wrapper
+runs the plain version for CPU tensors and launches its CUDA kernel
+(``csrc/fft_passes.cu``) for CUDA tensors; it never falls back. The plain
+versions use ``torch.fft`` along the axis plus the bit-reversal permutation,
+the masks and the twiddles, and are what the kernels are checked against.
+Forward transforms are unscaled; the inverse's 1/n is folded into the query
+spectra.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import _build
+from .wire import dequant_to_f32
+
+MIN_N = 1 << 14  # two 128-wide factors
+MAX_FACTOR = 2048  # shared-memory tiles of the CUDA passes (see csrc)
+MAX_GRID_Y = 65535  # the major pass launches one grid row per plane
+_F32 = torch.float32
+_WIRE_CODES = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}
+
+
+@lru_cache(maxsize=8)
+def _brev_host(n: int) -> np.ndarray:
+    """Bit reversal of ``range(n)`` over log2(n) bits."""
+    bits = n.bit_length() - 1
+    i = np.arange(n, dtype=np.int64)
+    out = np.zeros(n, np.int64)
+    for b in range(bits):
+        out |= ((i >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def split_factors(n: int) -> tuple[int, int]:
+    """n = A·M with both factors powers of two, as square as possible."""
+    if n & (n - 1):
+        raise ValueError(f"two-factor fft needs a power of two, got {n}")
+    e = n.bit_length() - 1
+    a = e // 2
+    A, M = 1 << a, 1 << (e - a)
+    if A < 128 or M < 128:
+        raise ValueError(f"n = {n} too small for the two-factor fft")
+    return A, M
+
+
+def scramble_index(n: int) -> np.ndarray:
+    """Natural→scrambled gather index: scrambled[i] = natural[idx[i]]."""
+    A, M = split_factors(n)
+    sa, sm = _brev_host(A), _brev_host(M)
+    return (sa[:, None] + A * sm[None, :]).reshape(n)
+
+
+def round_planes_width(width: int, n: int) -> int:
+    """Round a crop width up to a multiple of 8·M (or the full n): the crop
+    the JAX package's planes path takes, kept so both scan the same
+    columns."""
+    _, M = split_factors(n)
+    return min(-(-width // (8 * M)) * (8 * M), n)
+
+
+def scrambled_query_spectra(
+    padded_snippets: torch.Tensor, fft_len: int, pack: bool
+):
+    """Query spectra for the scrambled-FFT correlation, conjugated, scaled
+    by 1/n and permuted into the scrambled layout, on the input's device.
+
+    pack=True → query-pair spectra T[j] = (conj(S_2j) + i·conj(S_2j+1))/n;
+    pack=False → conj(S)/n per query. Returns (Tr, Ti) f32 [rows, fft_len].
+    """
+    from .correlate import full_spectrum
+
+    S = torch.fft.rfft(padded_snippets.to(_F32), n=fft_len)
+    T = full_spectrum(S, fft_len).conj() * torch.tensor(
+        1.0 / fft_len, dtype=_F32, device=S.device
+    )
+    if pack:
+        if T.shape[0] % 2:
+            T = torch.cat([T, T.new_zeros((1, fft_len))])
+        T = T[0::2] + 1j * T[1::2]
+    idx = torch.from_numpy(scramble_index(fft_len)).to(T.device)
+    T = T[:, idx]
+    return T.real.contiguous(), T.imag.contiguous()
+
+
+# ---------------------------------------------------------------- helpers
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on a mix."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def _log2(x: int, what: str) -> int:
+    if x < 1 or x & (x - 1):
+        raise ValueError(f"{what} must be a power of two, got {x}")
+    return x.bit_length() - 1
+
+
+def _planes(out, shape, like: torch.Tensor):
+    """``out`` checked against ``shape``, or two new f32 planes."""
+    if out is None:
+        return (
+            torch.empty(shape, dtype=_F32, device=like.device),
+            torch.empty(shape, dtype=_F32, device=like.device),
+        )
+    for o in out:
+        if (
+            tuple(o.shape) != tuple(shape) or o.dtype != _F32
+            or o.device != like.device or not o.is_contiguous()
+        ):
+            raise ValueError(f"out plane must be contiguous f32 {shape}")
+    return out
+
+
+def _f32_contig(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != _F32 or not t.is_contiguous():
+            raise ValueError("expected contiguous float32 planes")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cross_twiddle(A: int, M: int, n: int, sign: float, device):
+    """exp(sign·2πi·brev_A(r)·c/n) as complex64 [A, M]; the exponent is an
+    exact integer reduced mod n before the float64 scale."""
+    br = torch.from_numpy(_brev_host(A)).to(device)
+    k = (br[:, None] * torch.arange(M, device=device)[None, :]) % n
+    ang = k.to(torch.float64) * (sign * 2.0 * math.pi / n)
+    return torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+
+
+def _brev_index(L: int, device) -> torch.Tensor:
+    return torch.from_numpy(_brev_host(L)).to(device)
+
+
+def _write(out, yr: torch.Tensor, yi: torch.Tensor):
+    if out is None:
+        return yr, yi
+    out[0].copy_(yr)
+    out[1].copy_(yi)
+    return out
+
+
+# ------------------------------------------ pass 1: forward major from wire
+def fft_major_fwd_wire_plain(xw, A: int, n: int, w_len: int, out=None):
+    """Plain version of :func:`fft_major_fwd_wire`."""
+    P = xw.shape[0]
+    M = n // A
+    x = dequant_to_f32(xw[:, : min(w_len, n)])
+    x = torch.nn.functional.pad(x, (0, n - x.shape[1])).reshape(P, A, M)
+    X = torch.fft.fft(x, dim=1)
+    X = X.index_select(1, _brev_index(A, X.device))
+    X = X * _cross_twiddle(A, M, n, -1.0, X.device)
+    return _write(out, X.real.contiguous(), X.imag.contiguous())
+
+
+def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
+    """Forward major pass reading the staging wire format.
+
+    ``xw``: [P, L] wire-dtype windows (uint8 μ-law, int16 or f32; rows may
+    be strided, e.g. overlap-save views of one episode), L ≥ min(w_len, n).
+    Elements at index ≥ ``w_len`` read as exact 0.0; the input is real.
+    Returns (re, im) f32 [P, A, M]: the DIF over A in bit-reversed row order
+    times the cross twiddle W_n^{brev_A(r)·c}.
+    """
+    if not on_cuda(xw):
+        return fft_major_fwd_wire_plain(xw, A, n, w_len, out)
+    log2A, M = _log2(A, "A"), n // A
+    log2M = _log2(M, "M")
+    if A > MAX_FACTOR:
+        raise ValueError(f"major pass takes A <= {MAX_FACTOR}, got {A}")
+    if xw.dtype not in _WIRE_CODES:
+        raise ValueError(f"unsupported wire dtype {xw.dtype}")
+    P = xw.shape[0]
+    eff = min(int(w_len), n)
+    if xw.dim() != 2 or xw.stride(1) != 1 or xw.shape[1] < eff:
+        raise ValueError(
+            f"need [P, >= {eff}] rows with unit column stride, got "
+            f"{tuple(xw.shape)} strides {xw.stride()}"
+        )
+    if P > MAX_GRID_Y:
+        raise ValueError(f"at most {MAX_GRID_Y} windows per launch, got {P}")
+    yr, yi = _planes(out, (P, A, M), xw)
+    with torch.cuda.device(xw.device):
+        rc = _build.load().am_major_fwd_wire(
+            _WIRE_CODES[xw.dtype], xw.data_ptr(), xw.stride(0),
+            yr.data_ptr(), yi.data_ptr(), P, log2A, log2M, eff, _stream(xw),
+        )
+    _build.check(rc, "am_major_fwd_wire")
+    fft_major_fwd_wire.launches += 1
+    return yr, yi
+
+
+fft_major_fwd_wire.launches = 0
+
+
+# ------------------------------------------------ pass 2: forward minor
+def fft_minor_plain(xr, xi, M: int, out=None):
+    """Plain version of :func:`fft_minor`."""
+    Y = torch.fft.fft(torch.complex(xr, xi), dim=-1)
+    Y = Y.index_select(-1, _brev_index(M, Y.device))
+    return _write(out, Y.real.contiguous(), Y.imag.contiguous())
+
+
+def fft_minor(xr, xi, M: int, out=None):
+    """Forward DIF pass over the contiguous M axis of [P, A, M] planes; the
+    output row q holds frequency brev_M(q). ``out`` must not overlap the
+    input (the kernel's pointers are restrict-qualified)."""
+    if not on_cuda(xr, xi):
+        return fft_minor_plain(xr, xi, M, out)
+    log2M = _log2(M, "M")
+    if M > MAX_FACTOR or xr.shape[-1] != M or xr.shape != xi.shape:
+        raise ValueError(f"minor pass takes [..., M <= {MAX_FACTOR}] planes")
+    _f32_contig(xr, xi)
+    yr, yi = _planes(out, tuple(xr.shape), xr)
+    if {yr.data_ptr(), yi.data_ptr()} & {xr.data_ptr(), xi.data_ptr()}:
+        raise ValueError("the minor pass does not run in place")
+    with torch.cuda.device(xr.device):
+        rc = _build.load().am_minor_forward(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            xr.numel() // M, log2M, _stream(xr),
+        )
+    _build.check(rc, "am_minor_forward")
+    fft_minor.launches += 1
+    return yr, yi
+
+
+fft_minor.launches = 0
+
+
+# ------------------------------- pass 3: product fused into inverse minor
+def ifft_minor_product_plain(xr, xi, tr, ti, M: int, out=None):
+    """Plain version of :func:`ifft_minor_product` (one window at a time,
+    so the complex temporaries stay at [Qh, A, M])."""
+    B, A, _ = xr.shape
+    Qh = tr.shape[0]
+    yr, yi = _planes(out, (B * Qh, A, M), xr)
+    T = torch.complex(tr, ti)
+    br = _brev_index(M, xr.device)
+    for b in range(B):
+        V = torch.complex(xr[b], xi[b])[None] * T
+        y = torch.fft.ifft(V.index_select(-1, br), dim=-1, norm="forward")
+        yr[b * Qh : (b + 1) * Qh] = y.real
+        yi[b * Qh : (b + 1) * Qh] = y.imag
+    return yr, yi
+
+
+def ifft_minor_product(xr, xi, tr, ti, M: int, out=None):
+    """[B] window spectra × [Qh] query-pair spectra → V = X·T, inverse DIF
+    over M; returns [B·Qh, A, M] planes, row b·Qh + q. The product planes
+    are never written."""
+    if not on_cuda(xr, xi, tr, ti):
+        return ifft_minor_product_plain(xr, xi, tr, ti, M, out)
+    log2M = _log2(M, "M")
+    B, A, M_ = xr.shape
+    Qh = tr.shape[0]
+    if (
+        M_ != M or M > MAX_FACTOR or xi.shape != xr.shape
+        or tuple(tr.shape) != (Qh, A, M) or ti.shape != tr.shape
+    ):
+        raise ValueError("product pass takes X [B, A, M] and T [Qh, A, M]")
+    _f32_contig(xr, xi, tr, ti)
+    yr, yi = _planes(out, (B * Qh, A, M), xr)
+    with torch.cuda.device(xr.device):
+        rc = _build.load().am_minor_product(
+            xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), B, A, Qh, log2M, _stream(xr),
+        )
+    _build.check(rc, "am_minor_product")
+    ifft_minor_product.launches += 1
+    return yr, yi
+
+
+ifft_minor_product.launches = 0
+
+
+# ------------------------------------- pass 4: inverse major, cropped
+_PLANES_PER_STEP = 32  # bounds the plain versions' complex temporaries
+
+
+def fft_major_plain(xr, xi, A: int, n: int, a_crop: int, out=None):
+    """Plain version of :func:`fft_major`, a few planes at a time."""
+    P, _, M = xr.shape
+    yr, yi = _planes(out, (P, a_crop, M), xr)
+    tw = _cross_twiddle(A, M, n, 1.0, xr.device)
+    br = _brev_index(A, xr.device)
+    for p0 in range(0, P, _PLANES_PER_STEP):
+        sl = slice(p0, p0 + _PLANES_PER_STEP)
+        V = (torch.complex(xr[sl], xi[sl]) * tw).index_select(1, br)
+        y = torch.fft.ifft(V, dim=1, norm="forward")[:, :a_crop]
+        yr[sl] = y.real
+        yi[sl] = y.imag
+    return yr, yi
+
+
+def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
+    """Inverse major pass (the JAX ``fft_major`` with ``inverse=True,
+    cross=True``): conjugate cross twiddle, inverse DIF over A (scrambled
+    rows in, natural rows out), and only the first ``a_crop`` rows
+    written. Returns [P, a_crop, M] planes."""
+    M = n // A
+    if not 0 < a_crop <= A:
+        raise ValueError(f"a_crop must be in (0, {A}], got {a_crop}")
+    if not on_cuda(xr, xi):
+        return fft_major_plain(xr, xi, A, n, a_crop, out)
+    log2A, log2M = _log2(A, "A"), _log2(M, "M")
+    P = xr.shape[0]
+    if A > MAX_FACTOR or tuple(xr.shape) != (P, A, M) or xi.shape != xr.shape:
+        raise ValueError(f"major pass takes [P, A <= {MAX_FACTOR}, M] planes")
+    if P > MAX_GRID_Y:
+        raise ValueError(f"at most {MAX_GRID_Y} planes per launch, got {P}")
+    _f32_contig(xr, xi)
+    yr, yi = _planes(out, (P, a_crop, M), xr)
+    with torch.cuda.device(xr.device):
+        rc = _build.load().am_major_inverse(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            P, log2A, log2M, a_crop, _stream(xr),
+        )
+    _build.check(rc, "am_major_inverse")
+    fft_major.launches += 1
+    return yr, yi
+
+
+fft_major.launches = 0
+
+KERNELS = (fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major)
+
+
+# ------------------------------------------------------------- the slab
+def _work(work: dict | None, key: str, shape, like: torch.Tensor):
+    """Planes of ``shape`` kept in ``work`` across slabs (None: fresh)."""
+    if work is None:
+        return None
+    got = work.get(key)
+    if got is None or tuple(got[0].shape) != tuple(shape):
+        got = work[key] = _planes(None, shape, like)
+    return got
+
+
+def corr_slab_vpu_planes_wire(
+    windows, t_r, t_i, width: int, plain: bool = False,
+    work: dict | None = None,
+):
+    """Pair-packed correlation planes of a slab of wire-dtype windows.
+
+    Row ``b·Qh + j`` of the returned (yr, yi) holds the correlations of
+    queries 2j and 2j+1 against window b, cropped to ``width`` columns
+    (a multiple of 8·M, or n). Decode, zero pad and the zero imaginary
+    plane happen inside the first pass; the product is fused into the
+    inverse minor pass. ``plain=True`` runs every pass's plain version, on
+    any device (the reference the kernels are held against). ``work``
+    keeps the intermediate planes across calls.
+    """
+    B, W = windows.shape
+    Qh, n = t_r.shape
+    A, M = split_factors(n)
+    if width % M or width > n or ((width // M) % 8 and width != n):
+        raise ValueError(f"width {width} is not on the 8·M grid of n={n}")
+    p1, p2, p3, p4 = (
+        (fft_major_fwd_wire_plain, fft_minor_plain,
+         ifft_minor_product_plain, fft_major_plain)
+        if plain else
+        (fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major)
+    )
+    X = p1(windows, A, n, W, out=_work(work, "x", (B, A, M), t_r))
+    X = p2(X[0], X[1], M, out=_work(work, "x2", (B, A, M), t_r))
+    V = p3(
+        X[0], X[1], t_r.view(Qh, A, M), t_i.view(Qh, A, M), M,
+        out=_work(work, "v", (B * Qh, A, M), t_r),
+    )
+    a_crop = width // M
+    yr, yi = p4(
+        V[0], V[1], A, n, a_crop,
+        out=_work(work, "y", (B * Qh, a_crop, M), t_r),
+    )
+    return yr.view(B * Qh, width), yi.view(B * Qh, width)

@@ -1,0 +1,291 @@
+"""Peak picking over the pair-packed correlation planes (port of
+``ops/peaks.py``'s single-read path).
+
+Semantics (scipy ``find_peaks(distance=, prominence=)`` as the reference
+uses it, per window):
+
+  * local maxima are strict: a plateau is never a peak;
+  * min distance is scipy's greedy-by-height suppression, as repeated
+    masked argmax (ties keep the lowest position);
+  * prominence is topographic, from block minima/maxima pyramids and small
+    gathers around each pick.
+
+The planes are read once, by :func:`local_max_block_reduce_packed`; every
+later stage (seam repair, ``n_peaks`` suppression rounds with an exact
+rescan of the partly suppressed edge tiles, prominence) works on the
+[rows, NB] block arrays and on gathers of a few tiles. These are plain
+torch ops on the planes' device: the JAX package runs them as plain ``jnp``
+too, so they are not kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .cuda_kernels import (
+    GROUP,
+    local_max_block_reduce_packed,
+    local_max_block_reduce_packed_plain,
+)
+
+_NEG = float("-inf")
+_POS = float("inf")
+_SENTINEL = -(1 << 30)  # a picked slot that excludes nothing
+
+
+@dataclasses.dataclass(frozen=True)
+class Peak:
+    """A match peak. ``position`` is the sample where the snippet starts."""
+
+    position: int
+    height: float
+    prominence: float
+
+    def start_secs(self, sr: int) -> float:
+        return self.position / sr
+
+
+def _interleave_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[P, ...] even rows + [P, ...] odd rows → [2P, ...]."""
+    return torch.stack([a, b], dim=1).reshape(-1, *a.shape[1:])
+
+
+class _PackedPairRows:
+    """Row source over the pair-packed planes: logical row 2p is
+    ``yr[p]·scale[2p]``, row 2p+1 is ``yi[p]·scale[2p+1]``. Only gathers of
+    a few columns are ever materialized. ``plain`` selects the reduction's
+    plain version on any device."""
+
+    def __init__(self, yr, yi, scale, plain: bool = False):
+        if yr.shape != yi.shape:
+            raise ValueError("yr and yi must have one shape")
+        self.yr = yr
+        self.yi = yi
+        self.scale = scale.to(torch.float32)  # [2P]
+        self.shape = (2 * yr.shape[0], yr.shape[1])
+        self.plain = plain
+
+    def columns(self, p: torch.Tensor) -> torch.Tensor:  # [K] → [2P, K]
+        x = _interleave_rows(self.yr[:, p], self.yi[:, p])
+        return x * self.scale[:, None]
+
+    def _gather(self, starts: torch.Tensor, width: int) -> torch.Tensor:
+        """[2P, ...] starts → [2P, ..., width]; starts clamp so the slice
+        fits, as ``lax.dynamic_slice`` does."""
+        V = self.shape[1]
+        starts = starts.clamp(0, max(V - width, 0))
+        offs = torch.arange(width, device=starts.device)
+        out = []
+        for plane, s in ((self.yr, starts[0::2]), (self.yi, starts[1::2])):
+            idx = (s[..., None] + offs).reshape(s.shape[0], -1)
+            out.append(torch.gather(plane, 1, idx).reshape(*s.shape, width))
+        return _interleave_rows(*out)
+
+    def slices(self, starts, width: int):  # [2P] → [2P, width]
+        return self._gather(starts, width) * self.scale[:, None]
+
+    def slice_slots(self, starts, width: int):  # [2P, S] → [2P, S, width]
+        return self._gather(starts, width) * self.scale[:, None, None]
+
+    def block_reduce(self, valid_len, block: int):
+        reduce = (
+            local_max_block_reduce_packed_plain if self.plain
+            else local_max_block_reduce_packed
+        )
+        return reduce(
+            self.yr, self.yi, self.scale, valid_len, block
+        )
+
+
+def _merge_seams(src, valid_len, bv, bp, block: int):
+    """Fold segment-boundary local maxima into the per-tile candidates:
+    the reduction leaves the two columns at each ``GROUP``-tile boundary
+    blind. Ties keep the earlier position: the last column of a tile wins
+    only when strictly higher, the first column also on equality."""
+    B, V = src.shape
+    NB = V // block
+    if NB <= GROUP:
+        return bv, bp
+    dev = bv.device
+    js = torch.arange(GROUP, NB, GROUP, device=dev)
+    vl = valid_len[:, None]
+    for offs, strict in ((-1, True), (0, False)):
+        p = js * block + offs
+        x0 = src.columns(p)
+        pk = (x0 > src.columns(p - 1)) & (x0 > src.columns(p + 1))
+        pk &= (p[None, :] >= 1) & (p[None, :] <= vl - 2)
+        h = torch.where(pk, x0, _NEG)
+        tiles = torch.div(p, block, rounding_mode="floor")
+        cur = bv[:, tiles]
+        upd = (h > cur) if strict else (h >= cur) & torch.isfinite(h)
+        bv[:, tiles] = torch.where(upd, h, cur)
+        bp[:, tiles] = torch.where(upd, p[None, :].to(bp.dtype), bp[:, tiles])
+    return bv, bp
+
+
+def _rescan_tile(src, valid_len, picked, tile, d: int, block: int):
+    """Best surviving local max of one tile per row, excluding every picked
+    interval |col − p_j| < d (sentinel slots exclude nothing)."""
+    B, V = src.shape
+    dev = tile.device
+    t = tile.clamp(0, V // block - 1)
+    start = t * block
+    width = min(block + 2, V)
+    p0 = (start - 1).clamp(0, max(V - width, 0))
+    win = src.slices(p0, width)
+    cols = p0[:, None] + 1 + torch.arange(width - 2, device=dev)[None, :]
+    c = win[:, 1:-1]
+    in_tile = (cols >= start[:, None]) & (cols < start[:, None] + block)
+    interior = (cols >= 1) & (cols <= valid_len[:, None] - 2)
+    pk = (c > win[:, :-2]) & (c > win[:, 2:]) & interior & in_tile
+    excl = ((cols[:, None, :] - picked[:, :, None]).abs() < d).any(dim=1)
+    h = torch.where(pk & ~excl, c, _NEG)
+    best = h.argmax(dim=1)
+    bi = torch.arange(B, device=dev)
+    return h[bi, best], cols[bi, best]
+
+
+def _prominences_from_blocks(gather_blocks, block_min, block_max, pos, h,
+                             block: int):
+    """Prominence from a block pyramid: the nearest strictly higher sample
+    on each side (first inside the peak's own block, then the nearest
+    block holding one), and the minimum over the spanned range."""
+    NB = block_min.shape[1]
+    dev = pos.device
+    pb = torch.div(pos, block, rounding_mode="floor")  # [B, S]
+    r = pos % block
+    own_min, own_max = gather_blocks(pb)  # [B, S, block]
+    bcols = torch.arange(block, device=dev)[None, None, :]
+    bidx = torch.arange(NB, device=dev)[None, None, :]
+    hx = h[..., None]
+    bmin3 = block_min[:, None, :]
+    bmax3 = block_max[:, None, :]
+
+    def masked(mask, v, fill, take_max: bool):
+        w = torch.where(mask, v, fill)
+        return w.amax(-1) if take_max else w.amin(-1)
+
+    def side(left: bool):
+        if left:
+            in_sel, blk_sel = bcols < r[..., None], bidx < pb[..., None]
+            in_fill, blk_fill = -1, -1
+        else:
+            in_sel, blk_sel = bcols > r[..., None], bidx > pb[..., None]
+            in_fill, blk_fill = block, NB
+        in_mask = in_sel & (own_max > hx)
+        found_in = in_mask.any(-1)
+        j_in = masked(in_mask, bcols, in_fill, left)
+        blk_mask = blk_sel & (bmax3 > hx)
+        found_blk = blk_mask.any(-1)
+        j_blk = masked(blk_mask, bidx, blk_fill, left)
+        far_min, far_max = gather_blocks(j_blk.clamp(0, NB - 1))
+        j_far = masked(far_max > hx, bcols, in_fill, left)
+        jin, jfar, jblk = j_in[..., None], j_far[..., None], j_blk[..., None]
+        rr, pbb = r[..., None], pb[..., None]
+        if left:
+            minA = masked((bcols > jin) & (bcols <= rr), own_min, _POS, False)
+            part_far = masked(bcols > jfar, far_min, _POS, False)
+            between = (bidx > jblk) & (bidx < pbb)
+            part_own = masked(bcols <= rr, own_min, _POS, False)
+            edge_mid = masked(bidx < pbb, bmin3, _POS, False)
+        else:
+            minA = masked((bcols < jin) & (bcols >= rr), own_min, _POS, False)
+            part_far = masked(bcols < jfar, far_min, _POS, False)
+            between = (bidx < jblk) & (bidx > pbb)
+            part_own = masked(bcols >= rr, own_min, _POS, False)
+            edge_mid = masked(bidx > pbb, bmin3, _POS, False)
+        part_mid = masked(between, bmin3, _POS, False)
+        minB = torch.minimum(torch.minimum(part_far, part_mid), part_own)
+        minC = torch.minimum(edge_mid, part_own)
+        return torch.where(found_in, minA, torch.where(found_blk, minB, minC))
+
+    return h - torch.maximum(side(True), side(False))
+
+
+def _pick_peaks_from_source(src, valid_len, distance: int, n_peaks: int,
+                            block: int):
+    B, V = src.shape
+    NB = V // block
+    dev = valid_len.device
+    valid_len = valid_len.to(torch.int64)
+    bv, bp, bmin, bmax = src.block_reduce(valid_len, block)
+    bp = bp.to(torch.int64)
+    bv, bp = _merge_seams(src, valid_len, bv, bp, block)
+
+    d = max(int(distance), 1)
+    tile_start = torch.arange(NB, device=dev)[None, :] * block
+    tile_end = tile_start + block - 1
+    bi = torch.arange(B, device=dev)
+    picked = torch.full((B, n_peaks), _SENTINEL, dtype=torch.int64, device=dev)
+    pos_out, h_out = [], []
+    for r in range(n_peaks):
+        k = bv.argmax(dim=1)
+        h = bv[bi, k]
+        pos = bp[bi, k]
+        real = torch.isfinite(h)
+        picked[:, r] = torch.where(real, pos, _SENTINEL)
+        lo = pos - d + 1
+        hi = pos + d - 1
+        full = (
+            (tile_start >= lo[:, None]) & (tile_end <= hi[:, None])
+            & real[:, None]
+        )
+        bv = torch.where(full, _NEG, bv)
+        for edge in (torch.div(lo, block, rounding_mode="floor"),
+                     torch.div(hi, block, rounding_mode="floor")):
+            in_range = (edge >= 0) & (edge < NB) & real
+            nv, npos = _rescan_tile(src, valid_len, picked, edge, d, block)
+            t = edge.clamp(0, NB - 1)
+            bv[bi, t] = torch.where(in_range, nv, bv[bi, t])
+            bp[bi, t] = torch.where(in_range, npos, bp[bi, t])
+        pos_out.append(pos)
+        h_out.append(h)
+    pos = torch.stack(pos_out, dim=1)  # [B, S]
+    height = torch.stack(h_out, dim=1)
+    cols = torch.arange(block, device=dev)
+
+    def gather_blocks(pb):
+        starts = pb.clamp(0, NB - 1) * block  # [B, S]
+        seg = src.slice_slots(starts, block)  # [B, S, block]
+        cv = (starts[..., None] + cols) < valid_len[:, None, None]
+        return torch.where(cv, seg, _POS), torch.where(cv, seg, _NEG)
+
+    prom = _prominences_from_blocks(
+        gather_blocks, bmin, bmax, pos.clamp(min=0), height, block
+    )
+    return pos.to(torch.int32), height, prom
+
+
+def pick_peaks_packed(
+    yr: torch.Tensor,  # [P, V] — even logical rows (pair-packed planes)
+    yi: torch.Tensor,  # [P, V] — odd logical rows
+    scale: torch.Tensor,  # [2P] f32 per logical row (inverse autocorr)
+    valid_len: torch.Tensor,  # [2P] int
+    distance: int,
+    n_peaks: int,
+    block: int = 2048,
+    plain: bool = False,
+):
+    """Up to ``n_peaks`` distance-filtered peaks per logical row of the
+    pair-packed planes (row 2p = ``yr[p]·scale[2p]``, 2p+1 =
+    ``yi[p]·scale[2p+1]``). Tiles are ``min(block, 512)`` columns and V
+    must be a multiple of that. ``plain=True`` reduces with the plain
+    version on any device (the reference path). Returns (pos int32,
+    height, prominence), each [2P, n_peaks]; exhausted slots have height
+    −inf."""
+    block = min(block, 512)
+    if yr.shape[1] % block:
+        raise ValueError("crop planes to a block multiple")
+    return _pick_peaks_from_source(
+        _PackedPairRows(yr, yi, scale, plain), valid_len, distance, n_peaks,
+        block,
+    )
+
+
+def peaks_crop_width(valid_max: int, block: int) -> int:
+    """Correlation crop width: a multiple of the reduction's input segment
+    (``min(block, 512)`` × ``GROUP`` columns)."""
+    unit = min(block, 512) * GROUP
+    return -(-valid_max // unit) * unit

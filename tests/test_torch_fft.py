@@ -1,0 +1,196 @@
+"""The port's FFT passes against the JAX package's Pallas kernels.
+
+Each pass's plain PyTorch version (what the wrapper runs on a CPU tensor)
+is held against the JAX pass in Pallas interpret mode, on the same numpy
+inputs, in the same scrambled layout, array for array. Tolerance: 3e-6 of
+the largest reference value (the JAX package's own FFT oracle bound,
+tests/test_pallas_fft.py); the JAX kernels run a DFT-128 matmul stage and
+the port's plain versions ``torch.fft``, which agree to about 5e-7.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from audio_matcher_tpu.ops import pallas_fft as J  # noqa: E402
+
+from audio_matcher_tpu_torch.models.matcher import quantize_wire  # noqa: E402
+from audio_matcher_tpu_torch.ops import cuda_fft as T  # noqa: E402
+
+TOL = 3e-6
+SIZES = [1 << 14, 1 << 15]
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        g, w = g.numpy(), _np(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g - w)) / np.max(np.abs(w)) < TOL
+
+
+def _wire(rng, shape, wire):
+    x = np.clip(rng.standard_normal(shape) * 0.15, -0.45, 0.45)
+    return quantize_wire(x.astype(np.float32), wire)
+
+
+def _spectrum(rng, n, B=3):
+    A, M = J.split_factors(n)
+    xr = rng.standard_normal((B, A, M)).astype(np.float32)
+    xi = rng.standard_normal((B, A, M)).astype(np.float32)
+    return xr, xi
+
+
+def test_factor_helpers_match():
+    for n in SIZES + [1 << 22]:
+        assert T.split_factors(n) == J.split_factors(n)
+        np.testing.assert_array_equal(T.scramble_index(n), J.scramble_index(n))
+        for w in (1, 8000, n // 3, n):
+            assert T.round_planes_width(w, n) == J.round_planes_width(w, n)
+    for L in (128, 2048):
+        np.testing.assert_array_equal(T._brev_host(L), J._brev_host(L))
+    with pytest.raises(ValueError):
+        T.split_factors(3 << 14)
+    with pytest.raises(ValueError):
+        T.split_factors(1 << 13)
+    assert T.MIN_N == J.MIN_N
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("wire", ["mulaw8", "int16"])
+def test_major_fwd_wire_matches(n, wire):
+    rng = np.random.default_rng(n + len(wire))
+    A, M = J.split_factors(n)
+    w_len = int(n * 0.72)  # the zero-pad tail is masked in the pass
+    win = _wire(rng, (3, n), wire)
+    want = J.fft_major_fwd_wire(
+        jnp.asarray(win).reshape(3, A, M), A, n, w_len, interpret=True
+    )
+    got = T.fft_major_fwd_wire(_t(win[:, :w_len]), A, n, w_len)
+    _close(got, want)
+    # a row longer than w_len: the tail is masked, not read
+    _close(T.fft_major_fwd_wire(_t(win), A, n, w_len), want)
+
+
+def test_major_fwd_wire_strided_windows(rng):
+    """Overlap-save windows as a strided view of one episode."""
+    n = SIZES[0]
+    A, M = J.split_factors(n)
+    chunk, W = 9000, 12002
+    ep = _wire(rng, 3 * chunk + W, "mulaw8")
+    rows = np.stack([ep[b * chunk : b * chunk + W] for b in range(4)])
+    view = _t(ep).as_strided((4, W), (chunk, 1))
+    want = J.fft_major_fwd_wire(
+        jnp.asarray(np.pad(rows, ((0, 0), (0, n - W)))).reshape(4, A, M),
+        A, n, W, interpret=True,
+    )
+    _close(T.fft_major_fwd_wire(view, A, n, W), want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_minor_matches(n, rng):
+    A, M = J.split_factors(n)
+    xr, xi = _spectrum(rng, n)
+    want = J.fft_minor(jnp.asarray(xr), jnp.asarray(xi), M, interpret=True)
+    _close(T.fft_minor(_t(xr), _t(xi), M), want)
+    # into preallocated planes, as the slab runs it
+    planes = (torch.empty(xr.shape), torch.empty(xr.shape))
+    got = T.fft_minor(_t(xr), _t(xi), M, out=planes)
+    assert got[0] is planes[0]
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_scrambled_query_spectra_odd_q(n, rng):
+    snippets = (rng.standard_normal((3, 3000)) * 0.2).astype(np.float32)
+    for pack in (True, False):
+        want = J.scrambled_query_spectra(snippets, n, pack)
+        got = T.scrambled_query_spectra(_t(snippets), n, pack)
+        assert got[0].shape == (2 if pack else 3, n)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_minor_product_matches(n, rng):
+    A, M = J.split_factors(n)
+    xr, xi = _spectrum(rng, n)
+    snippets = (rng.standard_normal((3, 2000)) * 0.2).astype(np.float32)
+    tr, ti = (_np(t).reshape(-1, A, M)
+              for t in J.scrambled_query_spectra(snippets, n, True))
+    want = J.ifft_minor_product(
+        jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(tr), jnp.asarray(ti),
+        M, interpret=True,
+    )
+    got = T.ifft_minor_product(_t(xr), _t(xi), _t(tr), _t(ti), M)
+    assert got[0].shape == (3 * 2, A, M)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("crop", ["full", "cropped"])
+def test_major_inverse_matches(n, crop, rng):
+    A, M = J.split_factors(n)
+    a_crop = A if crop == "full" else A // 2 + 8
+    xr, xi = _spectrum(rng, n, B=4)
+    want = J.fft_major(
+        jnp.asarray(xr), jnp.asarray(xi), A, n, inverse=True,
+        interpret=True, a_crop=a_crop,
+    )
+    got = T.fft_major(_t(xr), _t(xi), A, n, a_crop)
+    assert got[0].shape == (4, a_crop, M)
+    _close(got, want)
+    with pytest.raises(ValueError):
+        T.fft_major(_t(xr), _t(xi), A, n, A + 1)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "int16"])
+def test_corr_slab_planes_wire_matches(wire, rng):
+    """The whole slab: four passes from wire windows to cropped planes."""
+    n = SIZES[0]
+    A, M = J.split_factors(n)
+    W = 12002
+    win = _wire(rng, (5, W), wire)
+    snippets = (rng.standard_normal((3, 4000)) * 0.2).astype(np.float32)
+    tr, ti = J.scrambled_query_spectra(snippets, n, True)
+    width = 8 * M
+    want = J.corr_slab_vpu_planes_wire(
+        jnp.asarray(win), tr, ti, width, interpret=True
+    )
+    got = T.corr_slab_vpu_planes_wire(_t(win), _t(tr), _t(ti), width)
+    assert got[0].shape == (5 * 2, width)
+    _close(got, want)
+    # plain=True and preallocated work planes give the same planes
+    work = {}
+    again = T.corr_slab_vpu_planes_wire(
+        _t(win), _t(tr), _t(ti), width, plain=True, work=work
+    )
+    assert set(work) == {"x", "x2", "v", "y"}
+    _close(again, want)
+    with pytest.raises(ValueError):
+        T.corr_slab_vpu_planes_wire(_t(win), _t(tr), _t(ti), width + M)
+
+
+def test_wrappers_dispatch_by_device(rng):
+    """CPU tensors take the plain version (no launch is counted); a device
+    with neither a kernel nor a plain version is refused."""
+    n = SIZES[0]
+    A, M = J.split_factors(n)
+    before = [k.launches for k in T.KERNELS]
+    xr, xi = _spectrum(rng, n, B=1)
+    T.fft_minor(_t(xr), _t(xi), M)
+    assert [k.launches for k in T.KERNELS] == before
+    meta = torch.empty((1, A, M), device="meta")
+    with pytest.raises(ValueError):
+        T.fft_minor(meta, meta, M)
+    with pytest.raises(ValueError):
+        T.fft_minor(_t(xr), meta, M)

@@ -1,0 +1,114 @@
+"""The port runs without JAX, and its kernel build never falls back."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from audio_matcher_tpu_torch import _build  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCAN_WITHOUT_JAX = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import numpy as np
+    import audio_matcher_tpu_torch as pkg
+    for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        importlib.import_module(mod.name)
+    from audio_matcher_tpu_torch.models.matcher import (
+        MatchConfig, quantize_wire)
+    from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner
+
+    sr = 8000
+    rng = np.random.default_rng(3)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (4000, 3500)]
+    ep = (rng.standard_normal(5 * sr) * 0.05).astype(np.float32)
+    ep[2 * sr : 2 * sr + 4000] = snippets[0]
+    cfg = MatchConfig(chunk_secs=1.0, transfer_dtype="mulaw8")
+    scanner = ShardedScanner(snippets, sr, cfg)
+    peaks = scanner.scan_resident([quantize_wire(ep, "mulaw8")])
+    assert [p.position for p in peaks[0][0]] == [2 * sr], peaks
+    assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
+                   for m in sys.modules if sys.modules[m] is not None)
+    assert "audio_matcher_tpu" not in sys.modules
+    print("OK")
+    """
+)
+
+
+def test_port_imports_and_scans_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCAN_WITHOUT_JAX],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_no_jax_import_in_port_sources():
+    for path in (REPO / "audio_matcher_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            assert not (
+                words[:1] in (["import"], ["from"])
+                and len(words) > 1
+                and words[1].split(".")[0] in ("jax", "jaxlib",
+                                               "audio_matcher_tpu")
+            ), f"{path}: {line}"
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    """An environment where no nvcc can be found and nothing is built."""
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("CUDA_PATH", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", tmp_path / "none")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build._Loaded, "lib", None)
+
+
+def test_missing_nvcc_raises(no_nvcc):
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(_build.KernelBuildFailure):
+        _build.load()
+    assert not (_build.BUILD_DIR).exists()
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: no compiler here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build._Loaded, "lib", None)
+    with pytest.raises(_build.KernelBuildFailure, match="no compiler here"):
+        _build.load()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_library_name_follows_sources_and_flags(monkeypatch):
+    name = _build.library_path().name
+    assert name.startswith("libam_kernels_") and name.endswith(".so")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
+    assert _build.library_path().name != name
+    assert {p.name for p in _build.sources()} == {
+        "fft_passes.cu", "block_reduce.cu"
+    }
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_launch_error_raises():
+    _build.check(0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        _build.check(98, "am_minor_forward")

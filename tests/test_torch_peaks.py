@@ -1,0 +1,159 @@
+"""The port's peak picking against the JAX package's single-read path.
+
+The block reduction's plain version (what the wrapper runs on a CPU
+tensor) must equal ``local_max_block_reduce_packed`` in Pallas interpret
+mode exactly: the same f32 products, compared and reduced, with the same
+seam contract and argmax-first ties. ``pick_peaks_packed`` must then equal
+``pick_peaks_pallas_packed`` on the same planes, also exactly (positions,
+heights and prominences are selections and f32 differences of the same
+plane values).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from audio_matcher_tpu.ops.pallas_kernels import (  # noqa: E402
+    GROUP as JAX_GROUP,
+    local_max_block_reduce_packed as jax_reduce,
+)
+from audio_matcher_tpu.ops.peaks import (  # noqa: E402
+    peaks_crop_width as jax_crop_width,
+    pick_peaks_pallas_packed,
+)
+
+from audio_matcher_tpu_torch.ops.cuda_kernels import (  # noqa: E402
+    GROUP,
+    local_max_block_reduce_packed,
+)
+from audio_matcher_tpu_torch.ops.peaks import (  # noqa: E402
+    peaks_crop_width,
+    pick_peaks_packed,
+)
+
+SEG = 512 * GROUP  # columns per segment of the reduction
+
+
+def _planes(seed, P, V):
+    rng = np.random.default_rng(seed)
+    yr = rng.standard_normal((P, V)).astype(np.float32)
+    yi = rng.standard_normal((P, V)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, 2 * P).astype(np.float32)
+    return yr, yi, scale
+
+
+def _plant_edge_cases(yr, yi):
+    V = yr.shape[1]
+    yr[0, 1000:1010] = 6.0  # a plateau: never a strict peak
+    yr[0, 3000] = yr[0, 3100] = 7.0  # equal peaks in one tile: lower wins
+    yi[0, 4000:4600:2] = 5.0  # many equal peaks across a tile edge
+    if V > 2 * SEG:
+        yr[0, SEG - 1] = 9.0  # the blind columns at a segment seam
+        yr[0, SEG] = 9.5
+        yi[1 % yi.shape[0], 2 * SEG] = 8.0
+        yr[0, SEG - 200] = 9.5  # ties with the seam column
+    return yr, yi
+
+
+def _both_reduce(yr, yi, scale, valid, block=512):
+    want = jax_reduce(
+        jnp.asarray(yr), jnp.asarray(yi), jnp.asarray(scale),
+        jnp.asarray(valid), block=block, interpret=True,
+    )
+    got = local_max_block_reduce_packed(
+        torch.from_numpy(yr), torch.from_numpy(yi), torch.from_numpy(scale),
+        torch.from_numpy(valid), block,
+    )
+    return got, want
+
+
+def test_group_matches():
+    assert GROUP == JAX_GROUP
+
+
+@pytest.mark.parametrize(
+    "P,V,valid",
+    [
+        # multi-segment rows (NB = 300 > GROUP), a valid_len-0 row, a
+        # row cut mid-tile, one cut just past a seam
+        (2, 512 * 300, lambda V: [V, 0, V - 7, SEG + 1]),
+        # a single segment, valid lengths near the row's ends
+        (3, 512 * 40, lambda V: [V, 2, 3, V - 1, 0, 600]),
+    ],
+)
+def test_block_reduce_plain_equals_jax_kernel(P, V, valid):
+    yr, yi, scale = _planes(P * V, P, V)
+    yr, yi = _plant_edge_cases(yr, yi)
+    vl = np.asarray(valid(V), np.int32)
+    got, want = _both_reduce(yr, yi, scale, vl)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    # a valid_len-0 row emits nothing
+    zero = int(np.flatnonzero(vl == 0)[0])
+    assert np.all(np.isneginf(got[0][zero].numpy()))
+
+
+def test_block_reduce_narrow_tiles():
+    yr, yi, scale = _planes(9, 2, 256 * 140)
+    vl = np.asarray([256 * 140, 256 * 139 + 5, 0, 9000], np.int32)
+    got, want = _both_reduce(yr, yi, scale, vl, block=256)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_block_reduce_rejects_bad_shapes():
+    x = torch.zeros((2, 1000))
+    with pytest.raises(ValueError):
+        local_max_block_reduce_packed(x, x, torch.ones(4), torch.ones(4), 512)
+    x = torch.zeros((2, 1024))
+    with pytest.raises(ValueError):
+        local_max_block_reduce_packed(x, x, torch.ones(3), torch.ones(4), 512)
+
+
+@pytest.mark.parametrize(
+    "P,V,distance,n_peaks",
+    [
+        (2, 512 * 300, 5000, 4),  # seams repaired, mid-tile suppression
+        (3, 512 * 32, 700, 6),
+        (2, 512 * 260, 1, 3),  # distance 1: nothing suppressed
+        (2, 512 * 20, 10**7, 3),  # one pick empties the row
+    ],
+)
+def test_pick_peaks_packed_equals_jax(P, V, distance, n_peaks):
+    yr, yi, scale = _planes(V + distance, P, V)
+    yr, yi = _plant_edge_cases(yr, yi)
+    vl = np.asarray([V, V - 3000, 0, V - 7, V, 5][: 2 * P], np.int32)
+    want = pick_peaks_pallas_packed(
+        jnp.asarray(yr), jnp.asarray(yi), jnp.asarray(scale),
+        jnp.asarray(vl), distance, n_peaks, 2048, interpret=True,
+    )
+    got = pick_peaks_packed(
+        torch.from_numpy(yr), torch.from_numpy(yi), torch.from_numpy(scale),
+        torch.from_numpy(vl), distance, n_peaks, 2048,
+    )
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (2 * P, n_peaks)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the plain reduction selected explicitly gives the same picks
+    again = pick_peaks_packed(
+        torch.from_numpy(yr), torch.from_numpy(yi), torch.from_numpy(scale),
+        torch.from_numpy(vl), distance, n_peaks, 2048, plain=True,
+    )
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_crop_width_matches():
+    for valid in (1, 8003, 65536, 65537, 2_800_353):
+        for block in (256, 512, 2048):
+            assert peaks_crop_width(valid, block) == jax_crop_width(
+                valid, block, "pallas"
+            )
+    with pytest.raises(ValueError):
+        z = torch.zeros((1, 700))
+        pick_peaks_packed(z, z, torch.ones(2), torch.ones(2), 10, 2, 512)
