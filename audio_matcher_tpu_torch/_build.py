@@ -33,12 +33,16 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
     "am_major_fwd_wire": (_I, _P, _LL, _P, _P, _I, _I, _I, _LL, _P),
+    "am_major_fwd_wire2": (
+        _I, _P, _LL, _P, _LL, _I, _P, _P, _I, _I, _I, _LL, _P
+    ),
     "am_major_inverse": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_minor_forward": (_P, _P, _P, _P, _I, _I, _P),
     "am_minor_product": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_block_reduce_packed": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P
     ),
+    "am_block_reduce": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P),
 }
 
 

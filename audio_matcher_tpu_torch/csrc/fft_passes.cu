@@ -1,10 +1,20 @@
-// The two-factor scrambled FFT passes of the batch scan, for Hopper (sm_90a).
+// The two-factor scrambled FFT passes of the scans, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of audio_matcher_tpu/ops/pallas_fft.py:
-//   major_pass<In, false>  <- fft_major_fwd_wire (_major_fwd_wire_kernel)
-//   major_pass<float, true><- fft_major(inverse=True, cross=True, a_crop)
-//   minor_pass<false>      <- fft_minor (forward)
-//   minor_pass<true>       <- ifft_minor_product (_minor_product_kernel)
+//   major_pass<In, false>       <- fft_major_fwd_wire (_major_fwd_wire_kernel)
+//   major_pass<In, false, true> <- fft_major_fwd_wire2 (_major_fwd_wire2_kernel)
+//   major_pass<float, true>     <- fft_major(inverse=True, cross=True, a_crop)
+//   minor_pass<false>           <- fft_minor (forward)
+//   minor_pass<true>            <- ifft_minor_product (_minor_product_kernel)
+//
+// The pair mode is the single-query path: two wire windows go in as
+// fft(w0 + i*w1), both decoded in-register. The windows are strided views
+// of the staged episode (even and odd windows at twice the hop), read by
+// pointer and stride; the pad window of an odd slab is never materialized:
+// rows past the odd windows' count read wire silence instead. At one query
+// the slab is small: at config #2 (8 windows, A = M = 2048) the pair pass
+// reads 8 x 3.1 MB of mu-law and writes 2 x 4 x 16 MB of planes, in M/8 = 256
+// strips per pair, 1024 blocks, about 8 waves of one block per SM.
 //
 // What is computed. A transform of length n = A*M is viewed as [A, M],
 // a-major. The forward major pass runs a radix-2 DIF over the strided A axis
@@ -132,15 +142,24 @@ __device__ __forceinline__ void dif_stages(float* sr, float* si,
     }
 }
 
+// The wire code of silence: mu-law's zero is code 128, the others' is 0.
+template <typename In>
+__device__ __forceinline__ In wire_silence() { return In(0); }
+template <>
+__device__ __forceinline__ uint8_t wire_silence<uint8_t>() { return 128; }
+
 // One block per (batch p, strip of MAJOR_COLS columns).
 // Forward (INVERSE = false): x is the real wire-dtype input, row p at
 // x + p*in_stride, element (a, c) at a*M + c, read only below w_len (zero past
-// it); output [P, A, M] planes.
+// it); output [P, A, M] planes. PAIR: the imaginary plane is read the same
+// way from x1 + p*x1_stride for p < x1_rows; rows p >= x1_rows pair with
+// wire silence (the pad window of an odd slab), decoded like any sample.
 // Inverse: x, xi are [P, A, M] f32 planes; output [P, a_crop, M].
-template <typename In, bool INVERSE>
+template <typename In, bool INVERSE, bool PAIR = false>
 __global__ void __launch_bounds__(MAJOR_THREADS)
 major_pass(const In* __restrict__ x, const float* __restrict__ xi,
-           long long in_stride, float* __restrict__ yr,
+           long long in_stride, const In* __restrict__ x1,
+           long long x1_stride, int x1_rows, float* __restrict__ yr,
            float* __restrict__ yi, int log2A, int log2M, long long w_len,
            int a_crop) {
     extern __shared__ float smem[];
@@ -158,13 +177,20 @@ major_pass(const In* __restrict__ x, const float* __restrict__ xi,
 
     const In* xp = x + p * in_stride;
     const float* xip = INVERSE ? xi + p * in_stride : nullptr;
+    const bool x1_real = PAIR && p < x1_rows;
+    const In* x1p = x1_real ? x1 + p * x1_stride : nullptr;
+    const float x1_silence = PAIR ? dequant(wire_silence<In>()) : 0.0f;
     for (int e = threadIdx.x; e < A * C; e += blockDim.x) {
         const int a = e >> log2C;
         const int col = c0 + (e & (C - 1));
         const long long idx = ((long long)a << log2M) + col;
         if (!INVERSE) {
-            sr[e] = idx < w_len ? dequant(xp[idx]) : 0.0f;
-            si[e] = 0.0f;
+            const bool in = idx < w_len;
+            sr[e] = in ? dequant(xp[idx]) : 0.0f;
+            if (PAIR)
+                si[e] = in ? (x1_real ? dequant(x1p[idx]) : x1_silence) : 0.0f;
+            else
+                si[e] = 0.0f;
         } else {
             // conjugate cross twiddle BEFORE undoing the major FFT
             const float vr = (float)xp[idx], vi = xip[idx];
@@ -278,43 +304,68 @@ size_t minor_smem(int log2M) {
     return 3 * M * sizeof(float);
 }
 
-template <typename In>
-int launch_major_fwd(const void* x, long long in_stride, float* yr, float* yi,
+template <typename In, bool PAIR>
+int launch_major_fwd(const void* x, long long in_stride, const void* x1,
+                     long long x1_stride, int x1_rows, float* yr, float* yi,
                      int P, int log2A, int log2M, long long w_len,
                      cudaStream_t stream) {
-    auto kern = major_pass<In, false>;
+    auto kern = major_pass<In, false, PAIR>;
     const size_t smem = major_smem(log2A);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((1 << log2M) / MAJOR_COLS, P);
     kern<<<grid, MAJOR_THREADS, smem, stream>>>(
-        (const In*)x, nullptr, in_stride, yr, yi, log2A, log2M, w_len, 0);
+        (const In*)x, nullptr, in_stride, (const In*)x1, x1_stride, x1_rows,
+        yr, yi, log2A, log2M, w_len, 0);
     return (int)cudaGetLastError();
+}
+
+// dtype: 0 = uint8 (mulaw8 wire), 1 = int16, 2 = float32.
+template <bool PAIR>
+int launch_major_fwd_wire(int dtype, const void* x, long long in_stride,
+                          const void* x1, long long x1_stride, int x1_rows,
+                          float* yr, float* yi, int P, int log2A, int log2M,
+                          long long w_len, cudaStream_t s) {
+    switch (dtype) {
+        case 0:
+            return launch_major_fwd<uint8_t, PAIR>(
+                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
+                log2M, w_len, s);
+        case 1:
+            return launch_major_fwd<int16_t, PAIR>(
+                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
+                log2M, w_len, s);
+        case 2:
+            return launch_major_fwd<float, PAIR>(
+                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
+                log2M, w_len, s);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = uint8 (mulaw8 wire), 1 = int16, 2 = float32.
 int am_major_fwd_wire(int dtype, const void* x, long long in_stride,
                       float* yr, float* yi, int P, int log2A, int log2M,
                       long long w_len, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (dtype) {
-        case 0:
-            return launch_major_fwd<uint8_t>(x, in_stride, yr, yi, P, log2A,
-                                             log2M, w_len, s);
-        case 1:
-            return launch_major_fwd<int16_t>(x, in_stride, yr, yi, P, log2A,
-                                             log2M, w_len, s);
-        case 2:
-            return launch_major_fwd<float>(x, in_stride, yr, yi, P, log2A,
-                                           log2M, w_len, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return launch_major_fwd_wire<false>(dtype, x, in_stride, nullptr, 0, 0,
+                                        yr, yi, P, log2A, log2M, w_len,
+                                        (cudaStream_t)stream);
+}
+
+// fft(w0 + i*w1): row p of x0 is the real plane's window, row p of x1 (for
+// p < x1_rows) the imaginary plane's; later rows pair with wire silence.
+int am_major_fwd_wire2(int dtype, const void* x0, long long x0_stride,
+                       const void* x1, long long x1_stride, int x1_rows,
+                       float* yr, float* yi, int P, int log2A, int log2M,
+                       long long w_len, void* stream) {
+    return launch_major_fwd_wire<true>(dtype, x0, x0_stride, x1, x1_stride,
+                                       x1_rows, yr, yi, P, log2A, log2M,
+                                       w_len, (cudaStream_t)stream);
 }
 
 int am_major_inverse(const float* xr, const float* xi, float* yr, float* yi,
@@ -326,8 +377,8 @@ int am_major_inverse(const float* xr, const float* xi, float* yr, float* yi,
     if (err != cudaSuccess) return (int)err;
     dim3 grid((1 << log2M) / MAJOR_COLS, P);
     kern<<<grid, MAJOR_THREADS, smem, (cudaStream_t)stream>>>(
-        xr, xi, (long long)1 << (log2A + log2M), yr, yi, log2A, log2M, 0,
-        a_crop);
+        xr, xi, (long long)1 << (log2A + log2M), nullptr, 0, 0, yr, yi,
+        log2A, log2M, 0, a_crop);
     return (int)cudaGetLastError();
 }
 

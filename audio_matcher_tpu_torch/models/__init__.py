@@ -1,1 +1,1 @@
-"""Host-side matcher seams of the port."""
+"""The snippet matcher and the host-side matcher seams of the port."""

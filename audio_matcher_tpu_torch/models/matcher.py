@@ -1,8 +1,14 @@
-"""Host-side matcher seams of the port (``models/matcher.py``).
+"""The snippet matcher and the host-side matcher seams of the port
+(``models/matcher.py``).
 
-The config, the staging wire format, the slab policy, overlap-save
-windowing and the cross-window dedup, with the reference semantics listed
-in ``audio_matcher_tpu/models/matcher.py``:
+:class:`SnippetMatcher` scans episodes against one query snippet
+(BASELINE config #2): the episode is staged once in its wire dtype,
+overlap-save windows are strided views of it, and each slab of windows
+runs the single-query correlation and the single-read peak picking on the
+episode's device, in a Python loop over slabs. Beside it: the config, the
+staging wire format, the slab policy, overlap-save windowing and the
+cross-window dedup, with the reference semantics listed in
+``audio_matcher_tpu/models/matcher.py``:
 
   * window = chunk + overlap, hop = chunk; short tail windows keep their
     true length, windows shorter than the snippet yield nothing.
@@ -15,12 +21,34 @@ in ``audio_matcher_tpu/models/matcher.py``:
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import logging
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.peaks import Peak
+from ..ops.correlate import (
+    PreparedSnippet,
+    corr_single_query_packed,
+    fft_length,
+    prepare_snippet,
+    query_spectrum,
+)
+from ..ops.cuda_fft import (
+    MIN_N,
+    corr_single_query_vpu_planes_wire,
+    round_planes_width,
+    scrambled_query_spectra,
+)
+from ..ops.peaks import (
+    Peak,
+    peaks_crop_width,
+    pick_peaks_dispatch,
+    pick_peaks_packed,
+)
+from ..ops.wire import dequant_to_f32, silence_code
+
+log = logging.getLogger("audio_matcher_torch.matcher")
 
 DEFAULT_CHUNK_SECS = 60.0
 DEFAULT_DISTANCE_SECS = 8 * 60.0
@@ -30,9 +58,11 @@ DEFAULT_PROMINENCE = 13.0
 @dataclasses.dataclass(frozen=True)
 class MatchConfig:
     """The JAX package's ``MatchConfig``, field for field. The defaults of
-    ``fft_impl`` and ``peaks_impl`` name the one path the port runs (the
-    two-factor FFT passes and the single-read peak reduction); the JAX
-    package defaults to ``"xla"``/``"jnp"``, which the port refuses."""
+    ``fft_impl`` and ``peaks_impl`` name the port's main path (the
+    two-factor FFT passes and the single-read peak reduction); the port
+    also runs ``fft_impl="xla_packed"`` with ``"pallas"`` peaks. The JAX
+    package defaults to ``"xla"``/``"jnp"``, which the port refuses
+    (:func:`resolve_fft_impl`)."""
 
     chunk_secs: float = DEFAULT_CHUNK_SECS
     distance_secs: float = DEFAULT_DISTANCE_SECS
@@ -56,6 +86,36 @@ class MatchConfig:
         if self.prominence_is_raw:
             return self.prominence
         return self.prominence / 100.0
+
+
+def resolve_fft_impl(cfg: MatchConfig, fft_len: int) -> str:
+    """The correlation path a matcher runs for ``cfg`` at ``fft_len``:
+    ``"vpu"`` (the two-factor FFT kernels), or ``"xla_packed"`` (torch.fft
+    and the dense peak reduction), which ``"vpu"`` also falls back to
+    below ``MIN_N`` where two 128-wide factors do not fit, as in the JAX
+    package. What the port lacks raises, naming its ROADMAP item."""
+    if cfg.peaks_impl != "pallas":
+        raise NotImplementedError(
+            f"peaks_impl={cfg.peaks_impl!r}: only 'pallas' (the single-read "
+            "picker) is ported (ROADMAP P3)"
+        )
+    if cfg.fft_impl not in ("vpu", "xla_packed"):
+        raise NotImplementedError(
+            f"fft_impl={cfg.fft_impl!r}: only 'vpu' and 'xla_packed' are "
+            "ported (ROADMAP P3)"
+        )
+    if cfg.fft_impl == "vpu" and fft_len < MIN_N:
+        return "xla_packed"
+    return cfg.fft_impl
+
+
+def correlation_crop(
+    valid_max: int, block: int, fft_len: int, fft_impl: str
+) -> int:
+    """Columns of correlation a slab computes: the peak reduction's
+    segment multiple, on the planes kernels' 8·M grid for ``"vpu"``."""
+    crop = min(peaks_crop_width(valid_max, block), fft_len)
+    return round_planes_width(crop, fft_len) if fft_impl == "vpu" else crop
 
 
 _I16_SCALE = np.float32(65535.0)
@@ -118,7 +178,7 @@ def quantize_wire(samples: np.ndarray, transfer_dtype: str) -> np.ndarray:
 def wire_silence(transfer_dtype: str) -> int:
     """Wire value of silence: 0, but μ-law's zero is code 128 (code 0
     decodes to about −0.5 full scale)."""
-    return 128 if transfer_dtype == "mulaw8" else 0
+    return silence_code(TORCH_WIRE_DTYPES[transfer_dtype])
 
 
 def wire_buffer(shape, transfer_dtype: str) -> np.ndarray:
@@ -128,13 +188,47 @@ def wire_buffer(shape, transfer_dtype: str) -> np.ndarray:
     )
 
 
+def _fill_wire_rows(episodes, n_pad: int, transfer: str, out: np.ndarray):
+    """Pack episodes into the [rows, n_pad] wire-dtype buffer ``out``;
+    rows past the episodes and every tail are wire silence. Rows already
+    in the wire dtype are copied; others quantize here."""
+    dtype = WIRE_DTYPES[transfer]
+    out.fill(wire_silence(transfer))
+    for i, ep in enumerate(episodes):
+        ep = np.asarray(ep)
+        if len(ep) > n_pad:
+            raise ValueError(f"episode {i} is longer than the staged width")
+        out[i, : len(ep)] = ep if ep.dtype == dtype else quantize_wire(
+            ep, transfer
+        )
+    return out
+
+
+def stage_rows_host(episodes, ns, n_pad: int, transfer: str, e_pad: int,
+                    device):
+    """Fill a (pinned, for a CUDA device) host buffer with the wire rows
+    and upload it with one copy; no computation runs on the device.
+    Returns the staged triple (tensor [e_pad, n_pad], ns_pad, n_real)."""
+    ns_pad = np.zeros(e_pad, np.int32)
+    ns_pad[: len(ns)] = ns
+    host = torch.empty(
+        (e_pad, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
+        pin_memory=device.type == "cuda",
+    )
+    _fill_wire_rows(episodes, n_pad, transfer, host.numpy())
+    staged = host if device.type == "cpu" else host.to(
+        device, non_blocking=True
+    )
+    return staged, ns_pad, len(episodes)
+
+
 def pad_wire_on_device(episode: torch.Tensor, target: int) -> torch.Tensor:
     """Pad a staged wire episode to ``target`` samples with silence
     (uint8 pads with 128, the μ-law code of 0), on its own device."""
     short = target - episode.shape[0]
     if short <= 0:
         return episode
-    fill = 128 if episode.dtype == torch.uint8 else 0
+    fill = silence_code(episode.dtype)
     return torch.cat([episode, episode.new_full((short,), fill)])
 
 
@@ -178,6 +272,24 @@ def effective_slab(cfg, n_windows: int) -> int:
     if not getattr(cfg, "slab_auto", True):
         return cfg.slab
     return pick_slab(n_windows, cfg.slab)
+
+
+def staged_width(cfg, chunk: int, overlap: int, n_max: int) -> int:
+    """Samples per staged episode row: the longest episode's windows
+    padded to whole slabs, plus the last window's overlap."""
+    n_windows = max(-(-n_max // chunk), 1)
+    s = effective_slab(cfg, n_windows)
+    return -(-n_windows // s) * s * chunk + overlap
+
+
+def scan_slab(cfg, chunk: int, n_max: int, n_windows_pad: int) -> int:
+    """The slab a staged buffer of ``n_windows_pad`` windows scans with:
+    the staging policy's, or the largest divisor when the buffer was
+    staged under another policy."""
+    slab = effective_slab(cfg, max(-(-n_max // chunk), 1))
+    if n_windows_pad % slab:
+        slab = divisor_slab(n_windows_pad, cfg.slab)
+    return slab
 
 
 def windows_from_episode(
@@ -226,3 +338,345 @@ def overshadow_filter(
         if not shadowed:
             out.append(p)
     return out
+
+
+# ------------------------------------------------------- the single query
+def single_query_slab(
+    windows, valid, spectrum, inv_ac, crop: int, distance: int,
+    n_peaks: int, block: int, fft_impl: str, plain: bool = False,
+    work: dict | None = None,
+):
+    """Peaks of one query against a slab of B windows → (pos, h, prom),
+    each [B, n_peaks].
+
+    ``"vpu"``: ``windows`` in the wire dtype, ``spectrum`` the (s_r, s_i)
+    pair of ``scrambled_query_spectra(pack=False)``; window pairs share
+    each transform, and ``inv_ac`` scales the planes inside the peak
+    reduction's read. ``"xla_packed"``: f32 windows, ``spectrum`` complex
+    [n] (:func:`~..ops.correlate.query_spectrum`). ``valid`` [B] holds the
+    windows' valid correlation lengths; ``inv_ac`` is a 0-d f32 tensor.
+    ``plain`` runs every kernel's plain version; ``work`` keeps the FFT
+    planes across slabs.
+    """
+    B = windows.shape[0]
+    if fft_impl == "vpu":
+        yr, yi = corr_single_query_vpu_planes_wire(
+            windows, spectrum[0], spectrum[1], crop, plain=plain, work=work
+        )
+        L = 2 * yr.shape[0]  # logical rows incl. an odd slab's pad
+        valid = torch.nn.functional.pad(valid, (0, L - B))  # pad: nothing
+        out = pick_peaks_packed(
+            yr, yi, inv_ac.expand(L), valid, distance, n_peaks, block,
+            plain=plain,
+        )
+        return tuple(a[:B] for a in out)
+    c = corr_single_query_packed(windows, spectrum, crop) * inv_ac
+    return pick_peaks_dispatch(
+        c, valid, distance, n_peaks, block, "pallas", plain=plain
+    )
+
+
+def _match_episode_resident(
+    episode, n: int, sample_f, inv_ac, chunk: int, window: int, m: int,
+    fft_len: int, valid_max: int, distance: int, n_peaks: int, block: int,
+    slab: int, n_slabs: int, fft_impl: str = "vpu",
+    peaks_impl: str = "pallas", base0: int = 0, plain: bool = False,
+    work: dict | None = None,
+):
+    """Scan one staged episode against one query: a Python loop over
+    ``n_slabs`` slabs starting at window ``base0`` (the live path scans
+    one group of slabs per call). The episode is padded with wire silence
+    on its device to cover the windows; ``"xla_packed"`` dequantizes it
+    there once before windowing. Returns (pos, h, prom), each
+    [n_slabs·slab, n_peaks], on the episode's device."""
+    if peaks_impl != "pallas":
+        raise NotImplementedError(
+            f"peaks_impl={peaks_impl!r}: only 'pallas' is ported (ROADMAP P3)"
+        )
+    k_rows = window_rows(window, chunk)
+    episode = pad_wire_on_device(
+        episode, (base0 + n_slabs * slab + k_rows) * chunk
+    )
+    if fft_impl != "vpu":
+        episode = dequant_to_f32(episode)
+    dev = episode.device
+    crop = correlation_crop(valid_max, block, fft_len, fft_impl)
+    inv = torch.as_tensor(inv_ac, dtype=torch.float32).to(dev).reshape(())
+    work = {} if work is None else work
+    outs = []
+    for s in range(n_slabs):
+        base = base0 + s * slab
+        starts = (base + torch.arange(slab, device=dev)) * chunk
+        windows = windows_from_episode(episode, base, slab, chunk, window)
+        win_len = (n - starts).clamp(0, window)
+        valid = (win_len - m + 1).clamp(min=0)
+        outs.append(single_query_slab(
+            windows, valid, sample_f, inv, crop, distance, n_peaks, block,
+            fft_impl, plain, work,
+        ))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _match_batch_resident(episodes, ns, sample_f, inv_ac, **kw):
+    """:func:`_match_episode_resident` over the rows of a staged [E, Npad]
+    batch (``ns`` [E] host ints), sharing one set of work planes →
+    (pos, h, prom), each [E, n_slabs·slab, n_peaks]."""
+    work: dict = {}
+    per = [
+        _match_episode_resident(
+            episodes[e], int(ns[e]), sample_f, inv_ac, work=work, **kw
+        )
+        for e in range(episodes.shape[0])
+    ]
+    return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+
+
+class SnippetMatcher:
+    """Scan episodes for one query snippet (BASELINE config #2), reusable
+    across episodes.
+
+    ``device``: the torch device that stages and scans (default the CPU,
+    where every kernel runs its plain version). ``plain``: run every
+    kernel's plain PyTorch version on any device (the reference path).
+    """
+
+    def __init__(
+        self,
+        snippet: np.ndarray,
+        sr: int,
+        config: MatchConfig | None = None,
+        device="cpu",
+        plain: bool = False,
+    ):
+        self.sr = int(sr)
+        self.config = cfg = config or MatchConfig()
+        self.device = torch.device(device)
+        self.plain = bool(plain)
+        self.snippet: PreparedSnippet = prepare_snippet(snippet)
+        overlap_secs = (
+            cfg.overlap_secs if cfg.overlap_secs is not None
+            else self.snippet.m / self.sr
+        )
+        # +2: a peak on the exact hop boundary would otherwise sit on the
+        # excluded edge column of both adjacent windows
+        self.overlap = int(round(overlap_secs * self.sr)) + 2
+        self.chunk = int(round(cfg.chunk_secs * self.sr))
+        if self.chunk + self.overlap < self.snippet.m:
+            # a window shorter than the snippet could never emit a peak
+            log.warning(
+                "chunk+overlap (%d samples) < snippet length (%d); raising "
+                "overlap to the snippet length so matches stay findable",
+                self.chunk + self.overlap, self.snippet.m,
+            )
+            self.overlap = self.snippet.m + 2
+        self.window = self.chunk + self.overlap
+        self.valid = self.window - self.snippet.m + 1
+        self.fft_len = fft_length(self.window + self.snippet.m - 1)
+        self.fft_impl = resolve_fft_impl(cfg, self.fft_len)
+        self.distance_samples = int(cfg.distance_secs) * self.sr
+        per_chunk = self.valid // max(self.distance_samples, 1) + 2
+        self.n_peaks = min(per_chunk, cfg.max_peaks_per_chunk)
+        if per_chunk > cfg.max_peaks_per_chunk:
+            log.warning(
+                "distance %.1fs allows %d peaks/chunk; capping at %d",
+                cfg.distance_secs, per_chunk, cfg.max_peaks_per_chunk,
+            )
+        self._sample_f_cache = None
+
+    @property
+    def _sample_f(self):
+        """The query spectrum on the matcher's device, computed on first
+        use: the scrambled (s_r, s_i) [1, n] pair for ``"vpu"``, the
+        conjugated full spectrum [n] for ``"xla_packed"``."""
+        if self._sample_f_cache is None:
+            snip = torch.from_numpy(self.snippet.data).to(self.device)
+            if self.fft_impl == "vpu":
+                self._sample_f_cache = scrambled_query_spectra(
+                    snip[None], self.fft_len, False
+                )
+            else:
+                self._sample_f_cache = query_spectrum(snip, self.fft_len)
+        return self._sample_f_cache
+
+    def _scan_kwargs(self, slab: int, n_slabs: int) -> dict:
+        return dict(
+            chunk=self.chunk, window=self.window, m=self.snippet.m,
+            fft_len=self.fft_len, valid_max=self.valid,
+            distance=self.distance_samples, n_peaks=self.n_peaks,
+            block=self.config.block, slab=slab, n_slabs=n_slabs,
+            fft_impl=self.fft_impl, peaks_impl=self.config.peaks_impl,
+            plain=self.plain,
+        )
+
+    def _inv_ac(self, scale: bool) -> np.float32:
+        return np.float32(self.snippet.inv_autocorr if scale else 1.0)
+
+    def stage(self, samples: np.ndarray, n_samples: int | None = None):
+        """Pad an episode to whole slabs of windows in the wire dtype and
+        upload it with one copy from a pinned host buffer; no computation
+        runs on the device. ``n_samples`` truncates or zero-extends the
+        stream first. Returns (episode tensor [Npad], n) for
+        :meth:`match_staged`."""
+        samples = np.ascontiguousarray(samples)
+        if n_samples is not None:
+            if n_samples <= len(samples):
+                samples = samples[:n_samples]
+            else:
+                tail = np.zeros(n_samples - len(samples), samples.dtype)
+                samples = np.concatenate([samples, tail])
+        n = len(samples)
+        width = staged_width(self.config, self.chunk, self.overlap, n)
+        staged, _, _ = stage_rows_host(
+            [samples], [n], width, self.config.transfer_dtype, 1, self.device
+        )
+        return staged[0], n
+
+    def stage_batch(self, episodes: Sequence[np.ndarray]):
+        """Stage several episodes as one [E, Npad] tensor (one copy; every
+        row padded to the longest). Returns (tensor, ns) for
+        :meth:`match_staged_batch`."""
+        ns = np.array([len(e) for e in episodes], np.int32)
+        n_max = int(ns.max()) if len(ns) else 0
+        width = staged_width(self.config, self.chunk, self.overlap, n_max)
+        staged, _, _ = stage_rows_host(
+            episodes, ns, width, self.config.transfer_dtype, len(episodes),
+            self.device,
+        )
+        return staged, ns
+
+    def match(
+        self,
+        samples: np.ndarray,
+        scale: bool = True,
+        n_samples: int | None = None,
+        progress: Callable[[str, int], None] | None = None,
+    ) -> list[Peak]:
+        """Scan an episode; returns deduped peaks sorted by position.
+        ``scale=False`` leaves correlations (and prominences) unscaled by
+        the inverse autocorrelation. ``progress`` receives
+        ("start"|"finish", chunk_index) callbacks."""
+        return self.match_staged(
+            self.stage(samples, n_samples), scale=scale, progress=progress
+        )
+
+    def _extract_peaks(
+        self, pos, h, prom, n_windows: int, progress=None
+    ) -> list[Peak]:
+        cfg = self.config
+        candidates: list[Peak] = []
+        for k in range(n_windows):
+            for s in range(pos.shape[1]):
+                if np.isfinite(h[k, s]) and prom[k, s] >= cfg.min_prominence:
+                    candidates.append(
+                        Peak(
+                            position=int(pos[k, s]) + self.chunk * k,
+                            height=float(h[k, s]),
+                            prominence=float(prom[k, s]),
+                        )
+                    )
+            if progress:
+                progress("finish", k)
+        return overshadow_filter(candidates, self.sr, cfg.distance_secs)
+
+    def match_staged(
+        self,
+        staged,
+        scale: bool = True,
+        progress: Callable[[str, int], None] | None = None,
+    ) -> list[Peak]:
+        """Scan an episode uploaded with :meth:`stage`. With ``progress``
+        and more than one slab, slabs run in groups of
+        ``progress_slabs_per_dispatch`` (:meth:`_match_staged_live`)."""
+        episode_dev, n = staged
+        if n == 0:
+            return []
+        n_windows = max(-(-n // self.chunk), 1)
+        n_windows_pad = (episode_dev.shape[0] - self.overlap) // self.chunk
+        B = scan_slab(self.config, self.chunk, n, n_windows_pad)
+        n_slabs = n_windows_pad // B
+        inv_ac = self._inv_ac(scale)
+        if (progress and n_slabs > 1
+                and self.config.progress_slabs_per_dispatch > 0):
+            return self._match_staged_live(
+                episode_dev, n, inv_ac, n_windows, n_slabs, B, progress
+            )
+        if progress:
+            for k in range(n_windows):
+                progress("start", k)
+        out = _match_episode_resident(
+            episode_dev, n, self._sample_f, inv_ac,
+            **self._scan_kwargs(B, n_slabs),
+        )
+        pos, h, prom = (a.cpu().numpy() for a in out)
+        return self._extract_peaks(pos, h, prom, n_windows, progress)
+
+    def _match_staged_live(
+        self, episode_dev, n: int, inv_ac, n_windows: int, n_slabs: int,
+        B: int, progress: Callable[[str, int], None],
+    ) -> list[Peak]:
+        """Scan in groups of ``progress_slabs_per_dispatch`` slabs: a
+        group's windows get "start" when its work is enqueued and
+        "finish" once its results are read back, so progress follows the
+        device. Same results as the one-call path."""
+        g = self.config.progress_slabs_per_dispatch
+        k_rows = window_rows(self.window, self.chunk)
+        # pad once, and dequantize once off the wire path, for all groups
+        episode_dev = pad_wire_on_device(
+            episode_dev, (n_slabs * B + k_rows) * self.chunk
+        )
+        if self.fft_impl != "vpu":
+            episode_dev = dequant_to_f32(episode_dev)
+        work: dict = {}
+        parts = []
+        for a in range(0, n_slabs, g):
+            gg = min(g, n_slabs - a)
+            w_lo, w_hi = a * B, min((a + gg) * B, n_windows)
+            for k in range(w_lo, w_hi):
+                progress("start", k)
+            out = _match_episode_resident(
+                episode_dev, n, self._sample_f, inv_ac, base0=a * B,
+                work=work, **self._scan_kwargs(B, gg),
+            )
+            parts.append([t.cpu().numpy() for t in out])
+            for k in range(w_lo, w_hi):
+                progress("finish", k)
+        pos, h, prom = (np.concatenate([p[i] for p in parts])
+                        for i in range(3))
+        return self._extract_peaks(pos, h, prom, n_windows)
+
+    def match_staged_batch(
+        self, staged, scale: bool = True
+    ) -> list[list[Peak]]:
+        """Scan a :meth:`stage_batch` upload → peaks per episode."""
+        episodes_dev, ns = staged
+        n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
+        n_max = int(ns.max()) if len(ns) else 0
+        B = scan_slab(self.config, self.chunk, n_max, n_windows_pad)
+        out = _match_batch_resident(
+            episodes_dev, ns, self._sample_f, self._inv_ac(scale),
+            **self._scan_kwargs(B, n_windows_pad // B),
+        )
+        pos, h, prom = (a.cpu().numpy() for a in out)
+        return [
+            self._extract_peaks(
+                pos[e], h[e], prom[e], max(-(-int(ns[e]) // self.chunk), 1)
+            )
+            for e in range(len(ns))
+        ]
+
+
+def calc_chunks(
+    sr: int,
+    samples: np.ndarray,
+    snippet: np.ndarray,
+    scale: bool = True,
+    config: MatchConfig | None = None,
+    n_samples: int | None = None,
+    progress: Callable[[str, int], None] | None = None,
+    device="cpu",
+) -> list[Peak]:
+    """Functional entry point: one :class:`SnippetMatcher` on ``device``,
+    one :meth:`~SnippetMatcher.match`."""
+    return SnippetMatcher(snippet, sr, config, device=device).match(
+        samples, scale=scale, n_samples=n_samples, progress=progress
+    )

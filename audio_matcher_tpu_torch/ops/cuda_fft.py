@@ -1,6 +1,8 @@
 """Two-factor FFT in scrambled order, on hand-written CUDA passes.
 
-Port of ``audio_matcher_tpu/ops/pallas_fft.py``'s batch-scan path. A
+Port of ``audio_matcher_tpu/ops/pallas_fft.py``'s wire paths: the
+multi-query slab (query pairs packed into each inverse) and the
+single-query slab (window pairs packed into each transform). A
 transform of length n = A·M, viewed [A, M] a-major, runs as a DIF pass over
 the strided A axis with the cross twiddle folded in, then a DIF pass over
 each contiguous M row. The spectrum stays in the scrambled layout
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .wire import dequant_to_f32
+from .wire import dequant_to_f32, silence_code
 
 MIN_N = 1 << 14  # two 128-wide factors
 MAX_FACTOR = 2048  # shared-memory tiles of the CUDA passes (see csrc)
@@ -142,6 +144,17 @@ def _f32_contig(*tensors: torch.Tensor) -> None:
             raise ValueError("expected contiguous float32 planes")
 
 
+def _wire_rows(xw, eff: int, what: str) -> None:
+    """Refuse wire windows the forward major kernels cannot read."""
+    if xw.dtype not in _WIRE_CODES:
+        raise ValueError(f"unsupported wire dtype {xw.dtype}")
+    if xw.dim() != 2 or xw.stride(1) != 1 or xw.shape[1] < eff:
+        raise ValueError(
+            f"{what}: need [rows, >= {eff}] with unit column stride, got "
+            f"{tuple(xw.shape)} strides {xw.stride()}"
+        )
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -168,16 +181,26 @@ def _write(out, yr: torch.Tensor, yi: torch.Tensor):
 
 
 # ------------------------------------------ pass 1: forward major from wire
-def fft_major_fwd_wire_plain(xw, A: int, n: int, w_len: int, out=None):
-    """Plain version of :func:`fft_major_fwd_wire`."""
-    P = xw.shape[0]
+def _major_fwd_plain(xr, xi, A: int, n: int, out):
+    """DIF over A in bit-reversed row order times the cross twiddle, of
+    the f32 [P, <= n] planes ``xr`` (+ i·``xi``), zero-padded to n."""
+    P = xr.shape[0]
     M = n // A
-    x = dequant_to_f32(xw[:, : min(w_len, n)])
-    x = torch.nn.functional.pad(x, (0, n - x.shape[1])).reshape(P, A, M)
+
+    def plane(x):
+        return torch.nn.functional.pad(x, (0, n - x.shape[1])).reshape(P, A, M)
+
+    x = plane(xr) if xi is None else torch.complex(plane(xr), plane(xi))
     X = torch.fft.fft(x, dim=1)
     X = X.index_select(1, _brev_index(A, X.device))
     X = X * _cross_twiddle(A, M, n, -1.0, X.device)
     return _write(out, X.real.contiguous(), X.imag.contiguous())
+
+
+def fft_major_fwd_wire_plain(xw, A: int, n: int, w_len: int, out=None):
+    """Plain version of :func:`fft_major_fwd_wire`."""
+    x = dequant_to_f32(xw[:, : min(w_len, n)])
+    return _major_fwd_plain(x, None, A, n, out)
 
 
 def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
@@ -195,15 +218,9 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
     log2M = _log2(M, "M")
     if A > MAX_FACTOR:
         raise ValueError(f"major pass takes A <= {MAX_FACTOR}, got {A}")
-    if xw.dtype not in _WIRE_CODES:
-        raise ValueError(f"unsupported wire dtype {xw.dtype}")
     P = xw.shape[0]
     eff = min(int(w_len), n)
-    if xw.dim() != 2 or xw.stride(1) != 1 or xw.shape[1] < eff:
-        raise ValueError(
-            f"need [P, >= {eff}] rows with unit column stride, got "
-            f"{tuple(xw.shape)} strides {xw.stride()}"
-        )
+    _wire_rows(xw, eff, "xw")
     if P > MAX_GRID_Y:
         raise ValueError(f"at most {MAX_GRID_Y} windows per launch, got {P}")
     yr, yi = _planes(out, (P, A, M), xw)
@@ -218,6 +235,63 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
 
 
 fft_major_fwd_wire.launches = 0
+
+
+def fft_major_fwd_wire2_plain(x0, x1, A: int, n: int, w_len: int, out=None):
+    """Plain version of :func:`fft_major_fwd_wire2`."""
+    eff = min(int(w_len), n)
+    short = x0.shape[0] - x1.shape[0]
+    x1 = x1[:, :eff]
+    if short:
+        x1 = torch.cat([x1, x1.new_full((short, eff), silence_code(x1.dtype))])
+    return _major_fwd_plain(
+        dequant_to_f32(x0[:, :eff]), dequant_to_f32(x1), A, n, out
+    )
+
+
+def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
+    """Forward major pass of ``fft(w0 + i·w1)`` from two wire windows.
+
+    ``x0``: [P, L] wire-dtype windows for the real plane, ``x1``: [P1, L]
+    (P1 ≤ P) of the same dtype for the imaginary plane; rows may be
+    strided (the even and odd overlap-save windows of one episode). Rows
+    of ``x0`` past P1 pair with wire silence (128 for μ-law, 0 otherwise),
+    decoded like any sample: the pad window of an odd slab, never copied.
+    Elements at index ≥ ``w_len`` read as exact 0.0 in both planes.
+    Returns (re, im) f32 [P, A, M] as :func:`fft_major_fwd_wire` does.
+    """
+    if not on_cuda(x0, x1):
+        return fft_major_fwd_wire2_plain(x0, x1, A, n, w_len, out)
+    log2A, M = _log2(A, "A"), n // A
+    log2M = _log2(M, "M")
+    if A > MAX_FACTOR:
+        raise ValueError(f"major pass takes A <= {MAX_FACTOR}, got {A}")
+    eff = min(int(w_len), n)
+    _wire_rows(x0, eff, "x0")
+    _wire_rows(x1, eff, "x1")
+    P, P1 = x0.shape[0], x1.shape[0]
+    if x1.dtype != x0.dtype or P1 > P:
+        raise ValueError(
+            f"x1 must be {x0.dtype} with at most {P} rows, got {x1.dtype} "
+            f"{tuple(x1.shape)}"
+        )
+    if P > MAX_GRID_Y:
+        raise ValueError(
+            f"at most {MAX_GRID_Y} window pairs per launch, got {P}"
+        )
+    yr, yi = _planes(out, (P, A, M), x0)
+    with torch.cuda.device(x0.device):
+        rc = _build.load().am_major_fwd_wire2(
+            _WIRE_CODES[x0.dtype], x0.data_ptr(), x0.stride(0),
+            x1.data_ptr(), x1.stride(0), P1,
+            yr.data_ptr(), yi.data_ptr(), P, log2A, log2M, eff, _stream(x0),
+        )
+    _build.check(rc, "am_major_fwd_wire2")
+    fft_major_fwd_wire2.launches += 1
+    return yr, yi
+
+
+fft_major_fwd_wire2.launches = 0
 
 
 # ------------------------------------------------ pass 2: forward minor
@@ -349,7 +423,10 @@ def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
 
 fft_major.launches = 0
 
-KERNELS = (fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major)
+KERNELS = (
+    fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major,
+    fft_major_fwd_wire2,
+)
 
 
 # ------------------------------------------------------------- the slab
@@ -361,6 +438,50 @@ def _work(work: dict | None, key: str, shape, like: torch.Tensor):
     if got is None or tuple(got[0].shape) != tuple(shape):
         got = work[key] = _planes(None, shape, like)
     return got
+
+
+def _check_width(width: int, n: int, M: int) -> None:
+    if width % M or width > n or ((width // M) % 8 and width != n):
+        raise ValueError(f"width {width} is not on the 8·M grid of n={n}")
+
+
+def corr_single_query_vpu_planes_wire(
+    windows, s_r, s_i, width: int, plain: bool = False,
+    work: dict | None = None,
+):
+    """Single-query correlation planes of a slab of wire-dtype windows.
+
+    Window pairs pack into one transform each way (``fft(w0 + i·w1)``;
+    both correlations are real), so row p of the returned (yr, yi) holds
+    window 2p's correlation in ``yr`` and window 2p+1's in ``yi``, cropped
+    to ``width``: P = ⌈B/2⌉ rows. For odd B the last ``yi`` row pairs with
+    wire silence; mask it downstream with ``valid_len`` 0. ``s_r``, ``s_i``:
+    [1, n] from ``scrambled_query_spectra(pack=False)``. ``plain`` and
+    ``work`` as in :func:`corr_slab_vpu_planes_wire`.
+    """
+    B, W = windows.shape
+    n = s_r.shape[-1]
+    A, M = split_factors(n)
+    _check_width(width, n, M)
+    P = (B + 1) // 2
+    p1, p2, p3, p4 = (
+        (fft_major_fwd_wire2_plain, fft_minor_plain,
+         ifft_minor_product_plain, fft_major_plain)
+        if plain else
+        (fft_major_fwd_wire2, fft_minor, ifft_minor_product, fft_major)
+    )
+    X = p1(windows[0::2], windows[1::2], A, n, W,
+           out=_work(work, "x", (P, A, M), s_r))
+    X = p2(X[0], X[1], M, out=_work(work, "x2", (P, A, M), s_r))
+    V = p3(
+        X[0], X[1], s_r.view(1, A, M), s_i.view(1, A, M), M,
+        out=_work(work, "v", (P, A, M), s_r),
+    )
+    a_crop = width // M
+    yr, yi = p4(
+        V[0], V[1], A, n, a_crop, out=_work(work, "y", (P, a_crop, M), s_r)
+    )
+    return yr.view(P, width), yi.view(P, width)
 
 
 def corr_slab_vpu_planes_wire(
@@ -380,8 +501,7 @@ def corr_slab_vpu_planes_wire(
     B, W = windows.shape
     Qh, n = t_r.shape
     A, M = split_factors(n)
-    if width % M or width > n or ((width // M) % 8 and width != n):
-        raise ValueError(f"width {width} is not on the 8·M grid of n={n}")
+    _check_width(width, n, M)
     p1, p2, p3, p4 = (
         (fft_major_fwd_wire_plain, fft_minor_plain,
          ifft_minor_product_plain, fft_major_plain)

@@ -1,19 +1,20 @@
 """Single-read peak-candidate reduction (port of ``ops/pallas_kernels.py``).
 
 :func:`local_max_block_reduce_packed` reads the pair-packed correlation
-planes once and emits, per ``block``-column tile of every logical row, the
-best strict local maximum (value and global column), the tile minimum and
-the tile maximum. Suppression rounds and prominence then work on those
-small block arrays (``ops/peaks.py``).
+planes once, :func:`local_max_block_reduce` a dense [B, V] correlation,
+and both emit, per ``block``-column tile of every (logical) row, the best
+strict local maximum (value and global column), the tile minimum and the
+tile maximum. Suppression rounds and prominence then work on those small
+block arrays (``ops/peaks.py``).
 
-Seam contract (kept from the TPU kernel): columns are grouped in segments
+Seam contract (kept from the TPU kernels): columns are grouped in segments
 of ``GROUP·block``; the first and last column of each segment are never
 candidates here, and ``peaks._merge_seams`` re-checks exactly those. Ties
 go to the lowest column (argmax-first); a tile without a candidate reports
 −inf at its first column.
 
-The wrapper runs the plain version below for CPU tensors and the CUDA
-kernel (``csrc/block_reduce.cu``) for CUDA tensors; it never falls back.
+The wrappers run the plain versions below for CPU tensors and the CUDA
+kernel (``csrc/block_reduce.cu``) for CUDA tensors; they never fall back.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from .cuda_fft import on_cuda
 
 GROUP = 128  # tiles per segment
 BLOCKS = (128, 256, 512)  # tile widths the CUDA kernel is built for
+MAX_ROWS = 65535  # the kernel launches one grid row per logical row
 _NEG = float("-inf")
 _POS = float("inf")
+_ROWS_PER_STEP = 64  # bounds the plain versions' temporaries
 
 
 def _logical_rows(yr, yi, scale):
@@ -35,33 +38,26 @@ def _logical_rows(yr, yi, scale):
     return x * scale.to(torch.float32)[:, None]
 
 
-_PLANES_PER_STEP = 32  # bounds the plain version's temporaries
-
-
-def local_max_block_reduce_packed_plain(
-    yr, yi, scale, valid_len, block: int = 512
-):
-    """Plain version of :func:`local_max_block_reduce_packed`, a few
-    planes at a time."""
-    P, V = yr.shape
+def _reduce_plain(rows: int, V: int, block: int, dev, valid_len, row_block):
+    """The reduction over ``rows`` logical rows of V columns;
+    ``row_block(r0, r1)`` gives rows [r0, r1) as f32 [r1 - r0, V]."""
     nb = V // block
     seg = GROUP * block
-    dev = yr.device
     outs = (
-        torch.empty((2 * P, nb), dtype=torch.float32, device=dev),
-        torch.empty((2 * P, nb), dtype=torch.int32, device=dev),
-        torch.empty((2 * P, nb), dtype=torch.float32, device=dev),
-        torch.empty((2 * P, nb), dtype=torch.float32, device=dev),
+        torch.empty((rows, nb), dtype=torch.float32, device=dev),
+        torch.empty((rows, nb), dtype=torch.int32, device=dev),
+        torch.empty((rows, nb), dtype=torch.float32, device=dev),
+        torch.empty((rows, nb), dtype=torch.float32, device=dev),
     )
     cols = torch.arange(V, device=dev)
     in_seg = cols % seg
     seg_inner = (in_seg != 0) & (in_seg != seg - 1)
     tile_base = torch.arange(nb, device=dev) * block
     valid_len = valid_len.to(torch.int64)
-    for p0 in range(0, P, _PLANES_PER_STEP):
-        sl = slice(p0, p0 + _PLANES_PER_STEP)
-        x = _logical_rows(yr[sl], yi[sl], scale[2 * p0 : 2 * sl.stop])
-        vl = valid_len[2 * p0 : 2 * sl.stop, None]
+    for r0 in range(0, rows, _ROWS_PER_STEP):
+        r1 = min(r0 + _ROWS_PER_STEP, rows)
+        x = row_block(r0, r1)
+        vl = valid_len[r0:r1, None]
         colvalid = cols[None, :] < vl
         # true neighbours; the column past V reads as the zero pad of the
         # TPU kernel's grid (only reachable when valid_len > V)
@@ -69,17 +65,59 @@ def local_max_block_reduce_packed_plain(
         right = torch.nn.functional.pad(x[:, 1:], (0, 1))
         interior = (cols >= 1) & (cols[None, :] <= vl - 2) & seg_inner
         peak = (x > left) & (x > right) & interior & colvalid
-        h = torch.where(peak, x, _NEG).reshape(x.shape[0], nb, block)
-        rows = slice(2 * p0, 2 * p0 + x.shape[0])
-        outs[0][rows] = h.max(dim=-1).values
-        outs[1][rows] = (tile_base + h.argmax(dim=-1)).to(torch.int32)
-        outs[2][rows] = (
+        h = torch.where(peak, x, _NEG).reshape(r1 - r0, nb, block)
+        outs[0][r0:r1] = h.max(dim=-1).values
+        outs[1][r0:r1] = (tile_base + h.argmax(dim=-1)).to(torch.int32)
+        outs[2][r0:r1] = (
             torch.where(colvalid, x, _POS).reshape(-1, nb, block).amin(-1)
         )
-        outs[3][rows] = (
+        outs[3][r0:r1] = (
             torch.where(colvalid, x, _NEG).reshape(-1, nb, block).amax(-1)
         )
     return outs
+
+
+def local_max_block_reduce_packed_plain(
+    yr, yi, scale, valid_len, block: int = 512
+):
+    """Plain version of :func:`local_max_block_reduce_packed`."""
+    P, V = yr.shape
+
+    def rows(r0, r1):  # r0, r1 even: whole planes
+        p0, p1 = r0 // 2, r1 // 2
+        return _logical_rows(yr[p0:p1], yi[p0:p1], scale[r0:r1])
+
+    return _reduce_plain(2 * P, V, block, yr.device, valid_len, rows)
+
+
+def local_max_block_reduce_plain(x, valid_len, block: int = 512):
+    """Plain version of :func:`local_max_block_reduce`."""
+    B, V = x.shape
+    return _reduce_plain(
+        B, V, block, x.device, valid_len,
+        lambda r0, r1: x[r0:r1].to(torch.float32),
+    )
+
+
+def _launchable(planes, rows: int, block: int) -> None:
+    """Refuse what the CUDA reduction cannot read."""
+    if block not in BLOCKS:
+        raise ValueError(f"the CUDA reduction takes block in {BLOCKS}")
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"at most {MAX_ROWS} logical rows per launch, got {rows}"
+        )
+    for t in planes:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("rows must be contiguous float32")
+        if t.data_ptr() % 16:  # the kernel loads rows as float4
+            raise ValueError("rows must start on a 16-byte boundary")
+
+
+def _block_outputs(rows: int, nb: int, dev):
+    bv = torch.empty((rows, nb), dtype=torch.float32, device=dev)
+    bp = torch.empty((rows, nb), dtype=torch.int32, device=dev)
+    return bv, bp, torch.empty_like(bv), torch.empty_like(bv)
 
 
 def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
@@ -99,23 +137,11 @@ def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
         return local_max_block_reduce_packed_plain(
             yr, yi, scale, valid_len, block
         )
-    if block not in BLOCKS:
-        raise ValueError(f"the CUDA reduction takes block in {BLOCKS}")
-    if 2 * P > 65535:
-        raise ValueError(f"at most 65535 logical rows per launch, got {2 * P}")
-    for t in (yr, yi):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("planes must be contiguous float32")
-        if t.data_ptr() % 16:  # the kernel loads rows as float4
-            raise ValueError("planes must start on a 16-byte boundary")
+    _launchable((yr, yi), 2 * P, block)
     scale = scale.to(torch.float32).contiguous()
     valid_len = valid_len.to(torch.int32).contiguous()
-    nb = V // block
     dev = yr.device
-    bv = torch.empty((2 * P, nb), dtype=torch.float32, device=dev)
-    bp = torch.empty((2 * P, nb), dtype=torch.int32, device=dev)
-    bmin = torch.empty_like(bv)
-    bmax = torch.empty_like(bv)
+    bv, bp, bmin, bmax = _block_outputs(2 * P, V // block, dev)
     with torch.cuda.device(dev):
         rc = _build.load().am_block_reduce_packed(
             yr.data_ptr(), yi.data_ptr(), scale.data_ptr(),
@@ -130,4 +156,34 @@ def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
 
 local_max_block_reduce_packed.launches = 0
 
-KERNELS = (local_max_block_reduce_packed,)
+
+def local_max_block_reduce(x, valid_len, block: int = 512):
+    """One-pass per-tile reduction over a dense f32 [B, V] correlation
+    (``valid_len`` int [B]); the form of :func:`local_max_block_reduce_packed`
+    with no scale and no de-interleave. Returns (best_val, best_pos, bmin,
+    bmax), each [B, V // block]."""
+    B, V = x.shape
+    if V % block:
+        raise ValueError(f"rows must be [B, V] with V % {block} == 0")
+    if valid_len.shape != (B,):
+        raise ValueError(f"valid_len must be [{B}]")
+    if not on_cuda(x, valid_len):
+        return local_max_block_reduce_plain(x, valid_len, block)
+    _launchable((x,), B, block)
+    valid_len = valid_len.to(torch.int32).contiguous()
+    dev = x.device
+    bv, bp, bmin, bmax = _block_outputs(B, V // block, dev)
+    with torch.cuda.device(dev):
+        rc = _build.load().am_block_reduce(
+            x.data_ptr(), valid_len.data_ptr(), bv.data_ptr(), bp.data_ptr(),
+            bmin.data_ptr(), bmax.data_ptr(), B, V, block, GROUP,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "am_block_reduce")
+    local_max_block_reduce.launches += 1
+    return bv, bp, bmin, bmax
+
+
+local_max_block_reduce.launches = 0
+
+KERNELS = (local_max_block_reduce_packed, local_max_block_reduce)

@@ -1,5 +1,7 @@
-"""Peak picking over the pair-packed correlation planes (port of
-``ops/peaks.py``'s single-read path).
+"""Peak picking over correlation rows (port of ``ops/peaks.py``'s
+single-read paths): the pair-packed planes of the two-factor FFT
+(:func:`pick_peaks_packed`) and a dense [B, V] correlation
+(:func:`pick_peaks_dense`, the ``xla_packed`` path).
 
 Semantics (scipy ``find_peaks(distance=, prominence=)`` as the reference
 uses it, per window):
@@ -10,7 +12,8 @@ uses it, per window):
   * prominence is topographic, from block minima/maxima pyramids and small
     gathers around each pick.
 
-The planes are read once, by :func:`local_max_block_reduce_packed`; every
+The rows are read once, by :func:`local_max_block_reduce_packed` or
+:func:`local_max_block_reduce`; every
 later stage (seam repair, ``n_peaks`` suppression rounds with an exact
 rescan of the partly suppressed edge tiles, prominence) works on the
 [rows, NB] block arrays and on gathers of a few tiles. These are plain
@@ -26,8 +29,10 @@ import torch
 
 from .cuda_kernels import (
     GROUP,
+    local_max_block_reduce,
     local_max_block_reduce_packed,
     local_max_block_reduce_packed_plain,
+    local_max_block_reduce_plain,
 )
 
 _NEG = float("-inf")
@@ -52,6 +57,41 @@ def _interleave_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=1).reshape(-1, *a.shape[1:])
 
 
+def _gather_rows(x: torch.Tensor, starts: torch.Tensor, width: int):
+    """Row r of ``x`` at columns ``starts[r, ...] + [0, width)`` →
+    [rows, ..., width]; starts clamp so the slice fits, as
+    ``lax.dynamic_slice`` does."""
+    starts = starts.clamp(0, max(x.shape[1] - width, 0))
+    offs = torch.arange(width, device=starts.device)
+    idx = (starts[..., None] + offs).reshape(starts.shape[0], -1)
+    return torch.gather(x, 1, idx).reshape(*starts.shape, width)
+
+
+class _DenseRows:
+    """Row source over a materialized [B, V] f32 correlation. ``plain``
+    selects the reduction's plain version on any device."""
+
+    def __init__(self, x, plain: bool = False):
+        self.x = x
+        self.shape = tuple(x.shape)
+        self.plain = plain
+
+    def columns(self, p: torch.Tensor) -> torch.Tensor:  # [K] → [B, K]
+        return self.x[:, p]
+
+    def slices(self, starts, width: int):  # [B, ...] → [B, ..., width]
+        return _gather_rows(self.x, starts, width)
+
+    slice_slots = slices  # [B, S] starts: one gather serves both shapes
+
+    def block_reduce(self, valid_len, block: int):
+        reduce = (
+            local_max_block_reduce_plain if self.plain
+            else local_max_block_reduce
+        )
+        return reduce(self.x, valid_len, block)
+
+
 class _PackedPairRows:
     """Row source over the pair-packed planes: logical row 2p is
     ``yr[p]·scale[2p]``, row 2p+1 is ``yi[p]·scale[2p+1]``. Only gathers of
@@ -72,16 +112,11 @@ class _PackedPairRows:
         return x * self.scale[:, None]
 
     def _gather(self, starts: torch.Tensor, width: int) -> torch.Tensor:
-        """[2P, ...] starts → [2P, ..., width]; starts clamp so the slice
-        fits, as ``lax.dynamic_slice`` does."""
-        V = self.shape[1]
-        starts = starts.clamp(0, max(V - width, 0))
-        offs = torch.arange(width, device=starts.device)
-        out = []
-        for plane, s in ((self.yr, starts[0::2]), (self.yi, starts[1::2])):
-            idx = (s[..., None] + offs).reshape(s.shape[0], -1)
-            out.append(torch.gather(plane, 1, idx).reshape(*s.shape, width))
-        return _interleave_rows(*out)
+        """[2P, ...] starts → [2P, ..., width]."""
+        return _interleave_rows(
+            _gather_rows(self.yr, starts[0::2], width),
+            _gather_rows(self.yi, starts[1::2], width),
+        )
 
     def slices(self, starts, width: int):  # [2P] → [2P, width]
         return self._gather(starts, width) * self.scale[:, None]
@@ -282,6 +317,48 @@ def pick_peaks_packed(
         _PackedPairRows(yr, yi, scale, plain), valid_len, distance, n_peaks,
         block,
     )
+
+
+def pick_peaks_dense(
+    x: torch.Tensor,  # [B, V]
+    valid_len: torch.Tensor,  # [B] int
+    distance: int,
+    n_peaks: int,
+    block: int = 2048,
+    plain: bool = False,
+):
+    """:func:`pick_peaks_packed` over a materialized [B, V] correlation
+    (the JAX package's ``pick_peaks_pallas``): tiles are ``min(block,
+    512)`` columns, and V is zero-padded to a multiple of that (callers
+    crop to a multiple to avoid the copy). Returns (pos int32, height,
+    prominence), each [B, n_peaks]."""
+    block = min(block, 512)
+    x = x.to(torch.float32)
+    if x.shape[1] % block:
+        x = torch.nn.functional.pad(x, (0, block - x.shape[1] % block))
+    return _pick_peaks_from_source(
+        _DenseRows(x.contiguous(), plain), valid_len, distance, n_peaks,
+        block,
+    )
+
+
+def pick_peaks_dispatch(
+    x, valid_len, distance: int, n_peaks: int, block: int, impl: str,
+    plain: bool = False,
+):
+    """Peaks of ``x`` [..., V] with any leading batch shape (flattened for
+    the reduction) under ``peaks_impl``. Only ``"pallas"`` (the dense
+    single-read picker) is ported; ``"jnp"`` is ROADMAP P3."""
+    if impl != "pallas":
+        raise NotImplementedError(
+            f"peaks_impl={impl!r}: only 'pallas' is ported (ROADMAP P3)"
+        )
+    lead = x.shape[:-1]
+    out = pick_peaks_dense(
+        x.reshape(-1, x.shape[-1]), valid_len.reshape(-1), distance, n_peaks,
+        block, plain,
+    )
+    return tuple(o.reshape(*lead, o.shape[-1]) for o in out)
 
 
 def peaks_crop_width(valid_max: int, block: int) -> int:

@@ -23,6 +23,12 @@ _INV_MU = float(np.float32(1.0 / MU))
 _U8_OUT = float(np.float32(32768.0 / 65535.0))
 
 
+def silence_code(dtype: torch.dtype) -> int:
+    """Wire value of silence for a wire dtype: μ-law's zero is code 128
+    (code 0 decodes to about −0.5 full scale); int16 and f32 use 0."""
+    return 128 if dtype == torch.uint8 else 0
+
+
 def _c(v: float, device) -> torch.Tensor:
     # a 0-d f32 tensor keeps every product in f32, as the JAX decode is
     return torch.tensor(v, dtype=_F32, device=device)

@@ -1,1 +1,1 @@
-"""The batch scanner of the port."""
+"""The resident scanner of the port (one or more query snippets)."""

@@ -1,19 +1,26 @@
-"""The resident batch scan on one device (port of ``parallel/sweep.py``).
+"""The resident scan on one device (port of ``parallel/sweep.py``).
 
-BASELINE config #3: a group of episodes is staged once as a flat
-[E, Npad] wire-dtype tensor; overlap-save windows are strided views of it;
-every window's forward FFT is shared across all Q query snippets, and the
-query pairs pack into the inverse transforms. Per slab of windows:
+A group of episodes is staged once as a flat [E, Npad] wire-dtype tensor;
+overlap-save windows are strided views of it. Per slab of windows, by
+query count and ``fft_impl`` (the JAX package's branches of
+``resident_match_step``):
 
-    windows (wire) → corr_slab_vpu_planes_wire → pick_peaks_packed
+  * Q ≥ 2, ``"vpu"`` (BASELINE config #3, the batch scan): every window's
+    forward FFT is shared across the queries and query pairs pack into
+    the inverse transforms,
+    windows (wire) → corr_slab_vpu_planes_wire → pick_peaks_packed;
+  * Q = 1, ``"vpu"`` (config #2 through the scanner): window pairs pack
+    into each transform instead, as ``SnippetMatcher`` scans,
+    windows (wire) → corr_single_query_vpu_planes_wire → pick_peaks_packed;
+  * ``"xla_packed"`` (also the ``"vpu"`` fallback below ``fft_len`` 2^14):
+    the episode is dequantized on the device, the correlation runs on
+    ``torch.fft`` (window pairs at Q = 1, query pairs at Q ≥ 2) and peaks
+    come from the dense reduction, pick_peaks_dispatch.
 
-and on the host, :meth:`ShardedScanner.scan_collect` rebases positions and
-dedups across windows with ``overshadow_filter``.
-
-Only the JAX package's fused path (``fft_impl="vpu"``,
-``peaks_impl="pallas"``, Q ≥ 2, ``fft_len`` ≥ 2^14, one device) is ported;
-the scanner refuses anything else with :class:`NotImplementedError`
-naming the ROADMAP item that ports it.
+On the host, :meth:`ShardedScanner.scan_collect` rebases positions and
+dedups across windows with ``overshadow_filter``. Other ``fft_impl`` and
+``peaks_impl`` values, and more than one device, raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -25,26 +32,27 @@ import numpy as np
 import torch
 
 from ..models.matcher import (
-    TORCH_WIRE_DTYPES,
-    WIRE_DTYPES,
     MatchConfig,
-    divisor_slab,
-    effective_slab,
+    correlation_crop,
     overshadow_filter,
     pad_wire_on_device,
-    quantize_wire,
+    resolve_fft_impl,
+    scan_slab,
+    single_query_slab,
+    stage_rows_host,
+    staged_width,
     window_rows,
     windows_from_episode,
-    wire_silence,
 )
-from ..ops.correlate import fft_length, prepare_snippet
-from ..ops.cuda_fft import (
-    MIN_N,
-    corr_slab_vpu_planes_wire,
-    round_planes_width,
-    scrambled_query_spectra,
+from ..ops.correlate import (
+    corr_slab_xla_packed,
+    fft_length,
+    packed_query_spectra,
+    prepare_snippet,
 )
-from ..ops.peaks import Peak, peaks_crop_width, pick_peaks_packed
+from ..ops.cuda_fft import corr_slab_vpu_planes_wire, scrambled_query_spectra
+from ..ops.peaks import Peak, pick_peaks_dispatch, pick_peaks_packed
+from ..ops.wire import dequant_to_f32
 
 
 @dataclasses.dataclass
@@ -56,9 +64,10 @@ class _Query:
 @dataclasses.dataclass(frozen=True)
 class QueryState:
     """What the scan holds of its queries (this system's weights): the
-    scrambled query-pair spectra (``scrambled_query_spectra(pack=True)``,
-    [Qh, n] f32 each), the inverse autocorrelations [Q] f32 and the
-    snippet lengths [Q]."""
+    query-pair spectra as f32 real and imaginary parts [Qh, n] each
+    (``"vpu"``: ``scrambled_query_spectra(pack=True)``; ``"xla_packed"``:
+    ``packed_query_spectra`` in natural order), the inverse
+    autocorrelations [Q] f32 and the snippet lengths [Q]."""
 
     t_r: torch.Tensor
     t_i: torch.Tensor
@@ -68,8 +77,9 @@ class QueryState:
 
 def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
     """Carry a prepared query state across (e.g. the JAX scanner's
-    ``_sample_f_resident``, ``_inv_ac`` and ``_m`` as numpy arrays), so
-    that both packages scan with identical spectra."""
+    ``_sample_f_resident``, ``_inv_ac`` and ``_m`` as numpy arrays; for
+    ``"xla_packed"`` the real and imaginary parts of its complex spectra),
+    so that both packages scan with identical spectra."""
     dev = torch.device(device)
     return QueryState(
         t_r=torch.tensor(np.asarray(t_r, np.float32), device=dev),
@@ -77,39 +87,6 @@ def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
         inv_ac=torch.tensor(np.asarray(inv_ac, np.float32), device=dev),
         m=torch.tensor(np.asarray(m, np.int64), device=dev),
     )
-
-
-def _fill_wire_rows(episodes, n_pad: int, transfer: str, out: np.ndarray):
-    """Pack episodes into the [rows, n_pad] wire-dtype buffer ``out``;
-    rows past the episodes and every tail are wire silence. Rows already
-    in the wire dtype are copied; others quantize here."""
-    dtype = WIRE_DTYPES[transfer]
-    out.fill(wire_silence(transfer))
-    for i, ep in enumerate(episodes):
-        ep = np.asarray(ep)
-        if len(ep) > n_pad:
-            raise ValueError(f"episode {i} is longer than the staged width")
-        out[i, : len(ep)] = ep if ep.dtype == dtype else quantize_wire(
-            ep, transfer
-        )
-    return out
-
-
-def _stage_rows_host(episodes, ns, n_pad, transfer, e_pad, device):
-    """Fill a (pinned, for a CUDA device) host buffer with the wire rows
-    and upload it with one copy. Returns the staged triple
-    (tensor [e_pad, n_pad], ns_pad, n_real)."""
-    ns_pad = np.zeros(e_pad, np.int32)
-    ns_pad[: len(ns)] = ns
-    host = torch.empty(
-        (e_pad, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
-        pin_memory=device.type == "cuda",
-    )
-    _fill_wire_rows(episodes, n_pad, transfer, host.numpy())
-    staged = host if device.type == "cpu" else host.to(
-        device, non_blocking=True
-    )
-    return staged, ns_pad, len(episodes)
 
 
 def resident_match_step(
@@ -122,9 +99,10 @@ def resident_match_step(
     block: int,
     slab: int,
     n_slabs: int,
+    fft_impl: str = "vpu",
     plain: bool = False,
 ):
-    """The resident multi-query scan of a staged batch.
+    """The resident scan of a staged batch.
 
     Returned fn: (episodes [E, Npad] wire, ns [E] host ints, t_r, t_i
     [Qh, n], inv_ac [Q], m [Q]) → (pos, h, prom) each
@@ -132,44 +110,74 @@ def resident_match_step(
     reuses one slab's intermediate planes. ``plain=True`` runs every
     kernel's plain PyTorch version instead (the reference path).
     """
-    crop = round_planes_width(
-        min(peaks_crop_width(valid_max, block), fft_len), fft_len
-    )
+    crop = correlation_crop(valid_max, block, fft_len, fft_impl)
     target = (n_slabs * slab + window_rows(window, chunk)) * chunk
 
-    def per_episode(episode, n: int, t_r, t_i, inv_ac, m, work: dict):
-        dev = episode.device
-        episode = pad_wire_on_device(episode, target)
+    def slab_single(windows, win_len, spectra, inv_ac, m, work):
+        # one query: window pairs share each transform, as SnippetMatcher
+        # scans; the pair spectra of one query are its single-query form
+        # (vpu: pack=True equals pack=False; xla_packed: row 0 is conj(S0))
+        spectrum = spectra if fft_impl == "vpu" else spectra[0]
+        valid = (win_len - m[0] + 1).clamp(min=0)
+        return [a[None] for a in single_query_slab(
+            windows, valid, spectrum, inv_ac[0], crop, distance, n_peaks,
+            block, fft_impl, plain, work,
+        )]
+
+    def slab_vpu(windows, win_len, spectra, inv_ac, m, work):
+        t_r, t_i = spectra
         Q = inv_ac.shape[0]
+        yr, yi = corr_slab_vpu_planes_wire(
+            windows, t_r, t_i, crop, plain=plain, work=work
+        )
         Q2 = 2 * t_r.shape[0]  # queries incl. the odd-Q pad
         inv_pad = torch.nn.functional.pad(inv_ac, (0, Q2 - Q))
         m_pad = torch.nn.functional.pad(m, (0, Q2 - Q), value=1)
-        scale = inv_pad.repeat(slab)  # logical rows: q fastest
+        vq2 = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0)
+        vq2[:, Q:] = 0  # the pad query emits nothing
+        picked = pick_peaks_packed(
+            yr, yi, inv_pad.repeat(slab),  # logical rows: q fastest
+            vq2.reshape(-1), distance, n_peaks, block, plain=plain,
+        )
+        return [a.reshape(slab, Q2, -1)[:, :Q].transpose(0, 1)
+                for a in picked]  # [Q, B, S] triplets
+
+    def slab_xla_packed(windows, win_len, spectra, inv_ac, m, work):
+        Q = inv_ac.shape[0]
+        c = corr_slab_xla_packed(windows, spectra, crop)[:, :Q]
+        c = c * inv_ac[None, :, None]
+        vq = (win_len[:, None] - m[None, :] + 1).clamp(min=0)  # [B, Q]
+        picked = pick_peaks_dispatch(
+            c, vq, distance, n_peaks, block, "pallas", plain=plain
+        )
+        return [a.transpose(0, 1) for a in picked]
+
+    def per_episode(episode, n: int, slab_fn, spectra, inv_ac, m, work):
+        dev = episode.device
+        episode = pad_wire_on_device(episode, target)
+        if fft_impl != "vpu":
+            episode = dequant_to_f32(episode)
         outs = []
         for s in range(n_slabs):
             base = s * slab
             starts = (base + torch.arange(slab, device=dev)) * chunk
             windows = windows_from_episode(episode, base, slab, chunk, window)
             win_len = (n - starts).clamp(0, window)
-            yr, yi = corr_slab_vpu_planes_wire(
-                windows, t_r, t_i, crop, plain=plain, work=work
-            )
-            vq2 = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0)
-            vq2[:, Q:] = 0  # the pad query emits nothing
-            picked = pick_peaks_packed(
-                yr, yi, scale, vq2.reshape(-1), distance, n_peaks, block,
-                plain=plain,
-            )
-            outs.append(
-                [a.reshape(slab, Q2, -1)[:, :Q].transpose(0, 1)
-                 for a in picked]
-            )  # [Q, B, S] triplets
+            outs.append(slab_fn(windows, win_len, spectra, inv_ac, m, work))
         return [torch.cat([o[i] for o in outs], dim=1) for i in range(3)]
 
     def step(episodes, ns, t_r, t_i, inv_ac, m):
+        if inv_ac.shape[0] == 1:
+            slab_fn = slab_single
+        else:
+            slab_fn = slab_vpu if fft_impl == "vpu" else slab_xla_packed
+        spectra = (
+            (t_r, t_i) if fft_impl == "vpu" else torch.complex(t_r, t_i)
+        )
         work: dict = {}
         per = [
-            per_episode(episodes[e], int(ns[e]), t_r, t_i, inv_ac, m, work)
+            per_episode(episodes[e], int(ns[e]), slab_fn, spectra, inv_ac, m,
+                        work)
             for e in range(episodes.shape[0])
         ]
         return tuple(torch.stack([p[i] for p in per]) for i in range(3))
@@ -178,9 +186,10 @@ def resident_match_step(
 
 
 class ShardedScanner:
-    """Scan groups of episodes against two or more query snippets on one
-    device (BASELINE config #3: the batch scan). Snippets are zero-padded
-    to a common length; per-query valid ranges are masked on the device.
+    """Scan groups of episodes against one or more query snippets on one
+    device: the batch scan of BASELINE config #3 at Q ≥ 2, and config #2
+    (one episode × one snippet) at Q = 1. Snippets are zero-padded to a
+    common length; per-query valid ranges are masked on the device.
 
     ``device``: the torch device that stages and scans. ``query_state``:
     a prepared :class:`QueryState` to scan with instead of computing the
@@ -207,16 +216,7 @@ class ShardedScanner:
         self.sr = int(sr)
         self.config = cfg = config or MatchConfig()
         self.plain = bool(plain)
-        if cfg.fft_impl != "vpu" or cfg.peaks_impl != "pallas":
-            raise NotImplementedError(
-                f"fft_impl={cfg.fft_impl!r}, peaks_impl={cfg.peaks_impl!r}: "
-                "only 'vpu' + 'pallas' is ported (other branches: ROADMAP P3)"
-            )
         preps = [prepare_snippet(s) for s in snippets]
-        if len(preps) < 2:
-            raise NotImplementedError(
-                "the single-query scan (Q = 1) is ROADMAP P2"
-            )
         self.queries = [_Query(p.m, p.inv_autocorr) for p in preps]
         self.m_max = max(q.m for q in self.queries)
         self.m_min = min(q.m for q in self.queries)
@@ -227,11 +227,7 @@ class ShardedScanner:
         self.window = self.chunk + self.overlap
         self.valid = self.window - self.m_min + 1
         self.fft_len = fft_length(self.window + self.m_max - 1)
-        if self.fft_len < MIN_N:
-            raise NotImplementedError(
-                f"fft_len {self.fft_len} < {MIN_N}: the JAX package "
-                "switches to 'xla_packed' there (ROADMAP P3)"
-            )
+        self.fft_impl = resolve_fft_impl(cfg, self.fft_len)
         self.distance_samples = int(cfg.distance_secs) * self.sr
         self.n_peaks = min(
             self.valid // max(self.distance_samples, 1) + 2,
@@ -245,13 +241,15 @@ class ShardedScanner:
 
     @property
     def query_state(self) -> QueryState:
-        """The scrambled query-pair spectra and per-query constants on the
-        scan's device, computed on first use."""
+        """The query-pair spectra of :attr:`fft_impl` and the per-query
+        constants on the scan's device, computed on first use."""
         if self._state is None:
-            t_r, t_i = scrambled_query_spectra(
-                torch.from_numpy(self._sample_padded).to(self.device),
-                self.fft_len, True,
-            )
+            padded = torch.from_numpy(self._sample_padded).to(self.device)
+            if self.fft_impl == "vpu":
+                t_r, t_i = scrambled_query_spectra(padded, self.fft_len, True)
+            else:
+                T = packed_query_spectra(padded, self.fft_len)
+                t_r, t_i = T.real.contiguous(), T.imag.contiguous()
             self._state = QueryState(
                 t_r=t_r,
                 t_i=t_i,
@@ -272,12 +270,9 @@ class ShardedScanner:
         ``pad_to``: minimum episode count (silence rows)."""
         ns = np.array([len(e) for e in episodes], np.int32)
         n_max = int(ns.max()) if len(ns) else 0
-        n_windows = max(-(-n_max // self.chunk), 1)
-        slab = effective_slab(self.config, n_windows)
-        n_windows_pad = -(-n_windows // slab) * slab
-        n_pad = n_windows_pad * self.chunk + self.overlap
+        n_pad = staged_width(self.config, self.chunk, self.overlap, n_max)
         e_pad = max(len(episodes), int(pad_to or 0))
-        return _stage_rows_host(
+        return stage_rows_host(
             episodes, ns, n_pad, self.config.transfer_dtype, e_pad,
             self.device,
         )
@@ -289,13 +284,11 @@ class ShardedScanner:
         cfg = self.config
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         n_max = int(ns.max()) if len(ns) else 0
-        slab = effective_slab(cfg, max(-(-n_max // self.chunk), 1))
-        if n_windows_pad % slab:  # buffer staged under a different policy
-            slab = divisor_slab(n_windows_pad, cfg.slab)
+        slab = scan_slab(cfg, self.chunk, n_max, n_windows_pad)
         step = resident_match_step(
             self.chunk, self.window, self.fft_len, self.valid,
             self.distance_samples, self.n_peaks, cfg.block, slab,
-            n_windows_pad // slab, plain=self.plain,
+            n_windows_pad // slab, self.fft_impl, plain=self.plain,
         )
         st = self.query_state
         outs = step(episodes_dev, ns, st.t_r, st.t_i, st.inv_ac, st.m)

@@ -3,33 +3,53 @@
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
+It drives the port's three paths, each through the entry points a user
+calls, and holds every kernel against its plain PyTorch version:
+
 1. Builds the hand-written kernels (``audio_matcher_tpu_torch/csrc``) with
    nvcc for sm_90a.
-2. Runs each of the five kernel entry points of the batch scan, and its
-   plain PyTorch version, on the card at the BASELINE config #3 slab shapes
-   (8 windows of a 1800 s 44.1 kHz mu-law episode, 32 query pairs,
-   A = M = 2048): the FFT passes must agree within TOL_FFT of the largest
-   plain value, the block reduction exactly. Both are timed (median of 5
-   CUDA-event timings).
-3. Scans one episode on the kernel path and on the plain path: every raw
-   candidate and every final peak at the same position, heights and
-   prominences within TOL_SCAN.
-4. Drives the config #3 batch scan end to end through ``ShardedScanner``:
+2. The batch scan (BASELINE config #3). Runs each of the five kernel entry
+   points of the multi-query path, and its plain PyTorch version, on the
+   card at the config #3 slab shapes (8 windows of a 1800 s 44.1 kHz
+   mu-law episode, 32 query pairs, A = M = 2048): the FFT passes must
+   agree within TOL_FFT of the largest plain value, the block reduction
+   exactly. Both are timed (median of 5 CUDA-event timings). Scans one
+   episode on the kernel path and on the plain path: every raw candidate
+   and every final peak at the same position, heights and prominences
+   within TOL_SCAN. Drives the scan end to end through ``ShardedScanner``:
    4 episodes x 64 queries (10-13.5 s), mulaw8 wire, slab 8, inputs built
-   from seed 42 as the JAX package's bench builds them. Every plant of query
-   0 must be found within 1 sample, and every kernel must have been launched
-   by that scan.
-5. Traces one more scan with torch.profiler and prints the device time of
-   each kernel and the device's idle share of the scan.
+   from seed 42 as the JAX package's bench builds them. Every plant of
+   query 0 must be found within 1 sample, and every kernel of the path
+   must have been launched by that scan. Traces one more scan with
+   torch.profiler: the device time of each kernel and the device's idle
+   share.
+3. The single-query matcher (config #2: one 3600 s episode x one 10 s
+   snippet, mulaw8, seed 42 as the bench builds it, plants at 21 s and
+   1980 s). Kernel 6 (the window-pair forward pass) against its plain
+   version at the config #2 slab (8 windows) and at an odd slab of 5;
+   kernels 2-4 at the single-query launch shapes (4 planes, one query
+   spectrum). One episode on the kernel path against the plain path.
+   Then ``SnippetMatcher.stage`` + ``match_staged`` and
+   ``ShardedScanner([snippet]).scan_resident``, 5 timed repeats each
+   (p50 of stage, scan and end to end); both must find the two plants
+   within 1 sample, with kernels 2-6 launched. A torch.profiler trace of
+   one config #2 scan.
+4. The ``xla_packed`` scan with the dense peak reduction (kernel 7):
+   kernel 7 against its plain version at the scan's slab shape, then
+   ``ShardedScanner(fft_impl="xla_packed")`` on 1 x 1800 s x 8 queries;
+   the plants of query 0 found, kernel 7 launched.
 
-The run uses one card: only the first visible device is made visible.
-Any failure raises and exits non-zero. The second-to-last line is a JSON
-object of the kernels; the last line is
+Every path's launch counts are set to 0 just before the run that is read
+and read just after it. The run uses one card: only the first visible
+device is made visible. Any failure raises and exits non-zero. The
+second-to-last line is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
+
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -45,14 +65,22 @@ import torch  # noqa: E402
 from audio_matcher_tpu_torch import _build  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
+    SnippetMatcher,
+    _match_episode_resident,
+    correlation_crop,
     pad_wire_on_device,
     quantize_wire,
+    scan_slab,
     window_rows,
     windows_from_episode,
 )
 from audio_matcher_tpu_torch.ops import cuda_fft as F  # noqa: E402
 from audio_matcher_tpu_torch.ops import cuda_kernels as K  # noqa: E402
+from audio_matcher_tpu_torch.ops.correlate import (  # noqa: E402
+    corr_slab_xla_packed,
+)
 from audio_matcher_tpu_torch.ops.peaks import peaks_crop_width  # noqa: E402
+from audio_matcher_tpu_torch.ops.wire import dequant_to_f32  # noqa: E402
 from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner  # noqa: E402
 
 SR = 44100
@@ -61,11 +89,16 @@ SNIPPET_SECS = 10.0
 N_EPISODES = 4
 N_QUERIES = 64
 SLAB = 8
+SINGLE_EPISODE_SECS = 3600  # config #2: one 1 h episode x one 10 s snippet
+ODD_SLAB = 5  # a 10-minute episode's slab: the last window pair is padded
+REPEATS = 5  # timed repeats of each config #2 entry point
+XLA_QUERIES = 8  # the xla_packed scan: 1 x 1800 s x 8 queries
 # Two f32 FFT algorithms (radix-2 butterflies in the kernels, cuFFT in the
 # plain versions) on the same inputs: measured ~3e-7 of the largest value.
 TOL_FFT = 1e-5
 TOL_SCAN = 1.2e-5  # the reference's oracle tolerance (tests/test_correlate.py)
 PLANT_TOL = 1  # samples
+NAME_CHARS = 96  # kernel names printed by the profile phases
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -80,23 +113,35 @@ KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
     "local_max_block_reduce_packed": (
         CSRC + "block_reduce.cu",
         "audio_matcher_tpu/ops/pallas_kernels.py:238"),
+    "fft_major_fwd_wire2": (CSRC + "fft_passes.cu",
+                            "audio_matcher_tpu/ops/pallas_fft.py:452"),
+    "local_max_block_reduce": (
+        CSRC + "block_reduce.cu",
+        "audio_matcher_tpu/ops/pallas_kernels.py:137"),
 }
+BATCH_PATH = (F.fft_major_fwd_wire, F.fft_minor, F.ifft_minor_product,
+              F.fft_major, K.local_max_block_reduce_packed)
+SINGLE_PATH = (F.fft_major_fwd_wire2, F.fft_minor, F.ifft_minor_product,
+               F.fft_major, K.local_max_block_reduce_packed)
+XLA_PATH = (K.local_max_block_reduce,)
+ALL_KERNELS = F.KERNELS + K.KERNELS
 
 
-def make_bench_inputs():
+def make_bench_inputs(n_queries=N_QUERIES, episode_secs=EPISODE_SECS):
     """Seed-42 snippets, plant offsets and episode, built in the order the
-    JAX package's bench.py builds them (make_bench_inputs, make_audio)."""
+    JAX package's bench.py builds them (make_bench_inputs, make_audio)
+    for BENCH_QUERIES=n_queries BENCH_EPISODE_SECS=episode_secs."""
     rng = np.random.default_rng(42)
     snippets = [
         np.clip(
             rng.standard_normal(int((SNIPPET_SECS + 0.5 * (q % 8)) * SR))
             * 0.15, -0.45, 0.45,
         ).astype(np.float32)
-        for q in range(N_QUERIES)
+        for q in range(n_queries)
     ]
-    offsets = [o for o in (21.0, EPISODE_SECS * 0.55)
-               if (o + SNIPPET_SECS + 0.5) < EPISODE_SECS] or [0.0]
-    episode = (rng.standard_normal(int(EPISODE_SECS * SR)) * 0.05).astype(
+    offsets = [o for o in (21.0, episode_secs * 0.55)
+               if (o + SNIPPET_SECS + 0.5) < episode_secs] or [0.0]
+    episode = (rng.standard_normal(int(episode_secs * SR)) * 0.05).astype(
         np.float32)
     for off in offsets:
         i = int(off * SR)
@@ -132,8 +177,9 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def compare_planes(name, got, want, rows):
-    """Largest |kernel - plain| of a pair of planes, against TOL_FFT."""
+def compare_planes(name, got, want, rows=None):
+    """Largest |kernel - plain| of a pair of planes, against TOL_FFT;
+    recorded in ``rows`` when given."""
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     ref = max(w.abs().max().item() for w in want)
     rel = err / ref
@@ -141,12 +187,23 @@ def compare_planes(name, got, want, rows):
           f"({rel:.3e} of max |plain| {ref:.3e}; tol {TOL_FFT:g})")
     if not rel <= TOL_FFT:
         raise AssertionError(f"{name} disagrees with its plain version")
-    rows[name]["max_abs_err"] = err
+    if rows is not None:
+        rows[name]["max_abs_err"] = err
+
+
+def timed(name, kernel, plain, row=None):
+    """CUDA-event times of a kernel call and its plain version; recorded
+    in ``row`` when given."""
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    if row is not None:
+        row["ms"], row["plain_ms"] = ms, plain_ms
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
 
 
 def check_kernels(scanner, episode_wire, rows):
-    """Every kernel entry point against its plain version at the config #3
-    slab shapes, on the first slab of one staged episode."""
+    """The five kernel entry points of the multi-query path against their
+    plain versions at the config #3 slab shapes, on the first slab of one
+    staged episode."""
     st = scanner.query_state
     Qh, n = st.t_r.shape
     A, M = F.split_factors(n)
@@ -159,23 +216,18 @@ def check_kernels(scanner, episode_wire, rows):
           f"(A = {A}, M = {M}), query pairs {Qh}")
     tr, ti = st.t_r.view(Qh, A, M), st.t_i.view(Qh, A, M)
 
-    def timed(name, kernel, plain):
-        rows[name]["ms"] = cuda_ms(kernel)
-        rows[name]["plain_ms"] = cuda_ms(plain)
-        print(f"{name}: kernel {rows[name]['ms']:.3f} ms, "
-              f"plain {rows[name]['plain_ms']:.3f} ms")
-
     X = F.fft_major_fwd_wire(win, A, n, W)
     compare_planes("fft_major_fwd_wire", X,
                    F.fft_major_fwd_wire_plain(win, A, n, W), rows)
     timed("fft_major_fwd_wire",
           lambda: F.fft_major_fwd_wire(win, A, n, W, out=X),
-          lambda: F.fft_major_fwd_wire_plain(win, A, n, W))
+          lambda: F.fft_major_fwd_wire_plain(win, A, n, W),
+          rows["fft_major_fwd_wire"])
 
     Y = F.fft_minor(X[0], X[1], M)
     compare_planes("fft_minor", Y, F.fft_minor_plain(X[0], X[1], M), rows)
     timed("fft_minor", lambda: F.fft_minor(X[0], X[1], M, out=Y),
-          lambda: F.fft_minor_plain(X[0], X[1], M))
+          lambda: F.fft_minor_plain(X[0], X[1], M), rows["fft_minor"])
     del X
 
     V = F.ifft_minor_product(Y[0], Y[1], tr, ti, M)
@@ -183,7 +235,8 @@ def check_kernels(scanner, episode_wire, rows):
     compare_planes("ifft_minor_product", V, Vp, rows)
     timed("ifft_minor_product",
           lambda: F.ifft_minor_product(Y[0], Y[1], tr, ti, M, out=V),
-          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M, out=Vp))
+          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M, out=Vp),
+          rows["ifft_minor_product"])
     del Vp, Y
 
     width = F.round_planes_width(
@@ -194,7 +247,8 @@ def check_kernels(scanner, episode_wire, rows):
     compare_planes("fft_major", Z, Zp, rows)
     timed("fft_major",
           lambda: F.fft_major(V[0], V[1], A, n, a_crop, out=Z),
-          lambda: F.fft_major_plain(V[0], V[1], A, n, a_crop, out=Zp))
+          lambda: F.fft_major_plain(V[0], V[1], A, n, a_crop, out=Zp),
+          rows["fft_major"])
     del V, Zp
 
     P = Z[0].shape[0]
@@ -216,7 +270,8 @@ def check_kernels(scanner, episode_wire, rows):
     timed("local_max_block_reduce_packed",
           lambda: K.local_max_block_reduce_packed(zr, zi, scale, valid, 512),
           lambda: K.local_max_block_reduce_packed_plain(
-              zr, zi, scale, valid, 512))
+              zr, zi, scale, valid, 512),
+          rows["local_max_block_reduce_packed"])
     del Z, zr, zi, got, want
 
 
@@ -253,15 +308,15 @@ def compare_paths(scanner, plain_scanner, episode_wire):
           f"height and prominence: {sum(len(g) for g in peaks_k)} peaks")
 
 
-def profile_scan(scanner, staged):
-    """One scan under torch.profiler: device ms per kernel, and the share
-    of the scan's wall time in which no kernel or copy ran on the card."""
+def profile_run(label, run):
+    """``run()`` under torch.profiler: device ms per kernel, and the share
+    of its wall time in which no kernel or copy ran on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scanner.scan_staged(staged)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_name, spans = {}, []
@@ -276,56 +331,47 @@ def profile_scan(scanner, staged):
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
-    print(f"profile of one scan: wall {wall * 1e3:.1f} ms, device busy "
+    print(f"profile of {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share "
           f"{100 * (1 - busy_ms / (wall * 1e3)):.1f} %")
     if not spans:
         print("  no device events traced: per-kernel times not measured")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1]):
-        if ms >= 0.01 * busy_ms:
-            print(f"  {ms:9.2f} ms  {100 * ms / busy_ms:5.1f} %  {name}")
+        if ms >= 0.01 * busy_ms:  # a template's signature, cut to its head
+            print(f"  {ms:9.2f} ms  {100 * ms / busy_ms:5.1f} %  "
+                  f"{name[:NAME_CHARS]}")
     rest = sum(ms for ms in per_name.values() if ms < 0.01 * busy_ms)
     print(f"  {rest:9.2f} ms  {100 * rest / max(busy_ms, 1e-9):5.1f} %  "
           f"{sum(ms < 0.01 * busy_ms for ms in per_name.values())} other "
           f"kernels under 1 % each")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+def counted(run, kernels):
+    """``run()`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after it. Fails if a kernel of
+    ``kernels`` (the path's) was never launched."""
+    for k in ALL_KERNELS:
+        k.launches = 0
+    out = run()
+    launches = {k.__name__: k.launches for k in ALL_KERNELS}
+    missing = [k.__name__ for k in kernels if launches[k.__name__] <= 0]
+    if missing:
+        raise AssertionError(f"the run never launched {missing}")
+    return out, launches
 
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds():.2f} s)")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
 
+def batch_scan(config, device, rows):
+    """Path 1, BASELINE config #3: kernels 1-5, one episode on both paths,
+    the 4 x 1800 s x 64-query scan, its profile."""
     snippets, offsets, episode = make_bench_inputs()
-    config = MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
     episode_wire = quantize_wire(episode, config.transfer_dtype)
-    dev = torch.device("cuda", 0)
-    scanner = ShardedScanner(snippets, SR, config, device=dev)
+    scanner = ShardedScanner(snippets, SR, config, device=device)
     plain_scanner = ShardedScanner(
-        snippets, SR, config, device=dev, query_state=scanner.query_state,
-        plain=True)
+        snippets, SR, config, device=device,
+        query_state=scanner.query_state, plain=True)
     print(f"config #3: {N_EPISODES} x {EPISODE_SECS} s episodes, "
           f"{N_QUERIES} queries, {config.transfer_dtype}, slab {SLAB}, "
           f"fft_len {scanner.fft_len}, {scanner.n_peaks} peaks per window")
-
-    rows = {name: {"name": name, "route": "cuda", "source": src,
-                   "replaces": tpu}
-            for name, (src, tpu) in KERNEL_ROWS.items()}
     check_kernels(scanner, episode_wire, rows)
     torch.cuda.empty_cache()
     compare_paths(scanner, plain_scanner, episode_wire)
@@ -342,12 +388,10 @@ def main() -> int:
     scanner.scan_staged(staged)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in F.KERNELS + K.KERNELS:
-        k.launches = 0
     t0 = time.perf_counter()
-    results = scanner.scan_staged(staged)
+    results, launches = counted(lambda: scanner.scan_staged(staged),
+                                BATCH_PATH)
     t_scan = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in F.KERNELS + K.KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check_plants([per_query[0] for per_query in results], offsets,
@@ -363,13 +407,247 @@ def main() -> int:
           f"{peak_gb:.2f} GB")
     print(f"plants of query 0 found within {PLANT_TOL} sample in all "
           f"{N_EPISODES} episodes")
-    print(f"launches in the scan: {launches}")
-    missing = [name for name, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"the scan never launched {missing}")
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-    profile_scan(scanner, staged)
+    print(f"launches in the config #3 scan: {launches}")
+    for k in BATCH_PATH:
+        rows[k.__name__]["launches"] = launches[k.__name__]
+    profile_run("one config #3 scan", lambda: scanner.scan_staged(staged))
+
+
+def check_single_query_kernels(matcher, episode_wire, rows):
+    """Kernel 6 at the config #2 slab and at an odd slab; kernels 2-4 at
+    the single-query launch shapes (P = 4 planes, one query spectrum)."""
+    staged, n = matcher.stage(episode_wire)
+    s_r, s_i = matcher._sample_f
+    n_fft = matcher.fft_len
+    A, M = F.split_factors(n_fft)
+    W, chunk = matcher.window, matcher.chunk
+    ep = pad_wire_on_device(staged, (SLAB + window_rows(W, chunk)) * chunk)
+    win = windows_from_episode(ep, 0, SLAB, chunk, W)
+    x0, x1 = win[0::2], win[1::2]
+    print(f"config #2 slab: windows {tuple(win.shape)} {win.dtype} as "
+          f"{x0.shape[0]} pairs, n = {n_fft} (A = {A}, M = {M})")
+
+    X = F.fft_major_fwd_wire2(x0, x1, A, n_fft, W)
+    compare_planes("fft_major_fwd_wire2", X,
+                   F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W), rows)
+    timed("fft_major_fwd_wire2",
+          lambda: F.fft_major_fwd_wire2(x0, x1, A, n_fft, W, out=X),
+          lambda: F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W),
+          rows["fft_major_fwd_wire2"])
+    odd = windows_from_episode(ep, 0, ODD_SLAB, chunk, W)
+    compare_planes(
+        f"fft_major_fwd_wire2, odd slab {ODD_SLAB}",
+        F.fft_major_fwd_wire2(odd[0::2], odd[1::2], A, n_fft, W),
+        F.fft_major_fwd_wire2_plain(odd[0::2], odd[1::2], A, n_fft, W))
+
+    label = "at Qh = 1, P = 4"
+    Y = F.fft_minor(X[0], X[1], M)
+    compare_planes(f"fft_minor {label}", Y, F.fft_minor_plain(X[0], X[1], M))
+    timed(f"fft_minor {label}", lambda: F.fft_minor(X[0], X[1], M, out=Y),
+          lambda: F.fft_minor_plain(X[0], X[1], M))
+    tr, ti = s_r.view(1, A, M), s_i.view(1, A, M)
+    V = F.ifft_minor_product(Y[0], Y[1], tr, ti, M)
+    compare_planes(f"ifft_minor_product {label}", V,
+                   F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M))
+    timed(f"ifft_minor_product {label}",
+          lambda: F.ifft_minor_product(Y[0], Y[1], tr, ti, M, out=V),
+          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M))
+    a_crop = correlation_crop(matcher.valid, matcher.config.block, n_fft,
+                              "vpu") // M
+    Z = F.fft_major(V[0], V[1], A, n_fft, a_crop)
+    compare_planes(f"fft_major {label}", Z,
+                   F.fft_major_plain(V[0], V[1], A, n_fft, a_crop))
+    timed(f"fft_major {label}",
+          lambda: F.fft_major(V[0], V[1], A, n_fft, a_crop, out=Z),
+          lambda: F.fft_major_plain(V[0], V[1], A, n_fft, a_crop))
+
+
+def compare_single_query_paths(matcher, plain_matcher, episode_wire):
+    """One config #2 episode on the kernel path and on the plain path:
+    every raw candidate at the same position, heights and prominences
+    within TOL_SCAN, and the same final peaks."""
+    staged = matcher.stage(episode_wire)
+    n_pad = (staged[0].shape[0] - matcher.overlap) // matcher.chunk
+    slab = scan_slab(matcher.config, matcher.chunk, staged[1], n_pad)
+    got, want = (
+        [a.cpu().numpy() for a in _match_episode_resident(
+            staged[0], staged[1], m._sample_f,
+            np.float32(m.snippet.inv_autocorr),
+            **m._scan_kwargs(slab, n_pad // slab))]
+        for m in (matcher, plain_matcher))
+    (pk, hk, rk), (pp, hp, rp) = got, want
+    fin = np.isfinite(hp)
+    if not np.array_equal(np.isfinite(hk), fin):
+        raise AssertionError("kernel and plain paths found different counts")
+    moved = int((fin & (pk != pp)).sum())
+    dh = float(np.abs(hk[fin] - hp[fin]).max()) if fin.any() else 0.0
+    dprom = float(np.abs(rk[fin] - rp[fin]).max()) if fin.any() else 0.0
+    print(f"one config #2 episode, kernel path vs plain path: "
+          f"{int(fin.sum())} raw candidates, {moved} at another position, "
+          f"max |dh| = {dh:.3e}, max |dprom| = {dprom:.3e} (tol {TOL_SCAN:g})")
+    if moved or not max(dh, dprom) <= TOL_SCAN:
+        raise AssertionError("kernel and plain paths disagree")
+    g, w = matcher.match_staged(staged), plain_matcher.match_staged(staged)
+    if [p.position for p in g] != [p.position for p in w] or any(
+        abs(a.height - b.height) > TOL_SCAN
+        or abs(a.prominence - b.prominence) > TOL_SCAN
+        for a, b in zip(g, w)
+    ):
+        raise AssertionError(f"kernel path {g}, plain path {w}")
+
+
+def timed_repeats(label, stage, scan, offsets, distance_secs):
+    """``REPEATS`` runs of stage then scan, each with the launch counts
+    reset just before it; prints the p50 of stage, scan and end-to-end
+    seconds, checks the plants every time, returns one run's counts."""
+    stage_s, scan_s, counts = [], [], []
+    for r in range(REPEATS + 1):  # the first run warms up, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = stage()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        peaks, launches = counted(lambda: scan(staged), SINGLE_PATH)
+        t2 = time.perf_counter()
+        check_plants([peaks], offsets, distance_secs)
+        if r:
+            stage_s.append(t1 - t0)
+            scan_s.append(t2 - t1)
+            counts.append(launches)
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"{label}: launch counts differ: {counts}")
+    e2e = [a + b for a, b in zip(stage_s, scan_s)]
+    print(f"{label}: p50 of {REPEATS} runs: stage "
+          f"{statistics.median(stage_s):.4f} s, scan "
+          f"{statistics.median(scan_s):.4f} s, end to end "
+          f"{statistics.median(e2e):.4f} s (e2e min {min(e2e):.4f}, max "
+          f"{max(e2e):.4f}); plants found within {PLANT_TOL} sample; "
+          f"launches per run {counts[0]}")
+    return counts[0]
+
+
+def single_query(config, device, rows):
+    """Path 2, config #2 through ``SnippetMatcher`` and through
+    ``ShardedScanner`` at Q = 1."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    snippet = snippets[0]
+    episode_wire = quantize_wire(episode, config.transfer_dtype)
+    matcher = SnippetMatcher(snippet, SR, config, device=device)
+    plain_matcher = SnippetMatcher(snippet, SR, config, device=device,
+                                   plain=True)
+    print(f"config #2: 1 x {SINGLE_EPISODE_SECS} s episode, one "
+          f"{len(snippet) / SR:g} s snippet, {config.transfer_dtype}, "
+          f"fft_len {matcher.fft_len}, path {matcher.fft_impl}, plants at "
+          f"{offsets} s")
+    check_single_query_kernels(matcher, episode_wire, rows)
+    torch.cuda.empty_cache()
+    compare_single_query_paths(matcher, plain_matcher, episode_wire)
+    torch.cuda.empty_cache()
+
+    launches = timed_repeats(
+        "config #2, SnippetMatcher.stage + match_staged",
+        lambda: matcher.stage(episode_wire), matcher.match_staged,
+        offsets, config.distance_secs)
+    rows["fft_major_fwd_wire2"]["launches"] = launches["fft_major_fwd_wire2"]
+    scanner = ShardedScanner([snippet], SR, config, device=device)
+    timed_repeats(
+        "config #2, ShardedScanner([snippet]).stage_resident + scan_staged",
+        lambda: scanner.stage_resident([episode_wire]),
+        lambda staged: scanner.scan_staged(staged)[0][0],
+        offsets, config.distance_secs)
+    staged = matcher.stage(episode_wire)
+    profile_run("one config #2 scan (SnippetMatcher.match_staged)",
+                lambda: matcher.match_staged(staged))
+
+
+def xla_packed_scan(config, device, rows):
+    """Path 3: ``fft_impl="xla_packed"`` (torch.fft correlation) with the
+    dense block reduction, kernel 7."""
+    snippets, offsets, episode = make_bench_inputs(XLA_QUERIES, EPISODE_SECS)
+    cfg = dataclasses.replace(config, fft_impl="xla_packed")
+    episode_wire = quantize_wire(episode, cfg.transfer_dtype)
+    scanner = ShardedScanner(snippets, SR, cfg, device=device)
+    print(f"xla_packed scan: 1 x {EPISODE_SECS} s episode, {XLA_QUERIES} "
+          f"queries, {cfg.transfer_dtype}, fft_len {scanner.fft_len}")
+
+    # kernel 7 at the scan's slab shape: the first slab's correlation
+    st = scanner.query_state
+    staged, ns, _ = scanner.stage_resident([episode_wire])
+    W, chunk = scanner.window, scanner.chunk
+    ep = dequant_to_f32(pad_wire_on_device(
+        staged[0], (SLAB + window_rows(W, chunk)) * chunk))
+    win = windows_from_episode(ep, 0, SLAB, chunk, W)
+    crop = correlation_crop(scanner.valid, cfg.block, scanner.fft_len,
+                            "xla_packed")
+    Q = st.inv_ac.shape[0]
+    c = corr_slab_xla_packed(win, torch.complex(st.t_r, st.t_i), crop)[:, :Q]
+    x = (c * st.inv_ac[None, :, None]).reshape(SLAB * Q, crop)
+    del c
+    starts = torch.arange(SLAB, device=x.device) * chunk
+    win_len = (int(ns[0]) - starts).clamp(0, W)
+    valid = (win_len[:, None] - st.m[None, :] + 1).clamp(min=0).reshape(-1)
+    block = min(cfg.block, 512)
+    got = K.local_max_block_reduce(x, valid, block)
+    want = K.local_max_block_reduce_plain(x, valid, block)
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    print(f"local_max_block_reduce: rows {tuple(x.shape)}, outputs "
+          f"{tuple(got[0].shape)}, exactly equal to the plain version: "
+          f"{same}")
+    if not all(same):
+        raise AssertionError("the dense block reduction disagrees")
+    row = rows["local_max_block_reduce"]
+    row["max_abs_err"] = 0.0
+    timed("local_max_block_reduce",
+          lambda: K.local_max_block_reduce(x, valid, block),
+          lambda: K.local_max_block_reduce_plain(x, valid, block), row)
+    del x, got, want
+    torch.cuda.empty_cache()
+
+    scanner.scan_resident([episode_wire])  # warm: cuFFT plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, launches = counted(
+        lambda: scanner.scan_resident([episode_wire]), XLA_PATH)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    check_plants([results[0][0]], offsets, cfg.distance_secs)
+    print(f"xla_packed scan: stage + scan {t_run:.3f} s; plants of query 0 "
+          f"found within {PLANT_TOL} sample; launches {launches}")
+    row["launches"] = launches["local_max_block_reduce"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t_start = time.perf_counter()
+    _build.load()
+    print(f"kernel build + load: {time.perf_counter() - t_start:.2f} s "
+          f"(nvcc {_build.build_seconds():.2f} s)")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+    config = MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
+    dev = torch.device("cuda", 0)
+    rows = {name: {"name": name, "route": "cuda", "source": src,
+                   "replaces": tpu}
+            for name, (src, tpu) in KERNEL_ROWS.items()}
+    for phase in (batch_scan, single_query, xla_packed_scan):
+        t0 = time.perf_counter()
+        phase(config, dev, rows)
+        torch.cuda.empty_cache()
+        print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms")}

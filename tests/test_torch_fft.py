@@ -194,3 +194,80 @@ def test_wrappers_dispatch_by_device(rng):
         T.fft_minor(meta, meta, M)
     with pytest.raises(ValueError):
         T.fft_minor(_t(xr), meta, M)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "int16", "float32"])
+def test_major_fwd_wire2_matches(wire, rng):
+    """Kernel 6's plain version against the Pallas pair pass: w_len < n,
+    an odd window count (the last pair's odd member is wire silence) and
+    strided views of one episode, as the single-query slab reads them."""
+    n = SIZES[0]
+    A, M = J.split_factors(n)
+    chunk, W, B = 5000, 12002, 5
+    ep = _wire(rng, (B - 1) * chunk + W, wire)
+    rows = np.stack([ep[b * chunk : b * chunk + W] for b in range(B)])
+    fill = 128 if wire == "mulaw8" else 0
+    padded = np.pad(rows, ((0, 1), (0, n - W)), constant_values=0)
+    padded[B, :] = fill
+    padded[B, W:] = 0  # masked past w_len in the kernel either way
+    P = (B + 1) // 2
+    want = J.fft_major_fwd_wire2(
+        jnp.asarray(padded[0::2]).reshape(P, A, M),
+        jnp.asarray(padded[1::2]).reshape(P, A, M),
+        A, n, W, interpret=True,
+    )
+    view = _t(ep).as_strided((B, W), (chunk, 1))
+    got = T.fft_major_fwd_wire2(view[0::2], view[1::2], A, n, W)
+    assert got[0].shape == (P, A, M)
+    _close(got, want)
+    # an even count: every pair is real
+    want = J.fft_major_fwd_wire2(
+        jnp.asarray(padded[0:4:2]).reshape(2, A, M),
+        jnp.asarray(padded[1:4:2]).reshape(2, A, M),
+        A, n, W, interpret=True,
+    )
+    _close(T.fft_major_fwd_wire2(view[0:4:2], view[1:4:2], A, n, W), want)
+
+
+def test_scrambled_single_query_spectra_pack_forms_agree(rng):
+    """At Q = 1 the query-pair spectra (pack=True) are the single-query
+    ones (pack=False): the pad query's spectrum is zero, so the scanner's
+    Q = 1 branch reads the pair form as the single-query kernel's."""
+    snippet = (rng.standard_normal((1, 3000)) * 0.2).astype(np.float32)
+    packed = T.scrambled_query_spectra(_t(snippet), SIZES[0], True)
+    single = T.scrambled_query_spectra(_t(snippet), SIZES[0], False)
+    for a, b in zip(packed, single):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "int16"])
+@pytest.mark.parametrize("B", [4, 5])
+def test_corr_single_query_planes_wire_matches(wire, B, rng):
+    """The single-query slab: pair pass → minor → product at Qh = 1 →
+    cropped inverse major, from wire windows to planes."""
+    n = SIZES[0]
+    A, M = J.split_factors(n)
+    W = 12002
+    win = _wire(rng, (B, W), wire)
+    snippet = (rng.standard_normal((1, 4000)) * 0.2).astype(np.float32)
+    s_r, s_i = J.scrambled_query_spectra(snippet, n, False)
+    width = 8 * M
+    want = J.corr_single_query_vpu_planes_wire(
+        jnp.asarray(win), s_r, s_i, width, interpret=True
+    )
+    got = T.corr_single_query_vpu_planes_wire(
+        _t(win), _t(s_r), _t(s_i), width
+    )
+    # for odd B the last yi row correlates the silence pad on both sides
+    assert got[0].shape == ((B + 1) // 2, width)
+    _close(got, want)
+    work = {}
+    again = T.corr_single_query_vpu_planes_wire(
+        _t(win), _t(s_r), _t(s_i), width, plain=True, work=work
+    )
+    assert set(work) == {"x", "x2", "v", "y"}
+    assert torch.equal(again[0], got[0])
+    with pytest.raises(ValueError):
+        T.corr_single_query_vpu_planes_wire(
+            _t(win), _t(s_r), _t(s_i), width + M
+        )

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
+    SnippetMatcher,
     quantize_wire,
 )
 from audio_matcher_tpu_torch.ops import cuda_fft as F  # noqa: E402
@@ -125,12 +126,14 @@ def test_scan_kernel_path_matches_plain_path(dev):
     plain = ShardedScanner(snippets, sr, cfg, device=dev,
                            query_state=scanner.query_state, plain=True)
     staged = scanner.stage_resident([quantize_wire(ep, "mulaw8")] * 2)
-    before = [k.launches for k in F.KERNELS + K.KERNELS]
+    path = (F.fft_major_fwd_wire, F.fft_minor, F.ifft_minor_product,
+            F.fft_major, K.local_max_block_reduce_packed)
+    before = [k.launches for k in path]
     got = scanner.scan_dispatch(staged)
-    after = [k.launches for k in F.KERNELS + K.KERNELS]
+    after = [k.launches for k in path]
     assert all(a > b for a, b in zip(after, before))
     want = plain.scan_dispatch(staged)
-    assert [k.launches for k in F.KERNELS + K.KERNELS] == after
+    assert [k.launches for k in path] == after
     for a, b in zip(got[0], want[0]):
         fin = torch.isfinite(b)
         assert torch.equal(torch.isfinite(a), fin)
@@ -141,3 +144,134 @@ def test_scan_kernel_path_matches_plain_path(dev):
     peaks = scanner.scan_collect(got)
     assert [p.position for p in peaks[0][0]] == [3 * sr]
     assert [p.position for p in peaks[1][2]] == [int(21.5 * sr)]
+
+
+def _wire_episode(dev, g, dtype, length):
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, (length,), device=dev, generator=g,
+                             dtype=torch.int32).to(dtype)
+    return (torch.randn(length, device=dev, generator=g) * 3000).to(dtype)
+
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 21, 1 << 22])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
+@pytest.mark.parametrize("B", [4, 5])
+def test_major_fwd_wire2_matches_plain(dev, n, dtype, B):
+    """Kernel 6 on strided even/odd windows of one episode; odd B pairs
+    the last window with wire silence."""
+    g = torch.Generator(device=dev).manual_seed(n + B)
+    A, M = F.split_factors(n)
+    W, chunk = int(n * 0.77), int(n * 0.6)
+    ep = _wire_episode(dev, g, dtype, (B - 1) * chunk + W)
+    win = ep.as_strided((B, W), (chunk, 1))
+    got = F.fft_major_fwd_wire2(win[0::2], win[1::2], A, n, W)
+    assert got[0].shape == ((B + 1) // 2, A, M)
+    _close(got, F.fft_major_fwd_wire2_plain(win[0::2], win[1::2], A, n, W))
+
+
+def test_major_fwd_wire2_refuses_bad_pairs(dev):
+    n = 1 << 14
+    A, _ = F.split_factors(n)
+    x = torch.zeros((3, n), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # more odd than even windows
+        F.fft_major_fwd_wire2(x[:2], x, A, n, n)
+    with pytest.raises(ValueError):  # mixed wire dtypes
+        F.fft_major_fwd_wire2(x, x.to(torch.int16), A, n, n)
+
+
+@pytest.mark.parametrize("block", K.BLOCKS)
+def test_dense_block_reduce_matches_plain(dev, block):
+    """Kernel 7 with seams (V > GROUP·block), valid lengths cut mid-tile
+    and at a seam."""
+    g = torch.Generator(device=dev).manual_seed(block + 1)
+    B, V = 6, block * 300
+    x = torch.randn(B, V, device=dev, generator=g)
+    x[0, 1000:1010] = 6.0
+    x[0, block * 128 - 1] = 9.0
+    x[0, block * 128] = 9.5
+    x[1, ::7] = 2.0
+    vl = torch.tensor([V, 0, V - 7, block * 128 + 1, 5, V],
+                      dtype=torch.int32, device=dev)
+    got = K.local_max_block_reduce(x, vl, block)
+    want = K.local_max_block_reduce_plain(x, vl, block)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_dense_block_reduce_refuses_misaligned_rows(dev):
+    B, V = 2, 512 * 4
+    buf = torch.randn(B * V + 4, device=dev)
+    vl = torch.full((B,), V, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.local_max_block_reduce(buf[1 : 1 + B * V].view(B, V), vl, 512)
+    ok = buf[4 : 4 + B * V].view(B, V)
+    for a, b in zip(K.local_max_block_reduce(ok, vl, 512),
+                    K.local_max_block_reduce_plain(ok, vl, 512)):
+        assert torch.equal(a, b)
+
+
+def _assert_paths_agree(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        fin = torch.isfinite(b)
+        assert (a[fin] - b[fin]).abs().max().item() <= 1.2e-5
+
+
+@pytest.mark.parametrize("slab", [8, 5])
+def test_single_query_scan_kernel_path_matches_plain_path(dev, slab):
+    """Q = 1 through the scanner: kernel 6, the Qh = 1 product and the
+    P-plane inverse major on the card, against the plain path."""
+    sr = 8000
+    rng = np.random.default_rng(6)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    ep = (rng.standard_normal(27 * sr) * 0.05).astype(np.float32)
+    ep[3 * sr : 3 * sr + 4000] = snippet
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0, slab=slab,
+                      slab_auto=False, transfer_dtype="mulaw8")
+    scanner = ShardedScanner([snippet], sr, cfg, device=dev)
+    plain = ShardedScanner([snippet], sr, cfg, device=dev,
+                           query_state=scanner.query_state, plain=True)
+    staged = scanner.stage_resident([quantize_wire(ep, "mulaw8")])
+    before = F.fft_major_fwd_wire2.launches
+    got = scanner.scan_dispatch(staged)
+    assert F.fft_major_fwd_wire2.launches > before
+    _assert_paths_agree(got[0], plain.scan_dispatch(staged)[0])
+    assert [p.position for p in scanner.scan_collect(got)[0][0]] == [3 * sr]
+
+
+def test_snippet_matcher_kernel_path_matches_plain_path(dev):
+    sr = 8000
+    rng = np.random.default_rng(8)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    ep = (rng.standard_normal(21 * sr) * 0.05).astype(np.float32)
+    ep[5 * sr : 5 * sr + 4000] = snippet
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="int16")
+    m = SnippetMatcher(snippet, sr, cfg, device=dev)
+    p = SnippetMatcher(snippet, sr, cfg, device=dev, plain=True)
+    got, want = m.match(ep), p.match(ep)
+    assert [q.position for q in got] == [q.position for q in want] == [5 * sr]
+    assert abs(got[0].height - want[0].height) <= 1.2e-5
+
+
+def test_xla_packed_scan_launches_the_dense_reduction(dev):
+    """fft_impl="xla_packed": torch.fft correlation, kernel 7 peaks."""
+    sr = 8000
+    rng = np.random.default_rng(9)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (4000, 3600, 3800)]
+    ep = (rng.standard_normal(12 * sr) * 0.05).astype(np.float32)
+    ep[4 * sr : 4 * sr + 4000] = snippets[0]
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      fft_impl="xla_packed", transfer_dtype="mulaw8")
+    scanner = ShardedScanner(snippets, sr, cfg, device=dev)
+    plain = ShardedScanner(snippets, sr, cfg, device=dev,
+                           query_state=scanner.query_state, plain=True)
+    staged = scanner.stage_resident([quantize_wire(ep, "mulaw8")])
+    before = K.local_max_block_reduce.launches
+    got = scanner.scan_dispatch(staged)
+    assert K.local_max_block_reduce.launches > before
+    _assert_paths_agree(got[0], plain.scan_dispatch(staged)[0])
+    assert [p.position for p in scanner.scan_collect(got)[0][0]] == [4 * sr]

@@ -1,10 +1,12 @@
-"""The port's peak picking against the JAX package's single-read path.
+"""The port's peak picking against the JAX package's single-read paths.
 
-The block reduction's plain version (what the wrapper runs on a CPU
-tensor) must equal ``local_max_block_reduce_packed`` in Pallas interpret
-mode exactly: the same f32 products, compared and reduced, with the same
-seam contract and argmax-first ties. ``pick_peaks_packed`` must then equal
-``pick_peaks_pallas_packed`` on the same planes, also exactly (positions,
+The block reductions' plain versions (what the wrapper runs on a CPU
+tensor) must equal ``local_max_block_reduce_packed`` and
+``local_max_block_reduce`` in Pallas interpret mode exactly: the same f32
+products, compared and reduced, with the same seam contract and
+argmax-first ties. ``pick_peaks_packed`` and
+``pick_peaks_dense`` must then equal ``pick_peaks_pallas_packed`` and
+``pick_peaks_pallas`` on the same rows, also exactly (positions,
 heights and prominences are selections and f32 differences of the same
 plane values).
 """
@@ -18,19 +20,24 @@ import jax.numpy as jnp  # noqa: E402
 
 from audio_matcher_tpu.ops.pallas_kernels import (  # noqa: E402
     GROUP as JAX_GROUP,
+    local_max_block_reduce as jax_dense_reduce,
     local_max_block_reduce_packed as jax_reduce,
 )
 from audio_matcher_tpu.ops.peaks import (  # noqa: E402
     peaks_crop_width as jax_crop_width,
+    pick_peaks_pallas,
     pick_peaks_pallas_packed,
 )
 
 from audio_matcher_tpu_torch.ops.cuda_kernels import (  # noqa: E402
     GROUP,
+    local_max_block_reduce,
     local_max_block_reduce_packed,
 )
 from audio_matcher_tpu_torch.ops.peaks import (  # noqa: E402
     peaks_crop_width,
+    pick_peaks_dense,
+    pick_peaks_dispatch,
     pick_peaks_packed,
 )
 
@@ -157,3 +164,85 @@ def test_crop_width_matches():
     with pytest.raises(ValueError):
         z = torch.zeros((1, 700))
         pick_peaks_packed(z, z, torch.ones(2), torch.ones(2), 10, 2, 512)
+
+
+def _dense(seed, B, V, block):
+    x = np.random.default_rng(seed).standard_normal((B, V)).astype(np.float32)
+    seg = block * GROUP  # columns per segment of the reduction
+    x[0, 700:710] = 6.0  # a plateau
+    x[0, 1000] = x[0, 1100] = 7.0  # equal peaks in one tile: lower wins
+    x[1, seg - 1], x[1, seg] = 9.0, 9.5  # the blind seam columns
+    x[2, seg - 60] = 9.5  # ties with a seam column
+    return x
+
+
+@pytest.mark.parametrize("block", [128, 512])
+def test_dense_block_reduce_plain_equals_jax_kernel(block):
+    """Kernel 7's plain version against the Pallas dense reduction, with
+    seams (V = 2·128·block) and valid lengths cut mid-tile."""
+    B, V = 5, 2 * GROUP * block
+    x = _dense(block, B, V, block)
+    vl = np.asarray([V, V - 7, GROUP * block + 3, 0, 300], np.int32)
+    want = jax_dense_reduce(
+        jnp.asarray(x), jnp.asarray(vl), block=block, interpret=True
+    )
+    got = local_max_block_reduce(
+        torch.from_numpy(x), torch.from_numpy(vl), block
+    )
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert np.all(np.isneginf(got[0][3].numpy()))
+    with pytest.raises(ValueError):
+        local_max_block_reduce(torch.zeros((2, 1000)), torch.ones(2), 512)
+    with pytest.raises(ValueError):
+        local_max_block_reduce(torch.zeros((2, 1024)), torch.ones(3), 512)
+
+
+@pytest.mark.parametrize(
+    "B,V,distance,n_peaks",
+    [
+        (3, 512 * 300, 5000, 4),  # seams repaired, mid-tile suppression
+        (4, 4096, 700, 6),  # the fallback's crop: one segment
+        (2, 4000, 300, 3),  # V off the tile grid: zero-padded
+    ],
+)
+def test_pick_peaks_dense_equals_jax(B, V, distance, n_peaks):
+    x = _dense(V + distance, B, V, 512) if V > SEG else (
+        np.random.default_rng(V).standard_normal((B, V)).astype(np.float32)
+    )
+    vl = np.asarray([V, V - 3000, 0, V - 7][:B], np.int32).clip(0)
+    want = pick_peaks_pallas(
+        jnp.asarray(x), jnp.asarray(vl), distance, n_peaks, 2048,
+        interpret=True,
+    )
+    for plain in (False, True):
+        got = pick_peaks_dense(
+            torch.from_numpy(x), torch.from_numpy(vl), distance, n_peaks,
+            2048, plain=plain,
+        )
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == (B, n_peaks)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pick_peaks_dispatch_flattens_and_refuses_jnp():
+    x = np.random.default_rng(5).standard_normal((2, 3, 2048)).astype(
+        np.float32
+    )
+    vl = np.full((2, 3), 2000, np.int32)
+    got = pick_peaks_dispatch(
+        torch.from_numpy(x), torch.from_numpy(vl), 100, 4, 512, "pallas"
+    )
+    want = pick_peaks_dense(
+        torch.from_numpy(x.reshape(6, -1)), torch.from_numpy(vl.reshape(6)),
+        100, 4, 512,
+    )
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (2, 3, 4)
+        assert torch.equal(g.reshape(6, 4), w)
+    with pytest.raises(NotImplementedError, match="P3"):
+        pick_peaks_dispatch(
+            torch.from_numpy(x), torch.from_numpy(vl), 100, 4, 512, "jnp"
+        )

@@ -4,7 +4,9 @@ Both scan the same staged episodes with the fused path (JAX:
 ``fft_impl="vpu"``, ``peaks_impl="pallas"`` in Pallas interpret mode on a
 one-device mesh; the port: every kernel's plain PyTorch version, since the
 tensors lie on the CPU). Shape: sr 8000, 1 s chunks, snippets of up to
-0.5 s (``fft_len`` = 2^14), 2 episodes, Q = 3 (odd: the pad query row runs).
+0.5 s (``fft_len`` = 2^14), 2 episodes, Q = 3 (odd: the pad query row runs)
+and Q = 1; then 0.25 s chunks and 0.125 s snippets, where both scanners
+fall back to ``xla_packed`` (``fft_len`` 4096).
 Positions must be identical; heights and prominences agree within 1.2e-5,
 the reference's oracle tolerance (tests/test_correlate.py): both sides
 compute the same f32 transforms by different FFT algorithms, which differ
@@ -138,15 +140,84 @@ def test_pad_rows_match_jax(jax_run):
 
 
 def test_refuses_off_slice_configurations():
+    """What the port lacks raises, naming its ROADMAP item; one snippet
+    and ``fft_len`` < 2^14 are scanned (the tests below)."""
     snippets, _ = _inputs()
     with pytest.raises(NotImplementedError, match="P3"):
         ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0, fft_impl="xla"))
-    with pytest.raises(NotImplementedError, match="P2"):
-        ShardedScanner(snippets[:1], SR, MatchConfig(chunk_secs=1.0))
     with pytest.raises(NotImplementedError, match="P3"):
-        ShardedScanner(
-            [s[:1000] for s in snippets], SR, MatchConfig(chunk_secs=0.25)
-        )
+        ShardedScanner(snippets, SR,
+                       MatchConfig(chunk_secs=1.0, peaks_impl="jnp"))
+    single = ShardedScanner(snippets[:1], SR, MatchConfig(chunk_secs=1.0))
+    assert single.fft_impl == "vpu" and len(single.queries) == 1
+    small = ShardedScanner(
+        [s[:1000] for s in snippets], SR, MatchConfig(chunk_secs=0.25)
+    )
+    assert small.fft_len < 1 << 14 and small.fft_impl == "xla_packed"
     with pytest.raises(NotImplementedError, match="P7"):
         ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
                        device=["cpu", "cpu"])
+
+
+def _jax_scan(snippets, episodes, jcfg):
+    """The JAX scanner's raw outputs, peaks and query state (its spectra
+    as real and imaginary parts) for a one-device mesh."""
+    js = JaxScanner(snippets, SR, jcfg, mesh=make_mesh(1))
+    (pos, h, prom), ns, n_real = js.scan_dispatch(js.stage_resident(episodes))
+    raw = tuple(np.asarray(a) for a in (pos, h, prom))
+    peaks = js.scan_collect(((pos, h, prom), ns, n_real))
+    spec = js._sample_f_resident
+    if js.fft_impl == "vpu":
+        t_r, t_i = (np.asarray(a) for a in spec)
+    else:
+        t_r, t_i = np.real(np.asarray(spec)), np.imag(np.asarray(spec))
+    state = (t_r, t_i, np.asarray(js._inv_ac), np.asarray(js._m))
+    return js.fft_impl, raw, peaks, state
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "int16"])
+def test_single_query_scan_matches_jax(wire):
+    """Q = 1 (the config #2 branch): window pairs share each transform,
+    with the scanner's own spectra and with the JAX scanner's."""
+    snippets, episodes = _inputs()
+    jcfg, cfg = _configs(wire)
+    impl, raw, want, state = _jax_scan(snippets[:1], episodes, jcfg)
+    assert impl == "vpu"
+    for qs in (None, query_state_from_numpy(*state, device="cpu")):
+        scanner = ShardedScanner(snippets[:1], SR, cfg, query_state=qs)
+        dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
+        assert dispatched[0][0].shape[:2] == (2, 1)
+        _assert_raw(dispatched[0], raw)
+        peaks = scanner.scan_collect(dispatched)
+        _assert_same(peaks, want)
+        assert int(1.3 * SR) in [p.position for p in peaks[0][0]]
+
+
+@pytest.mark.parametrize("n_queries", [1, 3])
+def test_small_fft_fallback_matches_jax(n_queries):
+    """Below ``fft_len`` 2^14 both scanners take ``xla_packed`` with the
+    dense single-read peaks: window pairs at Q = 1, query pairs at Q = 3."""
+    rng = np.random.default_rng(31)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (1000, 900, 960)][:n_queries]
+    episodes = []
+    for e, secs in enumerate((2.3, 1.6)):
+        x = (rng.standard_normal(int(secs * SR)) * 0.05).astype(np.float32)
+        q, at = (0, 0.4) if e == 0 else (n_queries - 1, 1.1)
+        x[int(at * SR) : int(at * SR) + len(snippets[q])] = snippets[q]
+        episodes.append(x)
+    kw = dict(chunk_secs=0.25, distance_secs=1.0, transfer_dtype="mulaw8")
+    impl, raw, want, state = _jax_scan(
+        snippets, episodes,
+        JaxConfig(fft_impl="vpu", peaks_impl="pallas", **kw),
+    )
+    assert impl == "xla_packed"
+    for qs in (None, query_state_from_numpy(*state, device="cpu")):
+        scanner = ShardedScanner(
+            snippets, SR, MatchConfig(**kw), query_state=qs
+        )
+        assert scanner.fft_impl == "xla_packed"
+        dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
+        _assert_raw(dispatched[0], raw)
+        _assert_same(scanner.scan_collect(dispatched), want)
+    assert int(0.4 * SR) in [p.position for p in want[0][0]]
