@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of ``audio_matcher_tpu``'s matchers.
 
 The package mirrors the JAX package's module names. It imports ``torch``
-and numpy only, never ``jax``. Every kernel wrapper runs its plain PyTorch
-version on a CPU tensor and its hand-written CUDA kernel (``csrc/``) on a
-CUDA tensor, or raises. The entry points are :func:`match` and
+and numpy only (scipy lazily, for one fallback of
+``ops.peaks.find_peaks_device``), never ``jax``. Every kernel wrapper runs
+its plain PyTorch version on a CPU tensor and its hand-written CUDA kernel
+(``csrc/``) on a CUDA tensor, or raises. The entry points run on the
+current CUDA device unless the caller passes ``device="cpu"``; nothing
+falls back to the CPU. They are :func:`match` and
 :class:`~audio_matcher_tpu_torch.models.matcher.SnippetMatcher` (one
 query snippet, BASELINE config #2), and
 :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedScanner` (a batch
@@ -11,14 +14,14 @@ of episodes against one or more snippets, configs #2 and #3).
 """
 
 
-def match(snippet, episode, sr, device="cpu", **config_kwargs):
+def match(snippet, episode, sr, device="cuda", **config_kwargs):
     """One-call library API: find ``snippet`` inside ``episode``.
 
     Returns the deduped :class:`~audio_matcher_tpu_torch.ops.peaks.Peak`
     list (positions in samples). ``device`` is the torch device that
-    stages and scans, passed explicitly (default the CPU, where every
-    kernel runs its plain version; give a CUDA device to run the CUDA
-    kernels). Keyword args go to
+    stages and scans: by default the current CUDA device, where the CUDA
+    kernels run; ``device="cpu"`` runs every kernel's plain version.
+    Keyword args go to
     :class:`~audio_matcher_tpu_torch.models.matcher.MatchConfig`.
     """
     from .models.matcher import MatchConfig, SnippetMatcher

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes` (every pointer and the
-stream pass as ``c_void_p``). The library lands in ``_build/`` beside this
-file, named by a hash of the sources and flags, so the first call after a
-change builds it and later calls reuse it. A missing ``nvcc`` or a failed
-build raises: there is no other route to the kernels.
+The sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` process per
+source, all started together, and link into one shared library with a
+plain C interface, loaded with :mod:`ctypes` (every pointer and the stream
+pass as ``c_void_p``). The library lands in ``_build/`` beside this file,
+named by a hash of the sources and flags, so the first call after a change
+builds it and later calls reuse it. A missing ``nvcc`` or a failed build
+raises: there is no other route to the kernels.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # compiling each source to an object
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,8 +38,10 @@ SIGNATURES = {
     "am_major_fwd_wire2": (
         _I, _P, _LL, _P, _LL, _I, _P, _P, _I, _I, _I, _LL, _P
     ),
+    "am_major_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
     "am_major_inverse": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_minor_forward": (_P, _P, _P, _P, _I, _I, _P),
+    "am_minor_inverse": (_P, _P, _P, _P, _I, _I, _P),
     "am_minor_product": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_block_reduce_packed": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P
@@ -84,8 +88,19 @@ def library_path() -> Path:
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> tuple[list[int], str]:
+    """Run the commands side by side; their return codes and output."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], "".join(outs)
 
 
 def build() -> Path:
@@ -95,19 +110,29 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _Loaded.seconds = time.perf_counter() - t0
-    _Loaded.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildFailure(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_Loaded.log}"
-        )
-    os.replace(tmp, out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        srcs = sources()
+        objs = [str(work / f"{src.stem}.o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(srcs, objs)]
+        t0 = time.perf_counter()
+        rcs, _Loaded.log = _run_all(cmds)
+        if not any(rcs):
+            lib = str(work / out.name)
+            cmds = [[nvcc, *LINK_FLAGS, "-o", lib, *objs]]
+            rcs, link_log = _run_all(cmds)
+            _Loaded.log += link_log
+        _Loaded.seconds = time.perf_counter() - t0
+        bad = [(rc, cmd) for rc, cmd in zip(rcs, cmds) if rc]
+        if bad:
+            rc, cmd = bad[0]
+            raise KernelBuildFailure(
+                f"nvcc failed ({rc}): {' '.join(cmd)}\n{_Loaded.log}"
+            )
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -3,9 +3,12 @@
 // Replaces the Pallas TPU kernels of audio_matcher_tpu/ops/pallas_fft.py:
 //   major_pass<In, false>       <- fft_major_fwd_wire (_major_fwd_wire_kernel)
 //   major_pass<In, false, true> <- fft_major_fwd_wire2 (_major_fwd_wire2_kernel)
+//   major_pass<float, false, true> on f32 planes
+//                               <- fft_major(inverse=False, cross=True)
 //   major_pass<float, true>     <- fft_major(inverse=True, cross=True, a_crop)
-//   minor_pass<false>           <- fft_minor (forward)
-//   minor_pass<true>            <- ifft_minor_product (_minor_product_kernel)
+//   minor_pass<MINOR_FORWARD>   <- fft_minor (forward)
+//   minor_pass<MINOR_INVERSE>   <- fft_minor (inverse)
+//   minor_pass<MINOR_PRODUCT>   <- ifft_minor_product (_minor_product_kernel)
 //
 // The pair mode is the single-query path: two wire windows go in as
 // fft(w0 + i*w1), both decoded in-register. The windows are strided views
@@ -14,7 +17,9 @@
 // rows past the odd windows' count read wire silence instead. At one query
 // the slab is small: at config #2 (8 windows, A = M = 2048) the pair pass
 // reads 8 x 3.1 MB of mu-law and writes 2 x 4 x 16 MB of planes, in M/8 = 256
-// strips per pair, 1024 blocks, about 8 waves of one block per SM.
+// strips per pair, 1024 blocks, about 8 waves of one block per SM. The same
+// pair instantiation with f32 "wire" rows of stride n and w_len = n is the
+// forward major pass of fft2_scrambled: a complex f32 [P, A, M] input.
 //
 // What is computed. A transform of length n = A*M is viewed as [A, M],
 // a-major. The forward major pass runs a radix-2 DIF over the strided A axis
@@ -32,9 +37,13 @@
 // 2 x 4.3 GB and the inverse major pass reads them back and writes 2 x 2.9 GB.
 // Shared memory is the second limit: a block may hold at most 227 KB, so the
 // major pass cannot keep a [2048, 512] complex tile resident as the TPU does
-// in VMEM. It takes a strip of MAJOR_COLS = 8 columns (2048 x 8 complex =
-// 128 KB), reads each row of the strip as one 32-byte sector, and keeps the
-// block count high instead (one block per SM at this size).
+// in VMEM. It takes a strip of 8 columns (2048 x 8 complex = 128 KB), reads
+// each row of the strip as one 32-byte sector, and keeps the block count high
+// instead (one block per SM at this size). At A = 4096 (fft_len 2^24) the
+// strip narrows to 4 columns (4096 x 4 complex = 128 KB), a template
+// parameter chosen at launch; the minor pass holds a whole M-row (3*M floats
+// with its twiddles: 48 KB at M = 4096) and, in the product mode, 16 instead
+// of 8 elements per thread in registers at M = 4096.
 //
 // What the design does about it. The product pass multiplies the window
 // spectrum by each query pair's spectrum in registers and transforms it in
@@ -49,16 +58,19 @@
 // butterflies run in full FP32. Offsets into the planes are 64-bit: one
 // plane of the product output holds 2^30 elements.
 //
-// Each C entry point returns cudaGetLastError() of its launch.
+// Each C entry point returns cudaGetLastError() of its launch, or
+// cudaErrorInvalidValue for a factor it has no tile for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAJOR_COLS = 8;      // columns of the strided A axis per block
 constexpr int MAJOR_THREADS = 512;
 constexpr int MINOR_THREADS = 256;
+constexpr int MAX_LOG2_FACTOR = 12;  // A, M <= 4096: n <= 2^24
+
+enum MinorMode { MINOR_FORWARD, MINOR_INVERSE, MINOR_PRODUCT };
 
 __device__ __forceinline__ int brev_bits(int x, int bits) {
     return (int)(__brev((unsigned)x) >> (32 - bits));
@@ -148,14 +160,14 @@ __device__ __forceinline__ In wire_silence() { return In(0); }
 template <>
 __device__ __forceinline__ uint8_t wire_silence<uint8_t>() { return 128; }
 
-// One block per (batch p, strip of MAJOR_COLS columns).
+// One block per (batch p, strip of 2^LOG2C columns).
 // Forward (INVERSE = false): x is the real wire-dtype input, row p at
 // x + p*in_stride, element (a, c) at a*M + c, read only below w_len (zero past
 // it); output [P, A, M] planes. PAIR: the imaginary plane is read the same
 // way from x1 + p*x1_stride for p < x1_rows; rows p >= x1_rows pair with
 // wire silence (the pad window of an odd slab), decoded like any sample.
 // Inverse: x, xi are [P, A, M] f32 planes; output [P, a_crop, M].
-template <typename In, bool INVERSE, bool PAIR = false>
+template <typename In, bool INVERSE, bool PAIR, int LOG2C>
 __global__ void __launch_bounds__(MAJOR_THREADS)
 major_pass(const In* __restrict__ x, const float* __restrict__ xi,
            long long in_stride, const In* __restrict__ x1,
@@ -163,8 +175,7 @@ major_pass(const In* __restrict__ x, const float* __restrict__ xi,
            float* __restrict__ yi, int log2A, int log2M, long long w_len,
            int a_crop) {
     extern __shared__ float smem[];
-    constexpr int C = MAJOR_COLS;
-    constexpr int log2C = 3;
+    constexpr int C = 1 << LOG2C;
     const int A = 1 << log2A;
     const int log2n = log2A + log2M;
     float* sr = smem;
@@ -181,7 +192,7 @@ major_pass(const In* __restrict__ x, const float* __restrict__ xi,
     const In* x1p = x1_real ? x1 + p * x1_stride : nullptr;
     const float x1_silence = PAIR ? dequant(wire_silence<In>()) : 0.0f;
     for (int e = threadIdx.x; e < A * C; e += blockDim.x) {
-        const int a = e >> log2C;
+        const int a = e >> LOG2C;
         const int col = c0 + (e & (C - 1));
         const long long idx = ((long long)a << log2M) + col;
         if (!INVERSE) {
@@ -201,13 +212,13 @@ major_pass(const In* __restrict__ x, const float* __restrict__ xi,
         }
     }
     __syncthreads();
-    dif_stages<!INVERSE>(sr, si, tw_r, tw_i, log2A, log2C);
+    dif_stages<!INVERSE>(sr, si, tw_r, tw_i, log2A, LOG2C);
 
     const int rows = INVERSE ? a_crop : A;
     float* yrp = yr + p * ((long long)rows << log2M);
     float* yip = yi + p * ((long long)rows << log2M);
     for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
-        const int a = e >> log2C;
+        const int a = e >> LOG2C;
         const int col = c0 + (e & (C - 1));
         const long long idx = ((long long)a << log2M) + col;
         if (!INVERSE) {
@@ -224,19 +235,19 @@ major_pass(const In* __restrict__ x, const float* __restrict__ xi,
     }
 }
 
-// Forward: one block per contiguous M row of [rows, M] planes.
+// FORWARD / INVERSE: one block per contiguous M row of [rows, M] planes, the
+// DIF over the row (inverse: bit-reversed in, natural out, unscaled).
 // PRODUCT: one block per (row a, window b), blockIdx.x = a*B + b; the window
-// row X[b, a] stays in registers while the block loops over the Qh query
-// pairs: V = X*T[q, a] -> inverse DIF -> out row (b*Qh + q, a) of
-// [B*Qh, A, M].
-template <bool PRODUCT>
+// row X[b, a] stays in registers (PER elements per thread, M <= PER *
+// MINOR_THREADS) while the block loops over the Qh query pairs:
+// V = X*T[q, a] -> inverse DIF -> out row (b*Qh + q, a) of [B*Qh, A, M].
+template <int MODE, int PER>
 __global__ void __launch_bounds__(MINOR_THREADS)
 minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ tr, const float* __restrict__ ti,
            float* __restrict__ yr, float* __restrict__ yi, int log2M, int A,
            int B, int Qh) {
     extern __shared__ float smem[];
-    constexpr int PER = 8;  // elements per thread: M <= PER * MINOR_THREADS
     const int M = 1 << log2M;
     float* sr = smem;
     float* si = sr + M;
@@ -244,14 +255,14 @@ minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
     float* tw_i = tw_r + M / 2;
     build_twiddles(tw_r, tw_i, log2M);
 
-    if (!PRODUCT) {
+    if (MODE != MINOR_PRODUCT) {
         const long long row = (long long)blockIdx.x << log2M;
         for (int e = threadIdx.x; e < M; e += blockDim.x) {
             sr[e] = xr[row + e];
             si[e] = xi[row + e];
         }
         __syncthreads();
-        dif_stages<true>(sr, si, tw_r, tw_i, log2M, 0);
+        dif_stages<MODE == MINOR_FORWARD>(sr, si, tw_r, tw_i, log2M, 0);
         for (int e = threadIdx.x; e < M; e += blockDim.x) {
             yr[row + e] = sr[e];
             yi[row + e] = si[e];
@@ -294,30 +305,61 @@ minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
     }
 }
 
-size_t major_smem(int log2A) {
+bool factors_fit(int log2A, int log2M) {
+    return log2A >= 1 && log2M >= 1 && log2A <= MAX_LOG2_FACTOR &&
+           log2M <= MAX_LOG2_FACTOR;
+}
+
+// Strip width of the major pass: 8 columns up to A = 2048, 4 at A = 4096,
+// so the [A, C] complex tile stays at 128 KB of shared memory.
+template <typename In, bool INVERSE, bool PAIR, int LOG2C>
+int launch_major_cols(const In* x, const float* xi, long long in_stride,
+                      const In* x1, long long x1_stride, int x1_rows,
+                      float* yr, float* yi, int P, int log2A, int log2M,
+                      long long w_len, int a_crop, cudaStream_t stream) {
+    auto kern = major_pass<In, INVERSE, PAIR, LOG2C>;
     const size_t A = (size_t)1 << log2A;
-    return (2 * A * MAJOR_COLS + A) * sizeof(float);
-}
-
-size_t minor_smem(int log2M) {
-    const size_t M = (size_t)1 << log2M;
-    return 3 * M * sizeof(float);
-}
-
-template <typename In, bool PAIR>
-int launch_major_fwd(const void* x, long long in_stride, const void* x1,
-                     long long x1_stride, int x1_rows, float* yr, float* yi,
-                     int P, int log2A, int log2M, long long w_len,
-                     cudaStream_t stream) {
-    auto kern = major_pass<In, false, PAIR>;
-    const size_t smem = major_smem(log2A);
+    const size_t smem = (2 * A * ((size_t)1 << LOG2C) + A) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((1 << log2M) / MAJOR_COLS, P);
+    dim3 grid((1 << log2M) >> LOG2C, P);
     kern<<<grid, MAJOR_THREADS, smem, stream>>>(
-        (const In*)x, nullptr, in_stride, (const In*)x1, x1_stride, x1_rows,
-        yr, yi, log2A, log2M, w_len, 0);
+        x, xi, in_stride, x1, x1_stride, x1_rows, yr, yi, log2A, log2M,
+        w_len, a_crop);
+    return (int)cudaGetLastError();
+}
+
+template <typename In, bool INVERSE, bool PAIR = false>
+int launch_major(const In* x, const float* xi, long long in_stride,
+                 const In* x1, long long x1_stride, int x1_rows, float* yr,
+                 float* yi, int P, int log2A, int log2M, long long w_len,
+                 int a_crop, cudaStream_t stream) {
+    if (!factors_fit(log2A, log2M) || log2M < 3)
+        return (int)cudaErrorInvalidValue;
+    if (log2A <= 11)
+        return launch_major_cols<In, INVERSE, PAIR, 3>(
+            x, xi, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
+            log2M, w_len, a_crop, stream);
+    return launch_major_cols<In, INVERSE, PAIR, 2>(
+        x, xi, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A, log2M,
+        w_len, a_crop, stream);
+}
+
+// The minor pass's tile: 3*M floats (the row and its twiddle table), 48 KB
+// at M = 4096, the most a block takes without the opt-in; the opt-in is set
+// anyway so that a larger tile fails loudly at launch, not silently.
+template <int MODE, int PER>
+int launch_minor(int blocks, const float* xr, const float* xi,
+                 const float* tr, const float* ti, float* yr, float* yi,
+                 int log2M, int A, int B, int Qh, cudaStream_t stream) {
+    auto kern = minor_pass<MODE, PER>;
+    const size_t smem = 3 * ((size_t)1 << log2M) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<blocks, MINOR_THREADS, smem, stream>>>(
+        xr, xi, tr, ti, yr, yi, log2M, A, B, Qh);
     return (int)cudaGetLastError();
 }
 
@@ -329,17 +371,17 @@ int launch_major_fwd_wire(int dtype, const void* x, long long in_stride,
                           long long w_len, cudaStream_t s) {
     switch (dtype) {
         case 0:
-            return launch_major_fwd<uint8_t, PAIR>(
-                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
-                log2M, w_len, s);
+            return launch_major<uint8_t, false, PAIR>(
+                (const uint8_t*)x, nullptr, in_stride, (const uint8_t*)x1,
+                x1_stride, x1_rows, yr, yi, P, log2A, log2M, w_len, 0, s);
         case 1:
-            return launch_major_fwd<int16_t, PAIR>(
-                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
-                log2M, w_len, s);
+            return launch_major<int16_t, false, PAIR>(
+                (const int16_t*)x, nullptr, in_stride, (const int16_t*)x1,
+                x1_stride, x1_rows, yr, yi, P, log2A, log2M, w_len, 0, s);
         case 2:
-            return launch_major_fwd<float, PAIR>(
-                x, in_stride, x1, x1_stride, x1_rows, yr, yi, P, log2A,
-                log2M, w_len, s);
+            return launch_major<float, false, PAIR>(
+                (const float*)x, nullptr, in_stride, (const float*)x1,
+                x1_stride, x1_rows, yr, yi, P, log2A, log2M, w_len, 0, s);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -368,35 +410,50 @@ int am_major_fwd_wire2(int dtype, const void* x0, long long x0_stride,
                                        w_len, (cudaStream_t)stream);
 }
 
+// The forward major pass of complex f32 [P, A, M] planes (cross twiddle
+// after the DIF): the pair mode with both planes as f32 rows of stride n.
+int am_major_forward(const float* xr, const float* xi, float* yr, float* yi,
+                     int P, int log2A, int log2M, void* stream) {
+    const long long n = 1LL << (log2A + log2M);
+    return launch_major<float, false, true>(
+        xr, nullptr, n, xi, n, P, yr, yi, P, log2A, log2M, n, 0,
+        (cudaStream_t)stream);
+}
+
 int am_major_inverse(const float* xr, const float* xi, float* yr, float* yi,
                      int P, int log2A, int log2M, int a_crop, void* stream) {
-    auto kern = major_pass<float, true>;
-    const size_t smem = major_smem(log2A);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((1 << log2M) / MAJOR_COLS, P);
-    kern<<<grid, MAJOR_THREADS, smem, (cudaStream_t)stream>>>(
-        xr, xi, (long long)1 << (log2A + log2M), nullptr, 0, 0, yr, yi,
-        log2A, log2M, 0, a_crop);
-    return (int)cudaGetLastError();
+    return launch_major<float, true>(
+        xr, xi, 1LL << (log2A + log2M), nullptr, 0, 0, yr, yi, P, log2A,
+        log2M, 0, a_crop, (cudaStream_t)stream);
 }
 
 int am_minor_forward(const float* xr, const float* xi, float* yr, float* yi,
                      int rows, int log2M, void* stream) {
-    minor_pass<false><<<rows, MINOR_THREADS, minor_smem(log2M),
-                        (cudaStream_t)stream>>>(
-        xr, xi, nullptr, nullptr, yr, yi, log2M, 0, 0, 0);
-    return (int)cudaGetLastError();
+    if (!factors_fit(1, log2M)) return (int)cudaErrorInvalidValue;
+    return launch_minor<MINOR_FORWARD, 1>(
+        rows, xr, xi, nullptr, nullptr, yr, yi, log2M, 0, 0, 0,
+        (cudaStream_t)stream);
+}
+
+int am_minor_inverse(const float* xr, const float* xi, float* yr, float* yi,
+                     int rows, int log2M, void* stream) {
+    if (!factors_fit(1, log2M)) return (int)cudaErrorInvalidValue;
+    return launch_minor<MINOR_INVERSE, 1>(
+        rows, xr, xi, nullptr, nullptr, yr, yi, log2M, 0, 0, 0,
+        (cudaStream_t)stream);
 }
 
 int am_minor_product(const float* xr, const float* xi, const float* tr,
                      const float* ti, float* yr, float* yi, int B, int A,
                      int Qh, int log2M, void* stream) {
-    minor_pass<true><<<A * B, MINOR_THREADS, minor_smem(log2M),
-                       (cudaStream_t)stream>>>(
-        xr, xi, tr, ti, yr, yi, log2M, A, B, Qh);
-    return (int)cudaGetLastError();
+    if (!factors_fit(1, log2M)) return (int)cudaErrorInvalidValue;
+    if (log2M <= 11)
+        return launch_minor<MINOR_PRODUCT, 8>(
+            A * B, xr, xi, tr, ti, yr, yi, log2M, A, B, Qh,
+            (cudaStream_t)stream);
+    return launch_minor<MINOR_PRODUCT, 16>(
+        A * B, xr, xi, tr, ti, yr, yi, log2M, A, B, Qh,
+        (cudaStream_t)stream);
 }
 
 }  // extern "C"

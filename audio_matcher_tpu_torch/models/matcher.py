@@ -4,11 +4,23 @@
 :class:`SnippetMatcher` scans episodes against one query snippet
 (BASELINE config #2): the episode is staged once in its wire dtype,
 overlap-save windows are strided views of it, and each slab of windows
-runs the single-query correlation and the single-read peak picking on the
-episode's device, in a Python loop over slabs. Beside it: the config, the
-staging wire format, the slab policy, overlap-save windowing and the
-cross-window dedup, with the reference semantics listed in
-``audio_matcher_tpu/models/matcher.py``:
+runs the single-query correlation and the peak picking on the episode's
+device (by default the current CUDA device), in a Python loop over slabs.
+Every ``fft_impl`` of the JAX package runs, with either ``peaks_impl``:
+
+  * ``"vpu"`` + ``"pallas"`` (the default, the fused path): the wire
+    windows go straight into the two-factor FFT kernels, window pairs
+    share each transform, and the pair-packed planes go to the single-read
+    peak reduction;
+  * every other pair dequantizes the episode once on the device, computes
+    the [B, V] correlation (``"vpu"``: the two-factor FFT kernels from f32
+    windows; ``"xla_packed"``/``"xla"``: ``torch.fft``; ``"mxu"``: the
+    matmul FFT) and picks peaks with the dense single-read picker
+    (``"pallas"``) or the multi-pass one (``"jnp"``).
+
+Beside it: the config, the staging wire format, the slab policy,
+overlap-save windowing and the cross-window dedup, with the reference
+semantics listed in ``audio_matcher_tpu/models/matcher.py``:
 
   * window = chunk + overlap, hop = chunk; short tail windows keep their
     true length, windows shorter than the snippet yield nothing.
@@ -35,11 +47,14 @@ from ..ops.correlate import (
     query_spectrum,
 )
 from ..ops.cuda_fft import (
+    MAX_FFT_LEN,
     MIN_N,
+    corr_single_query_vpu,
     corr_single_query_vpu_planes_wire,
     round_planes_width,
     scrambled_query_spectra,
 )
+from ..ops.mxu_fft import corr_slab_mxu, scrambled_spectra_parts
 from ..ops.peaks import (
     Peak,
     peaks_crop_width,
@@ -59,10 +74,12 @@ DEFAULT_PROMINENCE = 13.0
 class MatchConfig:
     """The JAX package's ``MatchConfig``, field for field. The defaults of
     ``fft_impl`` and ``peaks_impl`` name the port's main path (the
-    two-factor FFT passes and the single-read peak reduction); the port
-    also runs ``fft_impl="xla_packed"`` with ``"pallas"`` peaks. The JAX
-    package defaults to ``"xla"``/``"jnp"``, which the port refuses
-    (:func:`resolve_fft_impl`)."""
+    two-factor FFT kernels and the single-read peak reduction, fused),
+    where the JAX package defaults to ``"xla"``/``"jnp"``: on the GPU the
+    kernel path is the one this port is built and measured for, and the
+    other values select the JAX package's other branches, which the port
+    runs too (``fft_impl`` in ``FFT_IMPLS``, ``peaks_impl`` in
+    ``PEAKS_IMPLS``)."""
 
     chunk_secs: float = DEFAULT_CHUNK_SECS
     distance_secs: float = DEFAULT_DISTANCE_SECS
@@ -88,34 +105,56 @@ class MatchConfig:
         return self.prominence / 100.0
 
 
+FFT_IMPLS = ("vpu", "xla_packed", "xla", "mxu")
+PEAKS_IMPLS = ("pallas", "jnp")
+
+
 def resolve_fft_impl(cfg: MatchConfig, fft_len: int) -> str:
     """The correlation path a matcher runs for ``cfg`` at ``fft_len``:
-    ``"vpu"`` (the two-factor FFT kernels), or ``"xla_packed"`` (torch.fft
-    and the dense peak reduction), which ``"vpu"`` also falls back to
-    below ``MIN_N`` where two 128-wide factors do not fit, as in the JAX
-    package. What the port lacks raises, naming its ROADMAP item."""
-    if cfg.peaks_impl != "pallas":
-        raise NotImplementedError(
-            f"peaks_impl={cfg.peaks_impl!r}: only 'pallas' (the single-read "
-            "picker) is ported (ROADMAP P3)"
+    ``cfg.fft_impl``, except that ``"vpu"`` falls back to ``"xla_packed"``
+    below ``MIN_N``, where two 128-wide factors do not fit, as in the JAX
+    package. Unknown names raise :class:`ValueError`."""
+    if cfg.fft_impl not in FFT_IMPLS:
+        raise ValueError(
+            f"fft_impl={cfg.fft_impl!r}: expected one of {FFT_IMPLS}"
         )
-    if cfg.fft_impl not in ("vpu", "xla_packed"):
-        raise NotImplementedError(
-            f"fft_impl={cfg.fft_impl!r}: only 'vpu' and 'xla_packed' are "
-            "ported (ROADMAP P3)"
+    if cfg.peaks_impl not in PEAKS_IMPLS:
+        raise ValueError(
+            f"peaks_impl={cfg.peaks_impl!r}: expected one of {PEAKS_IMPLS}"
         )
     if cfg.fft_impl == "vpu" and fft_len < MIN_N:
         return "xla_packed"
     return cfg.fft_impl
 
 
+def check_fft_len(fft_impl: str, fft_len: int, device: torch.device):
+    """Refuse an ``fft_len`` the CUDA FFT passes cannot run exactly (the
+    cross twiddle's integer exponent leaves f32's exact range above
+    ``MAX_FFT_LEN`` = 2^24) for a ``"vpu"`` matcher on a CUDA device."""
+    if fft_impl == "vpu" and device.type == "cuda" and fft_len > MAX_FFT_LEN:
+        raise ValueError(
+            f"fft_len {fft_len} exceeds {MAX_FFT_LEN} (2^24), the largest "
+            "the CUDA FFT passes run; shorten chunk_secs or the snippet"
+        )
+
+
+def is_fused(fft_impl: str, peaks_impl: str) -> bool:
+    """The fused path: wire windows into the FFT kernels, pair-packed
+    planes into the single-read peak reduction."""
+    return fft_impl == "vpu" and peaks_impl == "pallas"
+
+
 def correlation_crop(
-    valid_max: int, block: int, fft_len: int, fft_impl: str
+    valid_max: int, block: int, fft_len: int, fft_impl: str,
+    peaks_impl: str,
 ) -> int:
-    """Columns of correlation a slab computes: the peak reduction's
-    segment multiple, on the planes kernels' 8·M grid for ``"vpu"``."""
-    crop = min(peaks_crop_width(valid_max, block), fft_len)
-    return round_planes_width(crop, fft_len) if fft_impl == "vpu" else crop
+    """Columns of correlation a slab computes: the picker's crop
+    (``peaks_crop_width``), on the planes kernels' 8·M grid for the fused
+    path."""
+    crop = min(peaks_crop_width(valid_max, block, peaks_impl), fft_len)
+    if is_fused(fft_impl, peaks_impl):
+        return round_planes_width(crop, fft_len)
+    return crop
 
 
 _I16_SCALE = np.float32(65535.0)
@@ -341,25 +380,46 @@ def overshadow_filter(
 
 
 # ------------------------------------------------------- the single query
+def _corr_windows(windows, spectrum, fft_len: int, crop: int, fft_impl: str,
+                  plain: bool, work: dict | None):
+    """f32 windows [B, W] × one query → [B, crop] correlations (JAX
+    ``_corr_windows``). ``spectrum``: the scrambled (s_r, s_i) [1, n] pair
+    for ``"vpu"``, the digit-reversed plane views [1, G, c] for ``"mxu"``,
+    conj(full spectrum) [n] for ``"xla_packed"``, the rfft [n//2+1] for
+    ``"xla"``."""
+    if fft_impl == "mxu":
+        return corr_slab_mxu(windows, spectrum[0], spectrum[1], crop)[:, 0]
+    if fft_impl == "xla_packed":
+        return corr_single_query_packed(windows, spectrum, crop)
+    if fft_impl == "vpu":
+        return corr_single_query_vpu(
+            windows, spectrum[0], spectrum[1], crop, plain=plain, work=work
+        )
+    x = torch.fft.rfft(windows, n=fft_len)
+    return torch.fft.irfft(x * spectrum.conj(), n=fft_len)[..., :crop]
+
+
 def single_query_slab(
-    windows, valid, spectrum, inv_ac, crop: int, distance: int,
-    n_peaks: int, block: int, fft_impl: str, plain: bool = False,
-    work: dict | None = None,
+    windows, valid, spectrum, inv_ac, crop: int, fft_len: int,
+    distance: int, n_peaks: int, block: int, fft_impl: str,
+    peaks_impl: str, plain: bool = False, work: dict | None = None,
 ):
     """Peaks of one query against a slab of B windows → (pos, h, prom),
     each [B, n_peaks].
 
-    ``"vpu"``: ``windows`` in the wire dtype, ``spectrum`` the (s_r, s_i)
-    pair of ``scrambled_query_spectra(pack=False)``; window pairs share
-    each transform, and ``inv_ac`` scales the planes inside the peak
-    reduction's read. ``"xla_packed"``: f32 windows, ``spectrum`` complex
-    [n] (:func:`~..ops.correlate.query_spectrum`). ``valid`` [B] holds the
-    windows' valid correlation lengths; ``inv_ac`` is a 0-d f32 tensor.
-    ``plain`` runs every kernel's plain version; ``work`` keeps the FFT
-    planes across slabs.
+    The fused path (``"vpu"`` + ``"pallas"``): ``windows`` in the wire
+    dtype, ``spectrum`` the (s_r, s_i) pair of
+    ``scrambled_query_spectra(pack=False)``; window pairs share each
+    transform, and ``inv_ac`` scales the planes inside the peak
+    reduction's read. Otherwise: f32 windows, ``spectrum`` in the form
+    :func:`_corr_windows` takes, and the [B, crop] correlation goes to
+    ``peaks_impl``'s picker. ``valid`` [B] holds the windows' valid
+    correlation lengths; ``inv_ac`` is a 0-d f32 tensor. ``plain`` runs
+    every kernel's plain version; ``work`` keeps the FFT planes across
+    slabs.
     """
     B = windows.shape[0]
-    if fft_impl == "vpu":
+    if is_fused(fft_impl, peaks_impl):
         yr, yi = corr_single_query_vpu_planes_wire(
             windows, spectrum[0], spectrum[1], crop, plain=plain, work=work
         )
@@ -370,9 +430,11 @@ def single_query_slab(
             plain=plain,
         )
         return tuple(a[:B] for a in out)
-    c = corr_single_query_packed(windows, spectrum, crop) * inv_ac
+    c = _corr_windows(
+        windows, spectrum, fft_len, crop, fft_impl, plain, work
+    ) * inv_ac
     return pick_peaks_dispatch(
-        c, valid, distance, n_peaks, block, "pallas", plain=plain
+        c, valid, distance, n_peaks, block, peaks_impl, plain=plain
     )
 
 
@@ -386,21 +448,17 @@ def _match_episode_resident(
     """Scan one staged episode against one query: a Python loop over
     ``n_slabs`` slabs starting at window ``base0`` (the live path scans
     one group of slabs per call). The episode is padded with wire silence
-    on its device to cover the windows; ``"xla_packed"`` dequantizes it
-    there once before windowing. Returns (pos, h, prom), each
+    on its device to cover the windows; off the fused path it is
+    dequantized there once before windowing. Returns (pos, h, prom), each
     [n_slabs·slab, n_peaks], on the episode's device."""
-    if peaks_impl != "pallas":
-        raise NotImplementedError(
-            f"peaks_impl={peaks_impl!r}: only 'pallas' is ported (ROADMAP P3)"
-        )
     k_rows = window_rows(window, chunk)
     episode = pad_wire_on_device(
         episode, (base0 + n_slabs * slab + k_rows) * chunk
     )
-    if fft_impl != "vpu":
+    if not is_fused(fft_impl, peaks_impl):
         episode = dequant_to_f32(episode)
     dev = episode.device
-    crop = correlation_crop(valid_max, block, fft_len, fft_impl)
+    crop = correlation_crop(valid_max, block, fft_len, fft_impl, peaks_impl)
     inv = torch.as_tensor(inv_ac, dtype=torch.float32).to(dev).reshape(())
     work = {} if work is None else work
     outs = []
@@ -411,8 +469,8 @@ def _match_episode_resident(
         win_len = (n - starts).clamp(0, window)
         valid = (win_len - m + 1).clamp(min=0)
         outs.append(single_query_slab(
-            windows, valid, sample_f, inv, crop, distance, n_peaks, block,
-            fft_impl, plain, work,
+            windows, valid, sample_f, inv, crop, fft_len, distance, n_peaks,
+            block, fft_impl, peaks_impl, plain, work,
         ))
     return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
@@ -435,9 +493,10 @@ class SnippetMatcher:
     """Scan episodes for one query snippet (BASELINE config #2), reusable
     across episodes.
 
-    ``device``: the torch device that stages and scans (default the CPU,
-    where every kernel runs its plain version). ``plain``: run every
-    kernel's plain PyTorch version on any device (the reference path).
+    ``device``: the torch device that stages and scans (default the
+    current CUDA device; ``"cpu"`` runs every kernel's plain version).
+    Construction allocates nothing on it. ``plain``: run every kernel's
+    plain PyTorch version on any device (the reference path).
     """
 
     def __init__(
@@ -445,7 +504,7 @@ class SnippetMatcher:
         snippet: np.ndarray,
         sr: int,
         config: MatchConfig | None = None,
-        device="cpu",
+        device="cuda",
         plain: bool = False,
     ):
         self.sr = int(sr)
@@ -473,6 +532,7 @@ class SnippetMatcher:
         self.valid = self.window - self.snippet.m + 1
         self.fft_len = fft_length(self.window + self.snippet.m - 1)
         self.fft_impl = resolve_fft_impl(cfg, self.fft_len)
+        check_fft_len(self.fft_impl, self.fft_len, self.device)
         self.distance_samples = int(cfg.distance_secs) * self.sr
         per_chunk = self.valid // max(self.distance_samples, 1) + 2
         self.n_peaks = min(per_chunk, cfg.max_peaks_per_chunk)
@@ -486,16 +546,20 @@ class SnippetMatcher:
     @property
     def _sample_f(self):
         """The query spectrum on the matcher's device, computed on first
-        use: the scrambled (s_r, s_i) [1, n] pair for ``"vpu"``, the
-        conjugated full spectrum [n] for ``"xla_packed"``."""
+        use, in the form :func:`single_query_slab` takes for
+        :attr:`fft_impl`."""
         if self._sample_f_cache is None:
             snip = torch.from_numpy(self.snippet.data).to(self.device)
+            n = self.fft_len
             if self.fft_impl == "vpu":
-                self._sample_f_cache = scrambled_query_spectra(
-                    snip[None], self.fft_len, False
-                )
+                spec = scrambled_query_spectra(snip[None], n, False)
+            elif self.fft_impl == "mxu":
+                spec = scrambled_spectra_parts(snip[None], n)
+            elif self.fft_impl == "xla_packed":
+                spec = query_spectrum(snip, n)
             else:
-                self._sample_f_cache = query_spectrum(snip, self.fft_len)
+                spec = torch.fft.rfft(snip, n=n)
+            self._sample_f_cache = spec
         return self._sample_f_cache
 
     def _scan_kwargs(self, slab: int, n_slabs: int) -> dict:
@@ -620,11 +684,11 @@ class SnippetMatcher:
         device. Same results as the one-call path."""
         g = self.config.progress_slabs_per_dispatch
         k_rows = window_rows(self.window, self.chunk)
-        # pad once, and dequantize once off the wire path, for all groups
+        # pad once, and dequantize once off the fused path, for all groups
         episode_dev = pad_wire_on_device(
             episode_dev, (n_slabs * B + k_rows) * self.chunk
         )
-        if self.fft_impl != "vpu":
+        if not is_fused(self.fft_impl, self.config.peaks_impl):
             episode_dev = dequant_to_f32(episode_dev)
         work: dict = {}
         parts = []
@@ -673,7 +737,7 @@ def calc_chunks(
     config: MatchConfig | None = None,
     n_samples: int | None = None,
     progress: Callable[[str, int], None] | None = None,
-    device="cpu",
+    device="cuda",
 ) -> list[Peak]:
     """Functional entry point: one :class:`SnippetMatcher` on ``device``,
     one :meth:`~SnippetMatcher.match`."""

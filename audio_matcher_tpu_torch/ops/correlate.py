@@ -1,5 +1,6 @@
-"""Snippet preparation, spectrum helpers and the ``xla_packed`` correlation
-(port of ``ops/correlate.py``).
+"""Snippet preparation, the library correlations (:func:`correlate`,
+:func:`correlate_valid_batch`), spectrum helpers and the ``xla_packed``
+correlation (port of ``ops/correlate.py``).
 
 Scores are ``corr · inv_autocorr`` with ``inv_autocorr = 1/Σ s²``, so a
 perfect match scores ≈ 1.0. FFT lengths are powers of two ≥ n+m−1, which
@@ -8,10 +9,10 @@ keeps linear correlation through the zero-padded circular FFT exact.
 The ``xla_packed`` correlation packs two real correlations into each
 complex transform: window pairs in the forward (``fft(w0 + i·w1)``), and
 query pairs (``T = conj(S_2j) + i·conj(S_2j+1)``) or window pairs (one
-query) in the inverse. The JAX package runs it on plain ``jnp.fft``,
-outside any Pallas kernel, so the port runs it on ``torch.fft`` (cuFFT on
-a CUDA device), complex64 throughout. It holds no matrix product, so TF32
-cannot reach it.
+query) in the inverse. The JAX package runs all of this module on plain
+``jnp.fft``, outside any Pallas kernel, so the port runs it on
+``torch.fft`` (cuFFT on a CUDA device) on the inputs' device, complex64
+throughout. It holds no matrix product, so TF32 cannot reach it.
 """
 
 from __future__ import annotations
@@ -47,6 +48,73 @@ def prepare_snippet(sample: np.ndarray) -> PreparedSnippet:
     ac = float(np.sum(sample.astype(np.float64) ** 2))
     inv = 1.0 / ac if ac != 0.0 else 0.0
     return PreparedSnippet(data=sample, inv_autocorr=inv)
+
+
+def _f32(x) -> torch.Tensor:
+    """A tensor (kept on its device) or an array (on the CPU) as f32."""
+    return torch.as_tensor(x).to(torch.float32)
+
+
+def _corr_valid(windows, sample, fft_len: int, valid_len: int):
+    x = torch.fft.rfft(windows, n=fft_len)
+    s = torch.fft.rfft(sample, n=fft_len)
+    return torch.fft.irfft(x * s.conj(), n=fft_len)[..., :valid_len]
+
+
+def correlate_valid_batch(windows, sample, scale: float | None = None):
+    """Valid-mode cross-correlation of windows [..., n] against one
+    snippet [m]: output j = Σ_i windows[j+i]·sample[i], [..., n-m+1],
+    times ``scale`` when given (``PreparedSnippet.inv_autocorr`` for
+    normalized scores)."""
+    windows, sample = _f32(windows), _f32(sample)
+    n, m = windows.shape[-1], sample.shape[-1]
+    if n < m:
+        raise ValueError(f"window ({n}) shorter than sample ({m})")
+    out = _corr_valid(windows, sample, fft_length(n + m - 1), n - m + 1)
+    if scale is not None:
+        out = out * torch.tensor(scale, dtype=out.dtype, device=out.device)
+    return out
+
+
+def _centered(arr: torch.Tensor, length: int) -> torch.Tensor:
+    start = (arr.shape[-1] - length) // 2
+    return arr[..., start : start + length]
+
+
+def correlate(within, sample, mode: str = "valid", scale: bool = False,
+              use_conjugation: bool = True) -> torch.Tensor:
+    """scipy-compatible 1-D cross-correlation with the reference's modes:
+    ``"full"`` (lags −(m−1)..n−1), ``"same"`` (centered n), ``"valid"``
+    (centered n−m+1). ``scale`` divides by the snippet's energy (0 for a
+    silent snippet). ``use_conjugation=False`` correlates as a convolution
+    with the reversed snippet, the reference's alternative formulation."""
+    within, sample = _f32(within), _f32(sample)
+    n, m = within.shape[-1], sample.shape[-1]
+    L = fft_length(n + m - 1)
+    x = torch.fft.rfft(within, n=L)
+    if use_conjugation:
+        c = torch.fft.irfft(x * torch.fft.rfft(sample, n=L).conj(), n=L)
+    else:
+        s_rev = torch.fft.rfft(sample.flip(-1), n=L)
+        # convolution with the reversed snippet = correlation shifted by m-1
+        c = torch.roll(torch.fft.irfft(x * s_rev, n=L), -(m - 1), dims=-1)
+    # circular index k holds lag k (k ≥ 0) and lag k-L (k > L-m): rotate so
+    # the full output starts at lag -(m-1)
+    full = torch.roll(c, m - 1, dims=-1)[..., : n + m - 1]
+    if mode == "full":
+        out = full
+    elif mode == "same":
+        out = _centered(full, n)
+    elif mode == "valid":
+        out = _centered(full, max(n - m, 0) + 1)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if scale:
+        energy = (sample * sample).sum()
+        out = torch.where(
+            energy > 0, out / torch.where(energy > 0, energy, 1.0), 0.0
+        )
+    return out
 
 
 def full_spectrum(s_half: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Two-factor FFT in scrambled order, on hand-written CUDA passes.
 
-Port of ``audio_matcher_tpu/ops/pallas_fft.py``'s wire paths: the
-multi-query slab (query pairs packed into each inverse) and the
-single-query slab (window pairs packed into each transform). A
-transform of length n = A·M, viewed [A, M] a-major, runs as a DIF pass over
-the strided A axis with the cross twiddle folded in, then a DIF pass over
-each contiguous M row. The spectrum stays in the scrambled layout
+Port of ``audio_matcher_tpu/ops/pallas_fft.py``: the wire paths (the
+multi-query slab with query pairs packed into each inverse, the
+single-query slab with window pairs packed into each transform), the same
+two slabs from f32 windows (``corr_slab_vpu*``,
+``corr_single_query_vpu*``, which the ``"vpu"`` correlation runs beside
+``"jnp"`` peaks) and :func:`fft2_scrambled`, the transform each way. A
+transform of length n = A·M (n ≤ 2^24), viewed [A, M] a-major, runs as a
+DIF pass over the strided A axis with the cross twiddle folded in, then a
+DIF pass over each contiguous M row. The spectrum stays in the scrambled
+layout
 
     Y[r, q] = X[brev_A(r) + A · brev_M(q)]
 
@@ -34,7 +38,9 @@ from .. import _build
 from .wire import dequant_to_f32, silence_code
 
 MIN_N = 1 << 14  # two 128-wide factors
-MAX_FACTOR = 2048  # shared-memory tiles of the CUDA passes (see csrc)
+MAX_FACTOR = 4096  # shared-memory tiles of the CUDA passes (see csrc)
+# above 2^24 the cross twiddle's integer exponent is no longer exact in f32
+MAX_FFT_LEN = MAX_FACTOR * MAX_FACTOR
 MAX_GRID_Y = 65535  # the major pass launches one grid row per plane
 _F32 = torch.float32
 _WIRE_CODES = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}
@@ -155,6 +161,14 @@ def _wire_rows(xw, eff: int, what: str) -> None:
         )
 
 
+def _check_factors(A: int, M: int) -> None:
+    if A > MAX_FACTOR or M > MAX_FACTOR:
+        raise ValueError(
+            f"the CUDA passes take factors up to {MAX_FACTOR} (fft_len up "
+            f"to {MAX_FFT_LEN}), got A = {A}, M = {M}"
+        )
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -216,8 +230,7 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
         return fft_major_fwd_wire_plain(xw, A, n, w_len, out)
     log2A, M = _log2(A, "A"), n // A
     log2M = _log2(M, "M")
-    if A > MAX_FACTOR:
-        raise ValueError(f"major pass takes A <= {MAX_FACTOR}, got {A}")
+    _check_factors(A, M)
     P = xw.shape[0]
     eff = min(int(w_len), n)
     _wire_rows(xw, eff, "xw")
@@ -264,8 +277,7 @@ def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
         return fft_major_fwd_wire2_plain(x0, x1, A, n, w_len, out)
     log2A, M = _log2(A, "A"), n // A
     log2M = _log2(M, "M")
-    if A > MAX_FACTOR:
-        raise ValueError(f"major pass takes A <= {MAX_FACTOR}, got {A}")
+    _check_factors(A, M)
     eff = min(int(w_len), n)
     _wire_rows(x0, eff, "x0")
     _wire_rows(x1, eff, "x1")
@@ -294,12 +306,38 @@ def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
 fft_major_fwd_wire2.launches = 0
 
 
-# ------------------------------------------------ pass 2: forward minor
+# ------------------------------------- pass 2: minor, forward and inverse
 def fft_minor_plain(xr, xi, M: int, out=None):
     """Plain version of :func:`fft_minor`."""
     Y = torch.fft.fft(torch.complex(xr, xi), dim=-1)
     Y = Y.index_select(-1, _brev_index(M, Y.device))
     return _write(out, Y.real.contiguous(), Y.imag.contiguous())
+
+
+def ifft_minor_plain(xr, xi, M: int, out=None):
+    """Plain version of :func:`ifft_minor`."""
+    Y = torch.complex(xr, xi).index_select(-1, _brev_index(M, xr.device))
+    y = torch.fft.ifft(Y, dim=-1, norm="forward")
+    return _write(out, y.real.contiguous(), y.imag.contiguous())
+
+
+def _minor_launch(entry: str, xr, xi, M: int, out):
+    """Launch a minor pass over the rows of contiguous [..., M] planes."""
+    log2M = _log2(M, "M")
+    if xr.shape[-1] != M or xr.shape != xi.shape:
+        raise ValueError(f"the minor pass takes two [..., M = {M}] planes")
+    _check_factors(1, M)
+    _f32_contig(xr, xi)
+    yr, yi = _planes(out, tuple(xr.shape), xr)
+    if {yr.data_ptr(), yi.data_ptr()} & {xr.data_ptr(), xi.data_ptr()}:
+        raise ValueError("the minor pass does not run in place")
+    with torch.cuda.device(xr.device):
+        rc = getattr(_build.load(), entry)(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            xr.numel() // M, log2M, _stream(xr),
+        )
+    _build.check(rc, entry)
+    return yr, yi
 
 
 def fft_minor(xr, xi, M: int, out=None):
@@ -308,24 +346,26 @@ def fft_minor(xr, xi, M: int, out=None):
     input (the kernel's pointers are restrict-qualified)."""
     if not on_cuda(xr, xi):
         return fft_minor_plain(xr, xi, M, out)
-    log2M = _log2(M, "M")
-    if M > MAX_FACTOR or xr.shape[-1] != M or xr.shape != xi.shape:
-        raise ValueError(f"minor pass takes [..., M <= {MAX_FACTOR}] planes")
-    _f32_contig(xr, xi)
-    yr, yi = _planes(out, tuple(xr.shape), xr)
-    if {yr.data_ptr(), yi.data_ptr()} & {xr.data_ptr(), xi.data_ptr()}:
-        raise ValueError("the minor pass does not run in place")
-    with torch.cuda.device(xr.device):
-        rc = _build.load().am_minor_forward(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            xr.numel() // M, log2M, _stream(xr),
-        )
-    _build.check(rc, "am_minor_forward")
+    got = _minor_launch("am_minor_forward", xr, xi, M, out)
     fft_minor.launches += 1
-    return yr, yi
+    return got
 
 
 fft_minor.launches = 0
+
+
+def ifft_minor(xr, xi, M: int, out=None):
+    """Inverse mode of the minor pass (the JAX ``fft_minor`` with
+    ``inverse=True``): input row q holds frequency brev_M(q), the output
+    is in natural order, unscaled. ``out`` must not overlap the input."""
+    if not on_cuda(xr, xi):
+        return ifft_minor_plain(xr, xi, M, out)
+    got = _minor_launch("am_minor_inverse", xr, xi, M, out)
+    ifft_minor.launches += 1
+    return got
+
+
+ifft_minor.launches = 0
 
 
 # ------------------------------- pass 3: product fused into inverse minor
@@ -355,10 +395,11 @@ def ifft_minor_product(xr, xi, tr, ti, M: int, out=None):
     B, A, M_ = xr.shape
     Qh = tr.shape[0]
     if (
-        M_ != M or M > MAX_FACTOR or xi.shape != xr.shape
+        M_ != M or xi.shape != xr.shape
         or tuple(tr.shape) != (Qh, A, M) or ti.shape != tr.shape
     ):
         raise ValueError("product pass takes X [B, A, M] and T [Qh, A, M]")
+    _check_factors(A, M)
     _f32_contig(xr, xi, tr, ti)
     yr, yi = _planes(out, (B * Qh, A, M), xr)
     with torch.cuda.device(xr.device):
@@ -374,7 +415,7 @@ def ifft_minor_product(xr, xi, tr, ti, M: int, out=None):
 ifft_minor_product.launches = 0
 
 
-# ------------------------------------- pass 4: inverse major, cropped
+# ------------------------------------- pass 4: major, inverse and forward
 _PLANES_PER_STEP = 32  # bounds the plain versions' complex temporaries
 
 
@@ -393,24 +434,31 @@ def fft_major_plain(xr, xi, A: int, n: int, a_crop: int, out=None):
     return yr, yi
 
 
+def _major_planes(xr, xi, A: int, n: int):
+    """Check [P, A, M] f32 planes for a major pass; returns (P, log2A, log2M)."""
+    M = n // A
+    log2A, log2M = _log2(A, "A"), _log2(M, "M")
+    P = xr.shape[0]
+    if tuple(xr.shape) != (P, A, M) or xi.shape != xr.shape:
+        raise ValueError(f"the major pass takes two [P, {A}, {M}] planes")
+    _check_factors(A, M)
+    if P > MAX_GRID_Y:
+        raise ValueError(f"at most {MAX_GRID_Y} planes per launch, got {P}")
+    _f32_contig(xr, xi)
+    return P, log2A, log2M
+
+
 def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
     """Inverse major pass (the JAX ``fft_major`` with ``inverse=True,
     cross=True``): conjugate cross twiddle, inverse DIF over A (scrambled
     rows in, natural rows out), and only the first ``a_crop`` rows
     written. Returns [P, a_crop, M] planes."""
-    M = n // A
     if not 0 < a_crop <= A:
         raise ValueError(f"a_crop must be in (0, {A}], got {a_crop}")
     if not on_cuda(xr, xi):
         return fft_major_plain(xr, xi, A, n, a_crop, out)
-    log2A, log2M = _log2(A, "A"), _log2(M, "M")
-    P = xr.shape[0]
-    if A > MAX_FACTOR or tuple(xr.shape) != (P, A, M) or xi.shape != xr.shape:
-        raise ValueError(f"major pass takes [P, A <= {MAX_FACTOR}, M] planes")
-    if P > MAX_GRID_Y:
-        raise ValueError(f"at most {MAX_GRID_Y} planes per launch, got {P}")
-    _f32_contig(xr, xi)
-    yr, yi = _planes(out, (P, a_crop, M), xr)
+    P, log2A, log2M = _major_planes(xr, xi, A, n)
+    yr, yi = _planes(out, (P, a_crop, n // A), xr)
     with torch.cuda.device(xr.device):
         rc = _build.load().am_major_inverse(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -423,9 +471,40 @@ def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
 
 fft_major.launches = 0
 
+
+def fft_major_forward_plain(xr, xi, A: int, n: int, out=None):
+    """Plain version of :func:`fft_major_forward`."""
+    P = xr.shape[0]
+    return _major_fwd_plain(xr.reshape(P, n), xi.reshape(P, n), A, n, out)
+
+
+def fft_major_forward(xr, xi, A: int, n: int, out=None):
+    """Forward major pass of complex f32 planes (the JAX ``fft_major`` with
+    ``inverse=False, cross=True``): DIF over A of each column of the
+    [P, A, M] planes ``xr`` + i·``xi``, in bit-reversed row order, times the
+    cross twiddle W_n^{brev_A(r)·c}. Returns [P, A, M] planes. ``out`` must
+    not overlap the input."""
+    if not on_cuda(xr, xi):
+        return fft_major_forward_plain(xr, xi, A, n, out)
+    P, log2A, log2M = _major_planes(xr, xi, A, n)
+    yr, yi = _planes(out, tuple(xr.shape), xr)
+    if {yr.data_ptr(), yi.data_ptr()} & {xr.data_ptr(), xi.data_ptr()}:
+        raise ValueError("the major pass does not run in place")
+    with torch.cuda.device(xr.device):
+        rc = _build.load().am_major_forward(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            P, log2A, log2M, _stream(xr),
+        )
+    _build.check(rc, "am_major_forward")
+    fft_major_forward.launches += 1
+    return yr, yi
+
+
+fft_major_forward.launches = 0
+
 KERNELS = (
     fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major,
-    fft_major_fwd_wire2,
+    fft_major_fwd_wire2, fft_major_forward, ifft_minor,
 )
 
 
@@ -520,3 +599,134 @@ def corr_slab_vpu_planes_wire(
         out=_work(work, "y", (B * Qh, a_crop, M), t_r),
     )
     return yr.view(B * Qh, width), yi.view(B * Qh, width)
+
+
+# ------------------------------------------- the transform, f32 windows
+def fft2_scrambled(xr, xi, n: int, inverse: bool = False, plain: bool = False,
+                   work: dict | None = None):
+    """[P, n] f32 planes → the scrambled spectrum (forward: major then
+    minor pass) or, from a scrambled spectrum, the natural-order signal
+    (``inverse``: inverse minor then inverse major pass, unscaled: fold
+    1/n wherever convenient). ``plain`` and ``work`` as in
+    :func:`corr_slab_vpu_planes_wire`."""
+    A, M = split_factors(n)
+    P = xr.shape[0]
+    xr, xi = xr.reshape(P, A, M), xi.reshape(P, A, M)
+    shape = (P, A, M)
+    if not inverse:
+        major, minor = ((fft_major_forward_plain, fft_minor_plain) if plain
+                        else (fft_major_forward, fft_minor))
+        X = major(xr, xi, A, n, out=_work(work, "x", shape, xr))
+        X = minor(X[0], X[1], M, out=_work(work, "x2", shape, xr))
+    else:
+        minor, major = ((ifft_minor_plain, fft_major_plain) if plain
+                        else (ifft_minor, fft_major))
+        X = minor(xr, xi, M, out=_work(work, "x", shape, xr))
+        X = major(X[0], X[1], A, n, A, out=_work(work, "x2", shape, xr))
+    return X[0].reshape(P, n), X[1].reshape(P, n)
+
+
+def _window_planes(even, odd, n: int, work: dict | None):
+    """Contiguous zero-padded f32 planes [P, n] of real windows: ``even``
+    [P, W] in the real plane, ``odd`` [P1 ≤ P, W] (or None) in the
+    imaginary plane; rows past P1 are zero."""
+    P, W = even.shape
+    if work is None:
+        xr = torch.empty((P, n), dtype=_F32, device=even.device)
+        xi = torch.empty_like(xr)
+    else:
+        xr, xi = _work(work, "w", (P, n), even)
+    xr[:, :W] = even
+    xr[:, W:] = 0.0
+    xi.zero_()
+    if odd is not None:
+        xi[: odd.shape[0], :W] = odd
+    return xr, xi
+
+
+def corr_slab_vpu_planes(
+    windows, t_r, t_i, width: int, plain: bool = False,
+    work: dict | None = None,
+):
+    """:func:`corr_slab_vpu_planes_wire` from f32 windows [B, W ≤ n]:
+    zero-padded to n with a zero imaginary plane, then
+    :func:`fft2_scrambled`. Row ``b·Qh + j`` of the returned (yr, yi) holds
+    queries 2j and 2j+1 against window b, cropped to ``width`` (a multiple
+    of 8·M, or n)."""
+    B, _ = windows.shape
+    Qh, n = t_r.shape
+    A, M = split_factors(n)
+    _check_width(width, n, M)
+    p3, p4 = ((ifft_minor_product_plain, fft_major_plain) if plain
+              else (ifft_minor_product, fft_major))
+    xr, xi = _window_planes(windows, None, n, work)
+    X = fft2_scrambled(xr, xi, n, plain=plain, work=work)
+    V = p3(
+        X[0].view(B, A, M), X[1].view(B, A, M),
+        t_r.view(Qh, A, M), t_i.view(Qh, A, M), M,
+        out=_work(work, "v", (B * Qh, A, M), t_r),
+    )
+    a_crop = width // M
+    yr, yi = p4(
+        V[0], V[1], A, n, a_crop,
+        out=_work(work, "y", (B * Qh, a_crop, M), t_r),
+    )
+    return yr.view(B * Qh, width), yi.view(B * Qh, width)
+
+
+def corr_slab_vpu(windows, t_r, t_i, valid_max: int, plain: bool = False,
+                  work: dict | None = None):
+    """Every (window, query) correlation of a slab of f32 windows, query
+    pairs packed into each inverse: [B, 2·Qh, valid_max] (the caller drops
+    an odd Q's pad query). The inverse major pass writes only the rows of
+    ``valid_max`` rounded up to 8·M, which holds the same numbers the full
+    transform would."""
+    B = windows.shape[0]
+    Qh, n = t_r.shape
+    yr, yi = corr_slab_vpu_planes(
+        windows, t_r, t_i, round_planes_width(valid_max, n), plain, work
+    )
+    c = torch.stack([yr[:, :valid_max], yi[:, :valid_max]], dim=1)
+    return c.reshape(B, 2 * Qh, valid_max)
+
+
+def corr_single_query_vpu_planes(
+    windows, s_r, s_i, width: int, plain: bool = False,
+    work: dict | None = None,
+):
+    """:func:`corr_single_query_vpu_planes_wire` from f32 windows [B, W]:
+    window pairs pack as ``fft(w0 + i·w1)`` (an odd B pairs its last
+    window with zeros), so row p of (yr, yi) holds windows 2p and 2p+1,
+    cropped to ``width``; mask the odd-B pad row downstream."""
+    B, _ = windows.shape
+    n = s_r.shape[-1]
+    A, M = split_factors(n)
+    _check_width(width, n, M)
+    P = (B + 1) // 2
+    p3, p4 = ((ifft_minor_product_plain, fft_major_plain) if plain
+              else (ifft_minor_product, fft_major))
+    xr, xi = _window_planes(windows[0::2], windows[1::2], n, work)
+    X = fft2_scrambled(xr, xi, n, plain=plain, work=work)
+    V = p3(
+        X[0].view(P, A, M), X[1].view(P, A, M),
+        s_r.view(1, A, M), s_i.view(1, A, M), M,
+        out=_work(work, "v", (P, A, M), s_r),
+    )
+    a_crop = width // M
+    yr, yi = p4(
+        V[0], V[1], A, n, a_crop, out=_work(work, "y", (P, a_crop, M), s_r)
+    )
+    return yr.view(P, width), yi.view(P, width)
+
+
+def corr_single_query_vpu(windows, s_r, s_i, valid_max: int,
+                          plain: bool = False, work: dict | None = None):
+    """One query against a slab of f32 windows, window pairs in each
+    transform → [B, valid_max]."""
+    B = windows.shape[0]
+    n = s_r.shape[-1]
+    yr, yi = corr_single_query_vpu_planes(
+        windows, s_r, s_i, round_planes_width(valid_max, n), plain, work
+    )
+    c = torch.stack([yr[:, :valid_max], yi[:, :valid_max]], dim=1)
+    return c.reshape(-1, valid_max)[:B]

@@ -1,7 +1,9 @@
-"""Peak picking over correlation rows (port of ``ops/peaks.py``'s
-single-read paths): the pair-packed planes of the two-factor FFT
-(:func:`pick_peaks_packed`) and a dense [B, V] correlation
-(:func:`pick_peaks_dense`, the ``xla_packed`` path).
+"""Peak picking over correlation rows (port of ``ops/peaks.py``): the
+single-read paths over the pair-packed planes of the two-factor FFT
+(:func:`pick_peaks_packed`) and over a dense [B, V] correlation
+(:func:`pick_peaks_dense`), both ``peaks_impl="pallas"``; the multi-pass
+picker of ``peaks_impl="jnp"`` (:func:`pick_peaks_core`, plain torch over
+the whole rows); and :func:`find_peaks_device` for one signal.
 
 Semantics (scipy ``find_peaks(distance=, prominence=)`` as the reference
 uses it, per window):
@@ -12,19 +14,22 @@ uses it, per window):
   * prominence is topographic, from block minima/maxima pyramids and small
     gathers around each pick.
 
-The rows are read once, by :func:`local_max_block_reduce_packed` or
-:func:`local_max_block_reduce`; every
-later stage (seam repair, ``n_peaks`` suppression rounds with an exact
-rescan of the partly suppressed edge tiles, prominence) works on the
-[rows, NB] block arrays and on gathers of a few tiles. These are plain
-torch ops on the planes' device: the JAX package runs them as plain ``jnp``
-too, so they are not kernels.
+The single-read paths read the rows once, by
+:func:`local_max_block_reduce_packed` or :func:`local_max_block_reduce`;
+every later stage (seam repair, ``n_peaks`` suppression rounds with an
+exact rescan of the partly suppressed edge tiles, prominence) works on the
+[rows, NB] block arrays and on gathers of a few tiles. These, and the
+whole ``"jnp"`` picker, are plain torch ops on the rows' device: the JAX
+package runs them as plain ``jnp``, so they are not kernels. Both pickers
+give bit-identical results on the same rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
+import numpy as np
 import torch
 
 from .cuda_kernels import (
@@ -342,27 +347,170 @@ def pick_peaks_dense(
     )
 
 
+# ------------------------------------------------ the multi-pass picker
+def _masked_rows(x: torch.Tensor, valid_len: torch.Tensor):
+    """(x for min [+inf past valid_len], x for max [-inf], colvalid)."""
+    cols = torch.arange(x.shape[-1], device=x.device)
+    colvalid = cols[None, :] < valid_len[:, None]
+    return (
+        torch.where(colvalid, x, _POS), torch.where(colvalid, x, _NEG),
+        colvalid,
+    )
+
+
+def _local_max_heights(x: torch.Tensor, valid_len: torch.Tensor):
+    """Heights at strict local maxima with two neighbours inside the valid
+    range, −inf elsewhere."""
+    B, V = x.shape
+    cols = torch.arange(V, device=x.device)
+    interior = (cols[None, :] >= 1) & (cols[None, :] <= valid_len[:, None] - 2)
+    edge = torch.zeros((B, 1), dtype=torch.bool, device=x.device)
+    up = torch.cat([edge, x[:, 1:] > x[:, :-1]], dim=1)
+    down = torch.cat([x[:, :-1] > x[:, 1:], edge], dim=1)
+    return torch.where(up & down & interior, x, _NEG)
+
+
+def _distance_suppress(y: torch.Tensor, distance: int, n_peaks: int):
+    """Iterated masked argmax, scipy's greedy-by-height distance filter
+    (|Δpos| < distance is suppressed; ties keep the lowest position, an
+    all −inf row gives position 0). Overwrites ``y``. Returns ([B, S] pos,
+    [B, S] height); exhausted slots have height −inf."""
+    B, V = y.shape
+    cols = torch.arange(V, device=y.device)
+    d = max(int(distance), 1)
+    bi = torch.arange(B, device=y.device)
+    pos, height = [], []
+    for _ in range(n_peaks):
+        idx = y.argmax(dim=-1)
+        height.append(y[bi, idx])
+        pos.append(idx)
+        # |col - idx| < d, as two bool compares (no int [B, V] temporary)
+        y.masked_fill_((cols[None, :] > (idx - d)[:, None])
+                       & (cols[None, :] < (idx + d)[:, None]), _NEG)
+    return torch.stack(pos, dim=1), torch.stack(height, dim=1)
+
+
+def _prominences(x_min, x_max, pos, h, block: int):
+    """Prominence of the picks ``pos``/``h`` [B, S] from the masked rows
+    ``x_min``/``x_max`` [B, V], through block pyramids of ``block``
+    columns."""
+    B, V = x_min.shape
+    NB = -(-V // block)
+    pad = NB * block - V
+    if pad:
+        x_min = torch.nn.functional.pad(x_min, (0, pad), value=_POS)
+        x_max = torch.nn.functional.pad(x_max, (0, pad), value=_NEG)
+    x3_min = x_min.reshape(B, NB, block)
+    x3_max = x_max.reshape(B, NB, block)
+    bi = torch.arange(B, device=x_min.device)[:, None]
+
+    def gather_blocks(pb):
+        return x3_min[bi, pb], x3_max[bi, pb]
+
+    return _prominences_from_blocks(
+        gather_blocks, x3_min.amin(-1), x3_max.amax(-1), pos, h, block
+    )
+
+
+def pick_peaks_core(x, valid_len, distance: int, n_peaks: int,
+                    block: int = 1024):
+    """Up to ``n_peaks`` distance-filtered peaks per row of ``x`` [B, V]
+    (the JAX package's ``peaks_impl="jnp"``): strict local maxima inside
+    ``valid_len`` [B], greedy suppression, prominence from ``block``-column
+    pyramids. Returns (pos int32, height, prominence), each [B, n_peaks];
+    exhausted slots have height −inf."""
+    x = x.to(torch.float32)
+    valid_len = valid_len.to(torch.int64)
+    x_min, x_max, _ = _masked_rows(x, valid_len)
+    pos, height = _distance_suppress(
+        _local_max_heights(x_max, valid_len), distance, n_peaks
+    )
+    prom = _prominences(x_min, x_max, pos, height, block)
+    return pos.to(torch.int32), height, prom
+
+
+pick_peaks_batch = pick_peaks_core  # the JAX package's jitted name
+
+
 def pick_peaks_dispatch(
     x, valid_len, distance: int, n_peaks: int, block: int, impl: str,
     plain: bool = False,
 ):
-    """Peaks of ``x`` [..., V] with any leading batch shape (flattened for
-    the reduction) under ``peaks_impl``. Only ``"pallas"`` (the dense
-    single-read picker) is ported; ``"jnp"`` is ROADMAP P3."""
-    if impl != "pallas":
-        raise NotImplementedError(
-            f"peaks_impl={impl!r}: only 'pallas' is ported (ROADMAP P3)"
-        )
+    """Peaks of ``x`` [..., V] with any leading batch shape (flattened
+    for the pickers) under ``peaks_impl``: ``"pallas"`` the dense
+    single-read picker (``plain`` selects its reduction's plain version),
+    ``"jnp"`` the multi-pass picker; the two give identical results."""
     lead = x.shape[:-1]
-    out = pick_peaks_dense(
-        x.reshape(-1, x.shape[-1]), valid_len.reshape(-1), distance, n_peaks,
-        block, plain,
-    )
+    x2, v2 = x.reshape(-1, x.shape[-1]), valid_len.reshape(-1)
+    if impl == "pallas":
+        out = pick_peaks_dense(x2, v2, distance, n_peaks, block, plain)
+    elif impl == "jnp":
+        out = pick_peaks_core(x2, v2, distance, n_peaks, block)
+    else:
+        raise ValueError(f"unknown peaks_impl {impl!r}")
     return tuple(o.reshape(*lead, o.shape[-1]) for o in out)
 
 
-def peaks_crop_width(valid_max: int, block: int) -> int:
-    """Correlation crop width: a multiple of the reduction's input segment
-    (``min(block, 512)`` × ``GROUP`` columns)."""
-    unit = min(block, 512) * GROUP
-    return -(-valid_max // unit) * unit
+def peaks_crop_width(valid_max: int, block: int, impl: str) -> int:
+    """Correlation crop width: for ``"pallas"`` a multiple of the
+    reduction's input segment (``min(block, 512)`` × ``GROUP`` columns),
+    for ``"jnp"`` the valid range itself."""
+    if impl == "pallas":
+        unit = min(block, 512) * GROUP
+        return -(-valid_max // unit) * unit
+    return valid_max
+
+
+SCIPY_SLOTS = 256  # beyond this many candidate slots, scipy on the host
+
+
+def find_peaks_device(
+    x, distance: int = 1, min_prominence: float = 0.0,
+    n_peaks: int | None = None, block: int = 1024, device="cuda",
+) -> list[Peak]:
+    """Peaks of one signal with scipy ``find_peaks(distance=,
+    prominence=)`` semantics, through :func:`pick_peaks_batch` on
+    ``device``; more than 256 candidate slots go to scipy on the host,
+    whose plateau handling differs on exactly tied values."""
+    x = np.asarray(x, np.float32)
+    V = x.shape[-1]
+    if n_peaks is None:
+        # at most ceil(V/distance)+1 peaks can survive the suppression
+        n_peaks = min(V // max(int(distance), 1) + 2, max(V // 2, 2))
+    if n_peaks > SCIPY_SLOTS:
+        import scipy.signal
+
+        logging.getLogger("audio_matcher_torch.peaks").info(
+            "find_peaks_device: %d candidate slots exceed %d: using scipy "
+            "on the host (plateau ties differ from the device pickers)",
+            n_peaks, SCIPY_SLOTS,
+        )
+        kwargs = {"distance": distance} if distance and distance > 1 else {}
+        idx, props = scipy.signal.find_peaks(
+            x.astype(np.float64), prominence=(float(min_prominence), None),
+            **kwargs,
+        )
+        return [
+            Peak(int(p), float(x[p]), float(pr))
+            for p, pr in zip(idx, props["prominences"])
+        ]
+    # the JAX package buckets V and the slot count to bound its compiled
+    # shapes; the same buckets keep both packages' picks identical
+    n_peaks = 1 << max(int(n_peaks) - 1, 1).bit_length()
+    V_pad = max(-(-V // 4096) * 4096, 4096)
+    if V_pad != V:
+        x = np.pad(x, (0, V_pad - V), constant_values=-np.inf)
+    dev = torch.device(device)
+    pos, h, prom = (
+        a[0].cpu().numpy() for a in pick_peaks_batch(
+            torch.from_numpy(x)[None].to(dev),
+            torch.tensor([V], device=dev), int(distance), int(n_peaks), block,
+        )
+    )
+    out = [
+        Peak(int(p), float(hh), float(pr))
+        for p, hh, pr in zip(pos, h, prom)
+        if np.isfinite(hh) and pr >= min_prominence
+    ]
+    out.sort(key=lambda pk: pk.position)
+    return out

@@ -2,25 +2,28 @@
 
 A group of episodes is staged once as a flat [E, Npad] wire-dtype tensor;
 overlap-save windows are strided views of it. Per slab of windows, by
-query count and ``fft_impl`` (the JAX package's branches of
+query count, ``fft_impl`` and ``peaks_impl`` (the JAX package's branches of
 ``resident_match_step``):
 
-  * Q ≥ 2, ``"vpu"`` (BASELINE config #3, the batch scan): every window's
-    forward FFT is shared across the queries and query pairs pack into
-    the inverse transforms,
+  * Q ≥ 2, ``"vpu"`` + ``"pallas"`` (BASELINE config #3, the batch scan):
+    every window's forward FFT is shared across the queries and query
+    pairs pack into the inverse transforms,
     windows (wire) → corr_slab_vpu_planes_wire → pick_peaks_packed;
-  * Q = 1, ``"vpu"`` (config #2 through the scanner): window pairs pack
-    into each transform instead, as ``SnippetMatcher`` scans,
-    windows (wire) → corr_single_query_vpu_planes_wire → pick_peaks_packed;
-  * ``"xla_packed"`` (also the ``"vpu"`` fallback below ``fft_len`` 2^14):
-    the episode is dequantized on the device, the correlation runs on
-    ``torch.fft`` (window pairs at Q = 1, query pairs at Q ≥ 2) and peaks
-    come from the dense reduction, pick_peaks_dispatch.
+  * Q = 1, ``"vpu"`` + ``"pallas"`` (config #2 through the scanner):
+    window pairs pack into each transform instead, as ``SnippetMatcher``
+    scans, windows (wire) → corr_single_query_vpu_planes_wire →
+    pick_peaks_packed;
+  * every other pair: the episode is dequantized on the device and the
+    [B, Q, V] correlation is computed by ``fft_impl`` (``"vpu"``: the FFT
+    kernels from f32 windows with query pairs, also at Q = 1;
+    ``"xla_packed"``: ``torch.fft`` with window pairs at Q = 1 and query
+    pairs at Q ≥ 2, also the ``"vpu"`` fallback below ``fft_len`` 2^14;
+    ``"xla"``: ``torch.fft`` rfft/irfft; ``"mxu"``: the matmul FFT), then
+    peaks come from pick_peaks_dispatch under ``peaks_impl``.
 
 On the host, :meth:`ShardedScanner.scan_collect` rebases positions and
-dedups across windows with ``overshadow_filter``. Other ``fft_impl`` and
-``peaks_impl`` values, and more than one device, raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+dedups across windows with ``overshadow_filter``. More than one device
+raises :class:`NotImplementedError` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ import torch
 
 from ..models.matcher import (
     MatchConfig,
+    check_fft_len,
     correlation_crop,
+    is_fused,
     overshadow_filter,
     pad_wire_on_device,
     resolve_fft_impl,
@@ -45,12 +50,18 @@ from ..models.matcher import (
     windows_from_episode,
 )
 from ..ops.correlate import (
+    corr_single_query_packed,
     corr_slab_xla_packed,
     fft_length,
     packed_query_spectra,
     prepare_snippet,
 )
-from ..ops.cuda_fft import corr_slab_vpu_planes_wire, scrambled_query_spectra
+from ..ops.cuda_fft import (
+    corr_slab_vpu,
+    corr_slab_vpu_planes_wire,
+    scrambled_query_spectra,
+)
+from ..ops.mxu_fft import corr_slab_mxu, scrambled_spectra_parts
 from ..ops.peaks import Peak, pick_peaks_dispatch, pick_peaks_packed
 from ..ops.wire import dequant_to_f32
 
@@ -63,10 +74,12 @@ class _Query:
 
 @dataclasses.dataclass(frozen=True)
 class QueryState:
-    """What the scan holds of its queries (this system's weights): the
-    query-pair spectra as f32 real and imaginary parts [Qh, n] each
-    (``"vpu"``: ``scrambled_query_spectra(pack=True)``; ``"xla_packed"``:
-    ``packed_query_spectra`` in natural order), the inverse
+    """What the scan holds of its queries (this system's weights): their
+    spectra as f32 real and imaginary parts (``"vpu"``: the query-pair
+    spectra of ``scrambled_query_spectra(pack=True)``, [Qh, n] each;
+    ``"xla_packed"``: ``packed_query_spectra`` in natural order, [Qh, n];
+    ``"xla"``: the rfft, [Q, n//2+1]; ``"mxu"``: the digit-reversed plane
+    views of ``scrambled_spectra_parts``, [Q, G, c]), the inverse
     autocorrelations [Q] f32 and the snippet lengths [Q]."""
 
     t_r: torch.Tensor
@@ -78,8 +91,9 @@ class QueryState:
 def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
     """Carry a prepared query state across (e.g. the JAX scanner's
     ``_sample_f_resident``, ``_inv_ac`` and ``_m`` as numpy arrays; for
-    ``"xla_packed"`` the real and imaginary parts of its complex spectra),
-    so that both packages scan with identical spectra."""
+    ``"xla_packed"`` and ``"xla"`` the real and imaginary parts of its
+    complex spectra), so that both packages scan with identical
+    spectra."""
     dev = torch.device(device)
     return QueryState(
         t_r=torch.tensor(np.asarray(t_r, np.float32), device=dev),
@@ -87,6 +101,26 @@ def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
         inv_ac=torch.tensor(np.asarray(inv_ac, np.float32), device=dev),
         m=torch.tensor(np.asarray(m, np.int64), device=dev),
     )
+
+
+def _corr_slab(windows, spectra, fft_len: int, crop: int, fft_impl: str,
+               Q: int, plain: bool, work: dict):
+    """f32 windows [B, W] × Q queries → [B, Q, crop] correlations (the
+    JAX scanner's non-fused branches). ``spectra``: (t_r, t_i) for
+    ``"vpu"`` and ``"mxu"``, complex for ``"xla_packed"`` and ``"xla"``."""
+    if fft_impl == "mxu":
+        return corr_slab_mxu(windows, spectra[0], spectra[1], crop)
+    if fft_impl == "xla_packed":
+        if Q == 1:  # window pairs; the pair row of one query is conj(S0)
+            return corr_single_query_packed(windows, spectra[0], crop)[:, None]
+        return corr_slab_xla_packed(windows, spectra, crop)[:, :Q]
+    if fft_impl == "vpu":
+        return corr_slab_vpu(
+            windows, spectra[0], spectra[1], crop, plain=plain, work=work
+        )[:, :Q]
+    x = torch.fft.rfft(windows, n=fft_len)  # [B, F], shared by the queries
+    spec = x[:, None, :] * spectra.conj()[None]
+    return torch.fft.irfft(spec, n=fft_len)[..., :crop]
 
 
 def resident_match_step(
@@ -100,28 +134,29 @@ def resident_match_step(
     slab: int,
     n_slabs: int,
     fft_impl: str = "vpu",
+    peaks_impl: str = "pallas",
     plain: bool = False,
 ):
     """The resident scan of a staged batch.
 
     Returned fn: (episodes [E, Npad] wire, ns [E] host ints, t_r, t_i
-    [Qh, n], inv_ac [Q], m [Q]) → (pos, h, prom) each
-    [E, Q, n_slabs·slab, S]. Episodes and slabs run in a Python loop that
-    reuses one slab's intermediate planes. ``plain=True`` runs every
+    (:class:`QueryState`'s spectra), inv_ac [Q], m [Q]) → (pos, h, prom)
+    each [E, Q, n_slabs·slab, S]. Episodes and slabs run in a Python loop
+    that reuses one slab's intermediate planes. ``plain=True`` runs every
     kernel's plain PyTorch version instead (the reference path).
     """
-    crop = correlation_crop(valid_max, block, fft_len, fft_impl)
+    fused = is_fused(fft_impl, peaks_impl)
+    crop = correlation_crop(valid_max, block, fft_len, fft_impl, peaks_impl)
     target = (n_slabs * slab + window_rows(window, chunk)) * chunk
 
     def slab_single(windows, win_len, spectra, inv_ac, m, work):
         # one query: window pairs share each transform, as SnippetMatcher
         # scans; the pair spectra of one query are its single-query form
-        # (vpu: pack=True equals pack=False; xla_packed: row 0 is conj(S0))
-        spectrum = spectra if fft_impl == "vpu" else spectra[0]
+        # (pack=True equals pack=False at Q = 1)
         valid = (win_len - m[0] + 1).clamp(min=0)
         return [a[None] for a in single_query_slab(
-            windows, valid, spectrum, inv_ac[0], crop, distance, n_peaks,
-            block, fft_impl, plain, work,
+            windows, valid, spectra, inv_ac[0], crop, fft_len, distance,
+            n_peaks, block, fft_impl, peaks_impl, plain, work,
         )]
 
     def slab_vpu(windows, win_len, spectra, inv_ac, m, work):
@@ -142,20 +177,21 @@ def resident_match_step(
         return [a.reshape(slab, Q2, -1)[:, :Q].transpose(0, 1)
                 for a in picked]  # [Q, B, S] triplets
 
-    def slab_xla_packed(windows, win_len, spectra, inv_ac, m, work):
+    def slab_dense(windows, win_len, spectra, inv_ac, m, work):
         Q = inv_ac.shape[0]
-        c = corr_slab_xla_packed(windows, spectra, crop)[:, :Q]
+        c = _corr_slab(windows, spectra, fft_len, crop, fft_impl, Q, plain,
+                       work)
         c = c * inv_ac[None, :, None]
         vq = (win_len[:, None] - m[None, :] + 1).clamp(min=0)  # [B, Q]
         picked = pick_peaks_dispatch(
-            c, vq, distance, n_peaks, block, "pallas", plain=plain
+            c, vq, distance, n_peaks, block, peaks_impl, plain=plain
         )
         return [a.transpose(0, 1) for a in picked]
 
     def per_episode(episode, n: int, slab_fn, spectra, inv_ac, m, work):
         dev = episode.device
         episode = pad_wire_on_device(episode, target)
-        if fft_impl != "vpu":
+        if not fused:
             episode = dequant_to_f32(episode)
         outs = []
         for s in range(n_slabs):
@@ -167,12 +203,13 @@ def resident_match_step(
         return [torch.cat([o[i] for o in outs], dim=1) for i in range(3)]
 
     def step(episodes, ns, t_r, t_i, inv_ac, m):
-        if inv_ac.shape[0] == 1:
-            slab_fn = slab_single
+        if not fused:
+            slab_fn = slab_dense
         else:
-            slab_fn = slab_vpu if fft_impl == "vpu" else slab_xla_packed
+            slab_fn = slab_single if inv_ac.shape[0] == 1 else slab_vpu
         spectra = (
-            (t_r, t_i) if fft_impl == "vpu" else torch.complex(t_r, t_i)
+            (t_r, t_i) if fft_impl in ("vpu", "mxu")
+            else torch.complex(t_r, t_i)
         )
         work: dict = {}
         per = [
@@ -191,10 +228,12 @@ class ShardedScanner:
     (one episode × one snippet) at Q = 1. Snippets are zero-padded to a
     common length; per-query valid ranges are masked on the device.
 
-    ``device``: the torch device that stages and scans. ``query_state``:
-    a prepared :class:`QueryState` to scan with instead of computing the
-    spectra from ``snippets``. ``plain``: run every kernel's plain PyTorch
-    version instead of the CUDA kernels (the reference path).
+    ``device``: the torch device that stages and scans (default the
+    current CUDA device; ``"cpu"`` runs every kernel's plain version);
+    construction allocates nothing on it. ``query_state``: a prepared
+    :class:`QueryState` to scan with instead of computing the spectra from
+    ``snippets``. ``plain``: run every kernel's plain PyTorch version
+    instead of the CUDA kernels (the reference path).
     """
 
     def __init__(
@@ -202,7 +241,7 @@ class ShardedScanner:
         snippets: Sequence[np.ndarray],
         sr: int,
         config: MatchConfig | None = None,
-        device="cpu",
+        device="cuda",
         query_state: QueryState | None = None,
         plain: bool = False,
     ):
@@ -228,6 +267,7 @@ class ShardedScanner:
         self.valid = self.window - self.m_min + 1
         self.fft_len = fft_length(self.window + self.m_max - 1)
         self.fft_impl = resolve_fft_impl(cfg, self.fft_len)
+        check_fft_len(self.fft_impl, self.fft_len, self.device)
         self.distance_samples = int(cfg.distance_secs) * self.sr
         self.n_peaks = min(
             self.valid // max(self.distance_samples, 1) + 2,
@@ -245,10 +285,15 @@ class ShardedScanner:
         constants on the scan's device, computed on first use."""
         if self._state is None:
             padded = torch.from_numpy(self._sample_padded).to(self.device)
+            n = self.fft_len
             if self.fft_impl == "vpu":
-                t_r, t_i = scrambled_query_spectra(padded, self.fft_len, True)
+                t_r, t_i = scrambled_query_spectra(padded, n, True)
+            elif self.fft_impl == "mxu":
+                t_r, t_i = scrambled_spectra_parts(padded, n)
             else:
-                T = packed_query_spectra(padded, self.fft_len)
+                T = (packed_query_spectra(padded, n)
+                     if self.fft_impl == "xla_packed"
+                     else torch.fft.rfft(padded, n=n))
                 t_r, t_i = T.real.contiguous(), T.imag.contiguous()
             self._state = QueryState(
                 t_r=t_r,
@@ -288,7 +333,8 @@ class ShardedScanner:
         step = resident_match_step(
             self.chunk, self.window, self.fft_len, self.valid,
             self.distance_samples, self.n_peaks, cfg.block, slab,
-            n_windows_pad // slab, self.fft_impl, plain=self.plain,
+            n_windows_pad // slab, self.fft_impl, cfg.peaks_impl,
+            plain=self.plain,
         )
         st = self.query_state
         outs = step(episodes_dev, ns, st.t_r, st.t_i, st.inv_ac, st.m)

@@ -38,9 +38,34 @@ calls, and holds every kernel against its plain PyTorch version:
    kernel 7 against its plain version at the scan's slab shape, then
    ``ShardedScanner(fft_impl="xla_packed")`` on 1 x 1800 s x 8 queries;
    the plants of query 0 found, kernel 7 launched.
+5. The two-factor FFT from f32 planes, ``fft2_scrambled``: the forward
+   major pass of complex planes (``fft_major_forward``) and the inverse
+   minor pass (``ifft_minor``) against their plain versions at n = 2^22
+   on the config #3 slab's 8 windows dequantized to f32, both timed
+   beside ``torch.fft`` over the same axis; the forward + inverse round
+   trip, which must give n times its input.
+6. ``fft_impl="vpu"`` with ``peaks_impl="jnp"`` (the non-fused path, the
+   [B, Q, V] correlation volume materialized): ``ShardedScanner`` on
+   1 x 1800 s x 64 queries, against ``plain=True`` (every raw candidate)
+   and against the fused scanner's final peaks; launches of the four FFT
+   passes and none of the packed reduction; peak device memory; a
+   profile. Then config #2 through ``SnippetMatcher(fft_impl="vpu",
+   peaks_impl="jnp")`` (against plain, p50 of 5 runs) and through
+   ``match(device="cuda")`` with the JAX package's defaults ``"xla"`` +
+   ``"jnp"``, with ``"xla"`` + ``"pallas"`` (kernel 7) and with
+   ``"mxu"`` + ``"jnp"``: each must find the plants and give the fused
+   path's peaks within TOL_SCAN.
+7. fft_len 2^23 and 2^24: config #2's episode through
+   ``SnippetMatcher(chunk_secs=120)`` and ``(chunk_secs=240)`` on the
+   fused path; kernels 6, 2, 3, 4 and 5 against their plain versions on
+   one slab, timed; the plants found in p50-of-5 timed runs.
 
-Every path's launch counts are set to 0 just before the run that is read
-and read just after it. The run uses one card: only the first visible
+Every kernel is timed beside its bound: the larger of the bytes it must
+move (each input read once, each output written once) over the H100's
+3.35 TB/s and its FP32 operations (10 per radix-2 butterfly, 6 per
+complex product) over 67 TFLOP/s, at the shapes it was timed at. Every
+path's launch counts are set to 0 just before the run that is read and
+read just after it. The run uses one card: only the first visible
 device is made visible. Any failure raises and exits non-zero. The
 second-to-last line is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -62,7 +87,7 @@ os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from audio_matcher_tpu_torch import _build  # noqa: E402
+from audio_matcher_tpu_torch import _build, match  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
@@ -99,6 +124,10 @@ TOL_FFT = 1e-5
 TOL_SCAN = 1.2e-5  # the reference's oracle tolerance (tests/test_correlate.py)
 PLANT_TOL = 1  # samples
 NAME_CHARS = 96  # kernel names printed by the profile phases
+JNP_QUERIES = 64  # the vpu + jnp scan: 1 x 1800 s x 64 queries
+LARGE_CHUNKS = (120.0, 240.0)  # chunk_secs giving fft_len 2^23 and 2^24
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
+FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -118,12 +147,23 @@ KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
     "local_max_block_reduce": (
         CSRC + "block_reduce.cu",
         "audio_matcher_tpu/ops/pallas_kernels.py:137"),
+    # fft_major with inverse=False, cross=True; fft_minor with inverse=True
+    "fft_major_forward": (CSRC + "fft_passes.cu",
+                          "audio_matcher_tpu/ops/pallas_fft.py:258"),
+    "ifft_minor": (CSRC + "fft_passes.cu",
+                   "audio_matcher_tpu/ops/pallas_fft.py:506"),
 }
+ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 BATCH_PATH = (F.fft_major_fwd_wire, F.fft_minor, F.ifft_minor_product,
               F.fft_major, K.local_max_block_reduce_packed)
 SINGLE_PATH = (F.fft_major_fwd_wire2, F.fft_minor, F.ifft_minor_product,
                F.fft_major, K.local_max_block_reduce_packed)
 XLA_PATH = (K.local_max_block_reduce,)
+JNP_PATH = (F.fft_major_forward, F.fft_minor, F.ifft_minor_product,
+            F.fft_major)
+ROUND_TRIP_PATH = (F.fft_major_forward, F.fft_minor, F.ifft_minor,
+                   F.fft_major)
 ALL_KERNELS = F.KERNELS + K.KERNELS
 
 
@@ -179,7 +219,7 @@ def cuda_ms(fn, reps=5):
 
 def compare_planes(name, got, want, rows=None):
     """Largest |kernel - plain| of a pair of planes, against TOL_FFT;
-    recorded in ``rows`` when given."""
+    recorded in ``rows`` when given, and returned."""
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     ref = max(w.abs().max().item() for w in want)
     rel = err / ref
@@ -189,15 +229,38 @@ def compare_planes(name, got, want, rows=None):
         raise AssertionError(f"{name} disagrees with its plain version")
     if rows is not None:
         rows[name]["max_abs_err"] = err
+    return err
 
 
-def timed(name, kernel, plain, row=None):
-    """CUDA-event times of a kernel call and its plain version; recorded
-    in ``row`` when given."""
+def fft_flops(rows, L):
+    """FP32 operations of a radix-2 transform of length L on ``rows`` rows:
+    L/2 butterflies per stage, log2 L stages, 10 operations each."""
+    return rows * (L // 2) * (L.bit_length() - 1) * 10
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the FP32 rate, in ms, and which."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(name, kernel, plain, row=None, work=None, library=None):
+    """CUDA-event times of a kernel call, its plain version and, where one
+    torch call computes the same transform, of that call; ``work`` is the
+    (bytes, FP32 operations) of the kernel call, giving its bound.
+    Recorded in ``row`` when given."""
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    lib_ms = cuda_ms(library) if library is not None else None
+    b_ms, b_by = bound(*work) if work is not None else (None, None)
     if row is not None:
-        row["ms"], row["plain_ms"] = ms, plain_ms
-    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+    extra = f", bound {b_ms:.3f} ms ({b_by})" if work is not None else ""
+    if library is not None:
+        extra += f", torch.fft {lib_ms:.3f} ms"
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra}")
 
 
 def check_kernels(scanner, episode_wire, rows):
@@ -216,19 +279,25 @@ def check_kernels(scanner, episode_wire, rows):
           f"(A = {A}, M = {M}), query pairs {Qh}")
     tr, ti = st.t_r.view(Qh, A, M), st.t_i.view(Qh, A, M)
 
+    B = win.shape[0]
     X = F.fft_major_fwd_wire(win, A, n, W)
     compare_planes("fft_major_fwd_wire", X,
                    F.fft_major_fwd_wire_plain(win, A, n, W), rows)
     timed("fft_major_fwd_wire",
           lambda: F.fft_major_fwd_wire(win, A, n, W, out=X),
           lambda: F.fft_major_fwd_wire_plain(win, A, n, W),
-          rows["fft_major_fwd_wire"])
+          rows["fft_major_fwd_wire"],
+          (B * min(W, n) * win.element_size() + 8 * B * n,
+           fft_flops(B * M, A) + 6 * B * n))
 
     Y = F.fft_minor(X[0], X[1], M)
     compare_planes("fft_minor", Y, F.fft_minor_plain(X[0], X[1], M), rows)
+    Xc = torch.complex(X[0], X[1])
     timed("fft_minor", lambda: F.fft_minor(X[0], X[1], M, out=Y),
-          lambda: F.fft_minor_plain(X[0], X[1], M), rows["fft_minor"])
-    del X
+          lambda: F.fft_minor_plain(X[0], X[1], M), rows["fft_minor"],
+          (16 * B * n, fft_flops(B * A, M)),
+          lambda: torch.fft.fft(Xc, dim=-1))
+    del X, Xc
 
     V = F.ifft_minor_product(Y[0], Y[1], tr, ti, M)
     Vp = F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M)
@@ -236,22 +305,29 @@ def check_kernels(scanner, episode_wire, rows):
     timed("ifft_minor_product",
           lambda: F.ifft_minor_product(Y[0], Y[1], tr, ti, M, out=V),
           lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M, out=Vp),
-          rows["ifft_minor_product"])
+          rows["ifft_minor_product"],
+          (8 * B * n + 8 * Qh * n + 8 * B * Qh * n,
+           B * Qh * (fft_flops(A, M) + 6 * n)))
     del Vp, Y
 
     width = F.round_planes_width(
-        min(peaks_crop_width(scanner.valid, scanner.config.block), n), n)
+        min(peaks_crop_width(scanner.valid, scanner.config.block, "pallas"),
+            n), n)
     a_crop = width // M
+    P = V[0].shape[0]
     Z = F.fft_major(V[0], V[1], A, n, a_crop)
     Zp = F.fft_major_plain(V[0], V[1], A, n, a_crop)
     compare_planes("fft_major", Z, Zp, rows)
+    del Zp
+    Vc = torch.complex(V[0], V[1])
     timed("fft_major",
           lambda: F.fft_major(V[0], V[1], A, n, a_crop, out=Z),
-          lambda: F.fft_major_plain(V[0], V[1], A, n, a_crop, out=Zp),
-          rows["fft_major"])
-    del V, Zp
+          lambda: F.fft_major_plain(V[0], V[1], A, n, a_crop),
+          rows["fft_major"],
+          (8 * P * n + 8 * P * width, fft_flops(P * M, A) + 6 * P * n),
+          lambda: torch.fft.ifft(Vc, dim=1))
+    del V, Vc
 
-    P = Z[0].shape[0]
     zr, zi = Z[0].view(P, width), Z[1].view(P, width)
     Q = st.inv_ac.shape[0]
     scale = torch.nn.functional.pad(st.inv_ac, (0, 2 * Qh - Q)).repeat(SLAB)
@@ -259,20 +335,64 @@ def check_kernels(scanner, episode_wire, rows):
     win_len = (int(ns[0]) - starts).clamp(0, W)
     m_pad = torch.nn.functional.pad(st.m, (0, 2 * Qh - Q), value=1)
     valid = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0).reshape(-1)
+    check_reduce_packed(zr, zi, scale, valid, rows)
+    del Z, zr, zi
+
+
+def check_reduce_packed(zr, zi, scale, valid, rows=None, label=""):
+    """Kernel 5 against its plain version on pair-packed planes: exactly
+    equal; timed, and recorded in ``rows`` when given."""
+    name = "local_max_block_reduce_packed"
     got = K.local_max_block_reduce_packed(zr, zi, scale, valid, 512)
     want = K.local_max_block_reduce_packed_plain(zr, zi, scale, valid, 512)
     same = [torch.equal(g, w) for g, w in zip(got, want)]
-    print(f"local_max_block_reduce_packed: outputs {tuple(got[0].shape)}, "
-          f"exactly equal to the plain version: {same}")
+    print(f"{name}{label}: outputs {tuple(got[0].shape)}, exactly equal to "
+          f"the plain version: {same}")
     if not all(same):
         raise AssertionError("the block reduction disagrees")
-    rows["local_max_block_reduce_packed"]["max_abs_err"] = 0.0
-    timed("local_max_block_reduce_packed",
+    P, V = zr.shape
+    nb = got[0].shape[1]
+    if rows is not None:
+        rows[name]["max_abs_err"] = 0.0
+    timed(name + label,
           lambda: K.local_max_block_reduce_packed(zr, zi, scale, valid, 512),
           lambda: K.local_max_block_reduce_packed_plain(
               zr, zi, scale, valid, 512),
-          rows["local_max_block_reduce_packed"])
-    del Z, zr, zi, got, want
+          rows[name] if rows is not None else None,
+          (8 * P * V + 16 * P + 32 * P * nb, 2 * P * V))
+
+
+def compare_raw(label, got, want):
+    """Raw candidates (pos, h, prom) of the kernel path against the plain
+    path: every one at the same position, heights and prominences within
+    TOL_SCAN."""
+    (pk, hk, rk), (pp, hp, rp) = (
+        [a.cpu().numpy() for a in d] for d in (got, want))
+    fin = np.isfinite(hp)
+    if not np.array_equal(np.isfinite(hk), fin):
+        raise AssertionError(f"{label}: the paths found different counts")
+    moved = int((fin & (pk != pp)).sum())
+    dh = float(np.abs(hk[fin] - hp[fin]).max()) if fin.any() else 0.0
+    dprom = float(np.abs(rk[fin] - rp[fin]).max()) if fin.any() else 0.0
+    print(f"{label}, kernel path vs plain path: {int(fin.sum())} raw "
+          f"candidates, {moved} at another position, max |dh| = {dh:.3e}, "
+          f"max |dprom| = {dprom:.3e} (tol {TOL_SCAN:g})")
+    if moved or not max(dh, dprom) <= TOL_SCAN:
+        raise AssertionError(f"{label}: kernel and plain paths disagree")
+
+
+def compare_peaks(label, got, want):
+    """Final peak lists per query: same positions, heights and
+    prominences within TOL_SCAN."""
+    for q, (g, w) in enumerate(zip(got, want)):
+        if [p.position for p in g] != [p.position for p in w] or any(
+            abs(a.height - b.height) > TOL_SCAN
+            or abs(a.prominence - b.prominence) > TOL_SCAN
+            for a, b in zip(g, w)
+        ):
+            raise AssertionError(f"{label}, query {q}: {g} against {w}")
+    print(f"{label}: final peaks identical in position, within {TOL_SCAN:g} "
+          f"in height and prominence: {sum(len(g) for g in got)} peaks")
 
 
 def compare_paths(scanner, plain_scanner, episode_wire):
@@ -282,30 +402,10 @@ def compare_paths(scanner, plain_scanner, episode_wire):
     staged = scanner.stage_resident([episode_wire])
     got = scanner.scan_dispatch(staged)
     want = plain_scanner.scan_dispatch(staged)
-    (pk, hk, rk), (pp, hp, rp) = (
-        [a.cpu().numpy() for a in d[0]] for d in (got, want))
-    fin = np.isfinite(hp)
-    if not np.array_equal(np.isfinite(hk), fin):
-        raise AssertionError("kernel and plain paths found different counts")
-    moved = int((fin & (pk != pp)).sum())
-    dh = float(np.abs(hk[fin] - hp[fin]).max()) if fin.any() else 0.0
-    dprom = float(np.abs(rk[fin] - rp[fin]).max()) if fin.any() else 0.0
-    print(f"one episode, kernel path vs plain path: {int(fin.sum())} raw "
-          f"candidates, {moved} at another position, max |dh| = {dh:.3e}, "
-          f"max |dprom| = {dprom:.3e} (tol {TOL_SCAN:g})")
-    if moved or not max(dh, dprom) <= TOL_SCAN:
-        raise AssertionError("kernel and plain paths disagree")
-    peaks_k = scanner.scan_collect(got)[0]
-    peaks_p = plain_scanner.scan_collect(want)[0]
-    for q, (g, w) in enumerate(zip(peaks_k, peaks_p)):
-        if [p.position for p in g] != [p.position for p in w] or any(
-            abs(a.height - b.height) > TOL_SCAN
-            or abs(a.prominence - b.prominence) > TOL_SCAN
-            for a, b in zip(g, w)
-        ):
-            raise AssertionError(f"query {q}: kernel path {g}, plain {w}")
-    print(f"final peaks identical in position, within {TOL_SCAN:g} in "
-          f"height and prominence: {sum(len(g) for g in peaks_k)} peaks")
+    compare_raw("one episode", got[0], want[0])
+    compare_peaks("kernel path against plain path",
+                  scanner.scan_collect(got)[0],
+                  plain_scanner.scan_collect(want)[0])
 
 
 def profile_run(label, run):
@@ -413,9 +513,11 @@ def batch_scan(config, device, rows):
     profile_run("one config #3 scan", lambda: scanner.scan_staged(staged))
 
 
-def check_single_query_kernels(matcher, episode_wire, rows):
-    """Kernel 6 at the config #2 slab and at an odd slab; kernels 2-4 at
-    the single-query launch shapes (P = 4 planes, one query spectrum)."""
+def check_single_query_kernels(matcher, episode_wire, rows=None):
+    """Kernel 6 at the matcher's slab and at an odd slab; kernels 2-5 at
+    the single-query launch shapes (P = 4 planes, one query spectrum).
+    ``rows``: record kernel 6's numbers (config #2); None at the other
+    fft_len."""
     staged, n = matcher.stage(episode_wire)
     s_r, s_i = matcher._sample_f
     n_fft = matcher.fft_len
@@ -424,45 +526,65 @@ def check_single_query_kernels(matcher, episode_wire, rows):
     ep = pad_wire_on_device(staged, (SLAB + window_rows(W, chunk)) * chunk)
     win = windows_from_episode(ep, 0, SLAB, chunk, W)
     x0, x1 = win[0::2], win[1::2]
-    print(f"config #2 slab: windows {tuple(win.shape)} {win.dtype} as "
-          f"{x0.shape[0]} pairs, n = {n_fft} (A = {A}, M = {M})")
+    P = x0.shape[0]
+    tag = f" at fft_len 2^{n_fft.bit_length() - 1}"
+    print(f"single-query slab: windows {tuple(win.shape)} {win.dtype} as "
+          f"{P} pairs, n = {n_fft} (A = {A}, M = {M})")
 
+    name = "fft_major_fwd_wire2"
     X = F.fft_major_fwd_wire2(x0, x1, A, n_fft, W)
-    compare_planes("fft_major_fwd_wire2", X,
-                   F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W), rows)
-    timed("fft_major_fwd_wire2",
+    err = compare_planes(name + tag, X,
+                         F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W))
+    if rows is not None:
+        rows[name]["max_abs_err"] = err
+    timed(name + tag,
           lambda: F.fft_major_fwd_wire2(x0, x1, A, n_fft, W, out=X),
           lambda: F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W),
-          rows["fft_major_fwd_wire2"])
+          rows[name] if rows is not None else None,
+          (SLAB * min(W, n_fft) * win.element_size() + 8 * P * n_fft,
+           fft_flops(P * M, A) + 6 * P * n_fft))
     odd = windows_from_episode(ep, 0, ODD_SLAB, chunk, W)
     compare_planes(
-        f"fft_major_fwd_wire2, odd slab {ODD_SLAB}",
+        f"{name}{tag}, odd slab {ODD_SLAB}",
         F.fft_major_fwd_wire2(odd[0::2], odd[1::2], A, n_fft, W),
         F.fft_major_fwd_wire2_plain(odd[0::2], odd[1::2], A, n_fft, W))
 
-    label = "at Qh = 1, P = 4"
+    label = f"{tag}, Qh = 1, P = {P}"
     Y = F.fft_minor(X[0], X[1], M)
-    compare_planes(f"fft_minor {label}", Y, F.fft_minor_plain(X[0], X[1], M))
-    timed(f"fft_minor {label}", lambda: F.fft_minor(X[0], X[1], M, out=Y),
-          lambda: F.fft_minor_plain(X[0], X[1], M))
+    compare_planes(f"fft_minor{label}", Y, F.fft_minor_plain(X[0], X[1], M))
+    timed(f"fft_minor{label}", lambda: F.fft_minor(X[0], X[1], M, out=Y),
+          lambda: F.fft_minor_plain(X[0], X[1], M), None,
+          (16 * P * n_fft, fft_flops(P * A, M)))
     tr, ti = s_r.view(1, A, M), s_i.view(1, A, M)
     V = F.ifft_minor_product(Y[0], Y[1], tr, ti, M)
-    compare_planes(f"ifft_minor_product {label}", V,
+    compare_planes(f"ifft_minor_product{label}", V,
                    F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M))
-    timed(f"ifft_minor_product {label}",
+    timed(f"ifft_minor_product{label}",
           lambda: F.ifft_minor_product(Y[0], Y[1], tr, ti, M, out=V),
-          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M))
-    a_crop = correlation_crop(matcher.valid, matcher.config.block, n_fft,
-                              "vpu") // M
+          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M), None,
+          (16 * P * n_fft + 8 * n_fft, P * (fft_flops(A, M) + 6 * n_fft)))
+    width = correlation_crop(matcher.valid, matcher.config.block, n_fft,
+                             "vpu", "pallas")
+    a_crop = width // M
     Z = F.fft_major(V[0], V[1], A, n_fft, a_crop)
-    compare_planes(f"fft_major {label}", Z,
+    compare_planes(f"fft_major{label}", Z,
                    F.fft_major_plain(V[0], V[1], A, n_fft, a_crop))
-    timed(f"fft_major {label}",
+    timed(f"fft_major{label}",
           lambda: F.fft_major(V[0], V[1], A, n_fft, a_crop, out=Z),
-          lambda: F.fft_major_plain(V[0], V[1], A, n_fft, a_crop))
+          lambda: F.fft_major_plain(V[0], V[1], A, n_fft, a_crop), None,
+          (8 * P * n_fft + 8 * P * width,
+           fft_flops(P * M, A) + 6 * P * n_fft))
+    del X, Y, V
+    starts = torch.arange(2 * P, device=ep.device) * chunk
+    valid = ((n - starts).clamp(0, W) - matcher.snippet.m + 1).clamp(min=0)
+    scale = torch.full((2 * P,), matcher.snippet.inv_autocorr,
+                       dtype=torch.float32, device=ep.device)
+    check_reduce_packed(Z[0].view(P, width), Z[1].view(P, width), scale,
+                        valid, label=label)
 
 
-def compare_single_query_paths(matcher, plain_matcher, episode_wire):
+def compare_single_query_paths(matcher, plain_matcher, episode_wire,
+                               label="one config #2 episode"):
     """One config #2 episode on the kernel path and on the plain path:
     every raw candidate at the same position, heights and prominences
     within TOL_SCAN, and the same final peaks."""
@@ -470,36 +592,22 @@ def compare_single_query_paths(matcher, plain_matcher, episode_wire):
     n_pad = (staged[0].shape[0] - matcher.overlap) // matcher.chunk
     slab = scan_slab(matcher.config, matcher.chunk, staged[1], n_pad)
     got, want = (
-        [a.cpu().numpy() for a in _match_episode_resident(
+        _match_episode_resident(
             staged[0], staged[1], m._sample_f,
             np.float32(m.snippet.inv_autocorr),
-            **m._scan_kwargs(slab, n_pad // slab))]
+            **m._scan_kwargs(slab, n_pad // slab))
         for m in (matcher, plain_matcher))
-    (pk, hk, rk), (pp, hp, rp) = got, want
-    fin = np.isfinite(hp)
-    if not np.array_equal(np.isfinite(hk), fin):
-        raise AssertionError("kernel and plain paths found different counts")
-    moved = int((fin & (pk != pp)).sum())
-    dh = float(np.abs(hk[fin] - hp[fin]).max()) if fin.any() else 0.0
-    dprom = float(np.abs(rk[fin] - rp[fin]).max()) if fin.any() else 0.0
-    print(f"one config #2 episode, kernel path vs plain path: "
-          f"{int(fin.sum())} raw candidates, {moved} at another position, "
-          f"max |dh| = {dh:.3e}, max |dprom| = {dprom:.3e} (tol {TOL_SCAN:g})")
-    if moved or not max(dh, dprom) <= TOL_SCAN:
-        raise AssertionError("kernel and plain paths disagree")
-    g, w = matcher.match_staged(staged), plain_matcher.match_staged(staged)
-    if [p.position for p in g] != [p.position for p in w] or any(
-        abs(a.height - b.height) > TOL_SCAN
-        or abs(a.prominence - b.prominence) > TOL_SCAN
-        for a, b in zip(g, w)
-    ):
-        raise AssertionError(f"kernel path {g}, plain path {w}")
+    compare_raw(label, got, want)
+    compare_peaks(label, [matcher.match_staged(staged)],
+                  [plain_matcher.match_staged(staged)])
 
 
-def timed_repeats(label, stage, scan, offsets, distance_secs):
+def timed_repeats(label, stage, scan, offsets, distance_secs,
+                  path=SINGLE_PATH):
     """``REPEATS`` runs of stage then scan, each with the launch counts
     reset just before it; prints the p50 of stage, scan and end-to-end
-    seconds, checks the plants every time, returns one run's counts."""
+    seconds, checks the plants every time, returns one run's counts
+    (``path``: the kernels each run must launch)."""
     stage_s, scan_s, counts = [], [], []
     for r in range(REPEATS + 1):  # the first run warms up, untimed
         torch.cuda.synchronize()
@@ -507,7 +615,7 @@ def timed_repeats(label, stage, scan, offsets, distance_secs):
         staged = stage()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        peaks, launches = counted(lambda: scan(staged), SINGLE_PATH)
+        peaks, launches = counted(lambda: scan(staged), path)
         t2 = time.perf_counter()
         check_plants([peaks], offsets, distance_secs)
         if r:
@@ -578,7 +686,7 @@ def xla_packed_scan(config, device, rows):
         staged[0], (SLAB + window_rows(W, chunk)) * chunk))
     win = windows_from_episode(ep, 0, SLAB, chunk, W)
     crop = correlation_crop(scanner.valid, cfg.block, scanner.fft_len,
-                            "xla_packed")
+                            "xla_packed", "pallas")
     Q = st.inv_ac.shape[0]
     c = corr_slab_xla_packed(win, torch.complex(st.t_r, st.t_i), crop)[:, :Q]
     x = (c * st.inv_ac[None, :, None]).reshape(SLAB * Q, crop)
@@ -597,9 +705,11 @@ def xla_packed_scan(config, device, rows):
         raise AssertionError("the dense block reduction disagrees")
     row = rows["local_max_block_reduce"]
     row["max_abs_err"] = 0.0
+    nb = got[0].shape[1]
     timed("local_max_block_reduce",
           lambda: K.local_max_block_reduce(x, valid, block),
-          lambda: K.local_max_block_reduce_plain(x, valid, block), row)
+          lambda: K.local_max_block_reduce_plain(x, valid, block), row,
+          (4 * x.numel() + 4 * x.shape[0] + 16 * x.shape[0] * nb, 0))
     del x, got, want
     torch.cuda.empty_cache()
 
@@ -614,6 +724,163 @@ def xla_packed_scan(config, device, rows):
     print(f"xla_packed scan: stage + scan {t_run:.3f} s; plants of query 0 "
           f"found within {PLANT_TOL} sample; launches {launches}")
     row["launches"] = launches["local_max_block_reduce"]
+
+
+def fft_modes(config, device, rows):
+    """Path 4, ``fft2_scrambled`` on f32 planes at n = 2^22: the forward
+    major pass of complex planes and the inverse minor pass against their
+    plain versions and ``torch.fft`` on the config #3 slab's 8 windows
+    dequantized to f32; the round trip through both, which must give n
+    times its input, is the path whose launches are read."""
+    snippets, _, episode = make_bench_inputs()
+    scanner = ShardedScanner(snippets, SR, config, device=device)
+    staged, _, _ = scanner.stage_resident(
+        [quantize_wire(episode, config.transfer_dtype)])
+    W, chunk, n = scanner.window, scanner.chunk, scanner.fft_len
+    A, M = F.split_factors(n)
+    ep = dequant_to_f32(pad_wire_on_device(
+        staged[0], (SLAB + window_rows(W, chunk)) * chunk))
+    xr = torch.nn.functional.pad(
+        windows_from_episode(ep, 0, SLAB, chunk, W), (0, n - W))
+    xi = torch.zeros_like(xr)
+    del staged, ep
+    B = SLAB
+    print(f"fft2_scrambled: {B} f32 windows of {W} samples, n = {n} "
+          f"(A = {A}, M = {M})")
+    planes = (xr.view(B, A, M), xi.view(B, A, M))
+    X = F.fft_major_forward(*planes, A, n)
+    compare_planes("fft_major_forward", X,
+                   F.fft_major_forward_plain(*planes, A, n), rows)
+    xc = torch.complex(*planes)
+    timed("fft_major_forward",
+          lambda: F.fft_major_forward(*planes, A, n, out=X),
+          lambda: F.fft_major_forward_plain(*planes, A, n),
+          rows["fft_major_forward"],
+          (16 * B * n, fft_flops(B * M, A) + 6 * B * n),
+          lambda: torch.fft.fft(xc, dim=1))
+    Y = F.fft_minor(X[0], X[1], M)
+    del X, xc
+    Z = F.ifft_minor(Y[0], Y[1], M)
+    compare_planes("ifft_minor", Z, F.ifft_minor_plain(Y[0], Y[1], M), rows)
+    yc = torch.complex(Y[0], Y[1])
+    timed("ifft_minor", lambda: F.ifft_minor(Y[0], Y[1], M, out=Z),
+          lambda: F.ifft_minor_plain(Y[0], Y[1], M), rows["ifft_minor"],
+          (16 * B * n, fft_flops(B * A, M)),
+          lambda: torch.fft.ifft(yc, dim=-1))
+    del Y, Z, yc
+
+    work_f, work_i = {}, {}
+
+    def round_trip():
+        S = F.fft2_scrambled(xr, xi, n, work=work_f)
+        return F.fft2_scrambled(S[0], S[1], n, inverse=True, work=work_i)
+
+    back, launches = counted(round_trip, ROUND_TRIP_PATH)
+    err = max((back[0] - n * xr).abs().max().item(),
+              (back[1] - n * xi).abs().max().item())
+    rel = err / (n * xr.abs().max().item())
+    print(f"fft2_scrambled round trip: max |back - n·x| = {err:.3e} "
+          f"({rel:.3e} of n·max|x|; tol {TOL_FFT:g}); launches {launches}; "
+          f"{cuda_ms(round_trip):.3f} ms")
+    if not rel <= TOL_FFT:
+        raise AssertionError("the fft2_scrambled round trip disagrees")
+    rows["ifft_minor"]["launches"] = launches["ifft_minor"]
+
+
+def jnp_scan(config, device, rows):
+    """Path 5, ``fft_impl="vpu"`` + ``peaks_impl="jnp"`` through
+    ``ShardedScanner`` on 1 x 1800 s x 64 queries: f32 windows through the
+    four FFT passes, the [B, Q, V] volume, the multi-pass picker."""
+    snippets, offsets, episode = make_bench_inputs(JNP_QUERIES, EPISODE_SECS)
+    cfg = dataclasses.replace(config, peaks_impl="jnp")
+    episode_wire = quantize_wire(episode, cfg.transfer_dtype)
+    scanner = ShardedScanner(snippets, SR, cfg, device=device)
+    plain = ShardedScanner(snippets, SR, cfg, device=device,
+                           query_state=scanner.query_state, plain=True)
+    print(f"vpu + jnp scan: 1 x {EPISODE_SECS} s episode, {JNP_QUERIES} "
+          f"queries, {cfg.transfer_dtype}, fft_len {scanner.fft_len}")
+    staged = scanner.stage_resident([episode_wire])
+    scanner.scan_dispatch(staged)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, launches = counted(lambda: scanner.scan_dispatch(staged), JNP_PATH)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"vpu + jnp scan: {t_scan:.3f} s, torch.cuda.max_memory_allocated "
+          f"{peak_gb:.2f} GB; launches {launches}")
+    if launches["local_max_block_reduce_packed"] or launches[
+            "local_max_block_reduce"]:
+        raise AssertionError("the jnp path launched a block reduction")
+    rows["fft_major_forward"]["launches"] = launches["fft_major_forward"]
+    compare_raw("vpu + jnp, one episode", got[0],
+                plain.scan_dispatch(staged)[0])
+    peaks = scanner.scan_collect(got)[0]
+    check_plants([peaks[0]], offsets, cfg.distance_secs)
+    fused = ShardedScanner(snippets, SR, config, device=device,
+                           query_state=scanner.query_state)
+    compare_peaks("vpu + jnp against the fused vpu + pallas scanner", peaks,
+                  fused.scan_staged(staged)[0])
+    profile_run("one vpu + jnp scan", lambda: scanner.scan_dispatch(staged))
+
+
+def single_query_jnp(config, device, rows):
+    """Path 6, config #2 through ``SnippetMatcher(fft_impl="vpu",
+    peaks_impl="jnp")``, then ``match(device="cuda")`` with ``"xla"`` +
+    ``"jnp"`` (the JAX package's defaults), ``"xla"`` + ``"pallas"`` and
+    ``"mxu"`` + ``"jnp"``, each against the fused path's peaks."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    snippet = snippets[0]
+    episode_wire = quantize_wire(episode, config.transfer_dtype)
+    cfg = dataclasses.replace(config, peaks_impl="jnp")
+    matcher = SnippetMatcher(snippet, SR, cfg, device=device)
+    plain = SnippetMatcher(snippet, SR, cfg, device=device, plain=True)
+    compare_single_query_paths(matcher, plain, episode_wire,
+                               "config #2, vpu + jnp")
+    timed_repeats("config #2, vpu + jnp, SnippetMatcher.stage + match_staged",
+                  lambda: matcher.stage(episode_wire), matcher.match_staged,
+                  offsets, config.distance_secs, JNP_PATH)
+    ref = SnippetMatcher(snippet, SR, config, device=device).match(
+        episode_wire)
+    for fft_impl, peaks_impl, path in (
+        ("xla", "jnp", ()), ("xla", "pallas", XLA_PATH), ("mxu", "jnp", ()),
+    ):
+        kw = dict(dataclasses.asdict(config), fft_impl=fft_impl,
+                  peaks_impl=peaks_impl)
+        match(snippet, episode_wire, SR, device="cuda", **kw)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        peaks, launches = counted(
+            lambda: match(snippet, episode_wire, SR, device="cuda", **kw),
+            path)
+        t_run = time.perf_counter() - t0
+        check_plants([peaks], offsets, config.distance_secs)
+        label = f"config #2, match(fft_impl={fft_impl!r}, " \
+                f"peaks_impl={peaks_impl!r})"
+        compare_peaks(label + " against vpu + pallas", [peaks], [ref])
+        print(f"{label}: {t_run:.3f} s end to end; kernel launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def large_fft(config, device, rows):
+    """Path 7, fft_len 2^23 and 2^24: config #2's episode through the
+    fused ``SnippetMatcher`` at 120 s and 240 s chunks; kernels 6, 2-5 on
+    one slab against plain, and the plants in timed runs."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    episode_wire = quantize_wire(episode, config.transfer_dtype)
+    for chunk_secs in LARGE_CHUNKS:
+        cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
+        matcher = SnippetMatcher(snippets[0], SR, cfg, device=device)
+        print(f"chunk {chunk_secs:g} s: fft_len {matcher.fft_len}, "
+              f"path {matcher.fft_impl}")
+        check_single_query_kernels(matcher, episode_wire)
+        torch.cuda.empty_cache()
+        timed_repeats(
+            f"fft_len {matcher.fft_len}, SnippetMatcher.stage + match_staged",
+            lambda: matcher.stage(episode_wire), matcher.match_staged,
+            offsets, config.distance_secs)
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -642,16 +909,21 @@ def main() -> int:
     rows = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
-    for phase in (batch_scan, single_query, xla_packed_scan):
+    for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
+                  jnp_scan, single_query_jnp, large_fft):
         t0 = time.perf_counter()
         phase(config, dev, rows)
         torch.cuda.empty_cache()
         print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    for row in rows.values():
+        missing = [k for k in ROW_KEYS if k not in row]
+        if missing or not row["launches"] > 0:
+            raise AssertionError(f"kernel row {row['name']}: missing "
+                                 f"{missing}, launches {row.get('launches')}")
+    print(smi)
     print(json.dumps({"kernels": [
-        {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms")}
-        for row in rows.values()]}))
+        {k: row[k] for k in ROW_KEYS} for row in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

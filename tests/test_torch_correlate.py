@@ -67,3 +67,58 @@ def test_corr_single_query_packed_matches(B, rng):
     # the valid lags are the linear correlation
     ref = np.correlate(windows[1].astype(np.float64), snippet, "valid")
     np.testing.assert_allclose(got[1, : len(ref)].numpy(), ref, atol=2e-5)
+
+
+TOL_LIB = 1e-5  # the library correlations: rfft/irfft of one length
+
+
+def _close_lib(got, want):
+    g, w = got.numpy(), np.asarray(want)
+    assert g.shape == w.shape
+    assert np.max(np.abs(g - w)) <= TOL_LIB * np.max(np.abs(w))
+
+
+@pytest.mark.parametrize("mode", ["full", "same", "valid"])
+@pytest.mark.parametrize("scale", [False, True])
+@pytest.mark.parametrize("use_conjugation", [True, False])
+def test_correlate_matches(mode, scale, use_conjugation, rng):
+    within = (rng.standard_normal((2, 3001)) * 0.1).astype(np.float32)
+    sample = (rng.standard_normal(700) * 0.2).astype(np.float32)
+    want = J.correlate(within, sample, mode, scale, use_conjugation)
+    got = T.correlate(torch.from_numpy(within), torch.from_numpy(sample),
+                      mode, scale, use_conjugation)
+    _close_lib(got, want)
+    if mode == "valid" and not scale:  # scipy's definition
+        ref = np.correlate(within[0].astype(np.float64), sample, "valid")
+        np.testing.assert_allclose(got[0].numpy(), ref, atol=2e-5)
+
+
+def test_correlate_edge_cases_match():
+    """A silent snippet scales to 0, not NaN; a window shorter than the
+    snippet keeps one valid lag, as the reference's saturating length."""
+    within = np.linspace(-1, 1, 50, dtype=np.float32)
+    silent = np.zeros(10, np.float32)
+    got = T.correlate(torch.from_numpy(within), torch.from_numpy(silent),
+                      "valid", scale=True)
+    assert torch.equal(got, torch.zeros(41))
+    short = T.correlate(torch.from_numpy(within[:5]), torch.from_numpy(
+        within[:9]), "valid")
+    _close_lib(short, J.correlate(within[:5], within[:9], "valid"))
+    with pytest.raises(ValueError, match="mode"):
+        T.correlate(torch.from_numpy(within), torch.from_numpy(silent),
+                    "circular")
+
+
+@pytest.mark.parametrize("scale", [None, 0.37])
+def test_correlate_valid_batch_matches(scale, rng):
+    windows = (rng.standard_normal((3, 2, 2500)) * 0.1).astype(np.float32)
+    sample = (rng.standard_normal(900) * 0.2).astype(np.float32)
+    want = J.correlate_valid_batch(jnp.asarray(windows), jnp.asarray(sample),
+                                   scale=scale)
+    got = T.correlate_valid_batch(torch.from_numpy(windows),
+                                  torch.from_numpy(sample), scale=scale)
+    assert got.shape == (3, 2, 1601)
+    _close_lib(got, want)
+    with pytest.raises(ValueError, match="shorter"):
+        T.correlate_valid_batch(torch.from_numpy(sample[:10]),
+                                torch.from_numpy(sample))

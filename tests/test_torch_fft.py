@@ -271,3 +271,100 @@ def test_corr_single_query_planes_wire_matches(wire, B, rng):
         T.corr_single_query_vpu_planes_wire(
             _t(win), _t(s_r), _t(s_i), width + M
         )
+
+
+TOL_VPU = 1e-5  # the f32-window slabs: three FFT passes each way
+
+
+def _close_to(got, want, tol):
+    for g, w in zip(got, want):
+        g, w = g.numpy(), _np(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g - w)) / np.max(np.abs(w)) < tol
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_fft2_scrambled_matches(n, rng):
+    """Both directions against the JAX transform (the forward major pass
+    of complex planes and the inverse minor pass are this slice's modes),
+    with and without work planes; the round trip gives n·x."""
+    xr = rng.standard_normal((3, n)).astype(np.float32)
+    xi = rng.standard_normal((3, n)).astype(np.float32)
+    want = J.fft2_scrambled(jnp.asarray(xr), jnp.asarray(xi), n,
+                            interpret=True)
+    got = T.fft2_scrambled(_t(xr), _t(xi), n)
+    _close_to(got, want, TOL_VPU)
+    # natural→scrambled: the layout contract against numpy
+    ref = np.fft.fft(xr.astype(np.float64) + 1j * xi)[:, T.scramble_index(n)]
+    _close_to(got, (ref.real, ref.imag), TOL_VPU)
+    back = T.fft2_scrambled(got[0], got[1], n, inverse=True, work={})
+    _close_to(back, J.fft2_scrambled(
+        jnp.asarray(got[0].numpy()), jnp.asarray(got[1].numpy()), n,
+        inverse=True, interpret=True,
+    ), TOL_VPU)
+    _close_to(back, (n * xr, n * xi), TOL_VPU)
+    A, M = T.split_factors(n)
+    planes = [torch.from_numpy(p).view(3, A, M) for p in (xr, xi)]
+    _close_to(T.fft_major_forward(*planes, A, n),
+              J.fft_major(jnp.asarray(xr).reshape(3, A, M),
+                          jnp.asarray(xi).reshape(3, A, M), A, n,
+                          interpret=True), TOL)
+    _close_to(T.ifft_minor(*planes, M),
+              J.fft_minor(jnp.asarray(xr).reshape(3, A, M),
+                          jnp.asarray(xi).reshape(3, A, M), M, inverse=True,
+                          interpret=True), TOL)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("B", [5, 4])
+def test_corr_slab_vpu_matches(n, B, rng):
+    """The multi-query slab from f32 windows, an odd query count (Q = 3:
+    the pad query's pair) and odd and even window counts."""
+    W, valid = int(n * 0.7), int(n * 0.45)
+    win = (rng.standard_normal((B, W)) * 0.1).astype(np.float32)
+    snippets = (rng.standard_normal((3, 3000)) * 0.2).astype(np.float32)
+    tr, ti = J.scrambled_query_spectra(snippets, n, True)
+    want = J.corr_slab_vpu(jnp.asarray(win), tr, ti, valid, interpret=True)
+    got = T.corr_slab_vpu(_t(win), _t(tr), _t(ti), valid)
+    assert got.shape == (B, 4, valid)
+    _close_to([got], [want], TOL_VPU)
+    _, M = T.split_factors(n)
+    want = J.corr_slab_vpu_planes(jnp.asarray(win), tr, ti, 8 * M,
+                                  interpret=True)
+    work = {}
+    got = T.corr_slab_vpu_planes(_t(win), _t(tr), _t(ti), 8 * M, work=work)
+    _close_to(got, want, TOL_VPU)
+    assert {"w", "x", "x2", "v", "y"} <= set(work)
+    again = T.corr_slab_vpu_planes(_t(win), _t(tr), _t(ti), 8 * M,
+                                   plain=True, work=work)
+    assert torch.equal(again[0], got[0])
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("B", [5, 4])
+def test_corr_single_query_vpu_matches(n, B, rng):
+    """The single-query slab from f32 windows: window pairs, the odd-B
+    pad window zero."""
+    W, valid = int(n * 0.7), int(n * 0.45)
+    win = (rng.standard_normal((B, W)) * 0.1).astype(np.float32)
+    snippet = (rng.standard_normal((1, 3000)) * 0.2).astype(np.float32)
+    s_r, s_i = J.scrambled_query_spectra(snippet, n, False)
+    want = J.corr_single_query_vpu(jnp.asarray(win), s_r, s_i, valid,
+                                   interpret=True)
+    got = T.corr_single_query_vpu(_t(win), _t(s_r), _t(s_i), valid,
+                                  work={})
+    assert got.shape == (B, valid)
+    _close_to([got], [want], TOL_VPU)
+    ref = np.correlate(win[1].astype(np.float64), snippet[0], "valid")
+    np.testing.assert_allclose(  # the valid lags are the linear correlation
+        got[1].numpy(), ref[:valid], atol=2e-5 * np.abs(ref).max()
+    )
+    _, M = T.split_factors(n)
+    want = J.corr_single_query_vpu_planes(jnp.asarray(win), s_r, s_i, 8 * M,
+                                          interpret=True)
+    got = T.corr_single_query_vpu_planes(_t(win), _t(s_r), _t(s_i), 8 * M)
+    assert got[0].shape == ((B + 1) // 2, 8 * M)
+    # an odd B's last imaginary row correlates the zero pad window
+    rows = B // 2
+    _close_to([got[0], got[1][:rows]], [want[0], _np(want[1])[:rows]],
+              TOL_VPU)

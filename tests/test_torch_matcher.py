@@ -50,7 +50,7 @@ def _matchers(wire, **kw):
     snippet, episodes = _inputs()
     jcfg, cfg = _configs(wire, **kw)
     jm = JM.SnippetMatcher(snippet, SR, jcfg)
-    tm = TM.SnippetMatcher(snippet, SR, cfg)
+    tm = TM.SnippetMatcher(snippet, SR, cfg, device="cpu")
     assert jm.fft_len == tm.fft_len == 1 << 14
     assert jm.fft_impl == tm.fft_impl == "vpu"
     return jm, tm, episodes
@@ -176,16 +176,17 @@ def test_match_finds_the_plant_and_equals_the_matcher():
     peaks = port.match(snippet, episodes[0], SR, device="cpu", **kw)
     assert [p.position for p in peaks] == [int(a * SR) for a in PLANTS]
     assert peaks[0].height > 0.9
-    matcher = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw))
+    matcher = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw),
+                                device="cpu")
     _assert_peaks(peaks, matcher.match(episodes[0]), tol=0.0)
     _assert_peaks(
-        TM.calc_chunks(SR, episodes[0], snippet, config=TM.MatchConfig(**kw)),
+        TM.calc_chunks(SR, episodes[0], snippet, config=TM.MatchConfig(**kw),
+                       device="cpu"),
         peaks, tol=0.0,
     )
     assert port.offset_range((3, 9), 10) == (13, 19)
-    assert TM.SnippetMatcher(snippet, SR).match_staged(
-        TM.SnippetMatcher(snippet, SR).stage(np.zeros(0, np.float32))
-    ) == []
+    empty = TM.SnippetMatcher(snippet, SR, device="cpu")
+    assert empty.match_staged(empty.stage(np.zeros(0, np.float32))) == []
 
 
 def test_matcher_geometry_matches_jax():
@@ -197,20 +198,51 @@ def test_matcher_geometry_matches_jax():
         dict(chunk_secs=1.0, distance_secs=0.0, max_peaks_per_chunk=5),
     ):
         jm = JM.SnippetMatcher(snippet, SR, JM.MatchConfig(**kw))
-        tm = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw))
+        tm = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw),
+                               device="cpu")
         for attr in ("overlap", "chunk", "window", "valid", "fft_len",
                      "distance_samples", "n_peaks"):
             assert getattr(tm, attr) == getattr(jm, attr), (kw, attr)
 
 
 def test_matcher_refuses_off_slice_configurations():
+    """Every ``fft_impl`` × ``peaks_impl`` of the JAX package constructs;
+    unknown names raise, and so does a ``"vpu"`` matcher above fft_len
+    2^24 on a CUDA device."""
     snippet, _ = _inputs()
-    for kw in (dict(fft_impl="xla"), dict(fft_impl="mxu"),
-               dict(peaks_impl="jnp"), dict(fft_impl="vpu", peaks_impl="jnp")):
-        with pytest.raises(NotImplementedError, match="P3"):
-            TM.SnippetMatcher(
-                snippet, SR, TM.MatchConfig(chunk_secs=1.0, **kw)
-            )
+    for fft_impl in TM.FFT_IMPLS:
+        for peaks_impl in TM.PEAKS_IMPLS:
+            m = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(
+                chunk_secs=1.0, fft_impl=fft_impl, peaks_impl=peaks_impl))
+            assert m.fft_impl == fft_impl
+    for kw in (dict(fft_impl="fftw"), dict(peaks_impl="scipy")):
+        with pytest.raises(ValueError, match=next(iter(kw))):
+            TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw))
+    huge = TM.MatchConfig(chunk_secs=2200.0)  # fft_len 2^25
+    with pytest.raises(ValueError, match="2\\^24"):
+        TM.SnippetMatcher(snippet, SR, huge)
+    assert TM.SnippetMatcher(snippet, SR, huge, device="cpu").fft_len == 1 << 25
+
+
+def test_entry_points_default_to_cuda():
+    """With no ``device`` the entry points target the current CUDA
+    device; constructing allocates nothing, and without a card staging
+    raises torch's own error instead of falling back to the CPU."""
+    snippet, episodes = _inputs()
+    from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner
+
+    assert TM.SnippetMatcher(snippet, SR).device.type == "cuda"
+    assert ShardedScanner([snippet], SR).device.type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    cfg = TM.MatchConfig(chunk_secs=1.0)
+    for call in (
+        lambda: port.match(snippet, episodes[0], SR, chunk_secs=1.0),
+        lambda: TM.calc_chunks(SR, episodes[0], snippet, config=cfg),
+        lambda: ShardedScanner([snippet], SR, cfg).scan_resident(episodes),
+    ):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
 
 
 @pytest.mark.parametrize("wire", WIRES)
@@ -231,7 +263,7 @@ def test_small_fft_fallback_matches_jax(wire):
     jm = JM.SnippetMatcher(
         snippet, SR, JM.MatchConfig(fft_impl="vpu", peaks_impl="pallas", **kw)
     )
-    tm = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw))
+    tm = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw), device="cpu")
     assert jm.fft_impl == tm.fft_impl == "xla_packed"
     assert tm.fft_len == 4096
     staged, j_staged = tm.stage(episodes[0]), jm.stage(episodes[0])

@@ -32,17 +32,23 @@ _SCAN_WITHOUT_JAX = textwrap.dedent(
     ep = (rng.standard_normal(5 * sr) * 0.05).astype(np.float32)
     ep[2 * sr : 2 * sr + 4000] = snippets[0]
     cfg = MatchConfig(chunk_secs=1.0, transfer_dtype="mulaw8")
-    scanner = ShardedScanner(snippets, sr, cfg)
+    scanner = ShardedScanner(snippets, sr, cfg, device="cpu")
     peaks = scanner.scan_resident([quantize_wire(ep, "mulaw8")])
     assert [p.position for p in peaks[0][0]] == [2 * sr], peaks
-    one = ShardedScanner(snippets[:1], sr, cfg).scan_resident([ep])
+    one = ShardedScanner(snippets[:1], sr, cfg, device="cpu").scan_resident(
+        [ep])
     assert [p.position for p in one[0][0]] == [2 * sr], one
     found = pkg.match(snippets[0], ep, sr, device="cpu", chunk_secs=1.0,
                       transfer_dtype="mulaw8")
     assert [p.position for p in found] == [2 * sr], found
-    small = pkg.match(snippets[0][:1000], ep[:3 * sr], sr,
+    small = pkg.match(snippets[0][:1000], ep[:3 * sr], sr, device="cpu",
                       chunk_secs=0.25)  # fft_len < 2^14: xla_packed
     assert max(small, key=lambda p: p.height).position == 2 * sr, small
+    for fft_impl, peaks_impl in (("vpu", "jnp"), ("xla", "jnp"),
+                                 ("xla", "pallas")):
+        got = pkg.match(snippets[0], ep, sr, device="cpu", chunk_secs=1.0,
+                        fft_impl=fft_impl, peaks_impl=peaks_impl)
+        assert [p.position for p in got] == [2 * sr], (fft_impl, got)
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules if sys.modules[m] is not None)
     assert "audio_matcher_tpu" not in sys.modules

@@ -1,4 +1,4 @@
-"""The port's peak picking against the JAX package's single-read paths.
+"""The port's peak picking against the JAX package's.
 
 The block reductions' plain versions (what the wrapper runs on a CPU
 tensor) must equal ``local_max_block_reduce_packed`` and
@@ -8,7 +8,9 @@ argmax-first ties. ``pick_peaks_packed`` and
 ``pick_peaks_dense`` must then equal ``pick_peaks_pallas_packed`` and
 ``pick_peaks_pallas`` on the same rows, also exactly (positions,
 heights and prominences are selections and f32 differences of the same
-plane values).
+plane values). The multi-pass ``"jnp"`` picker (``pick_peaks_core``) is
+held against the JAX package's the same way, bit for bit, and
+``find_peaks_device`` on both of its branches.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from audio_matcher_tpu.ops.pallas_kernels import (  # noqa: E402
     local_max_block_reduce as jax_dense_reduce,
     local_max_block_reduce_packed as jax_reduce,
 )
+from audio_matcher_tpu.ops import peaks as JP  # noqa: E402
 from audio_matcher_tpu.ops.peaks import (  # noqa: E402
     peaks_crop_width as jax_crop_width,
     pick_peaks_pallas,
@@ -34,6 +37,7 @@ from audio_matcher_tpu_torch.ops.cuda_kernels import (  # noqa: E402
     local_max_block_reduce,
     local_max_block_reduce_packed,
 )
+from audio_matcher_tpu_torch.ops import peaks as TP  # noqa: E402
 from audio_matcher_tpu_torch.ops.peaks import (  # noqa: E402
     peaks_crop_width,
     pick_peaks_dense,
@@ -158,9 +162,10 @@ def test_pick_peaks_packed_equals_jax(P, V, distance, n_peaks):
 def test_crop_width_matches():
     for valid in (1, 8003, 65536, 65537, 2_800_353):
         for block in (256, 512, 2048):
-            assert peaks_crop_width(valid, block) == jax_crop_width(
-                valid, block, "pallas"
-            )
+            for impl in ("pallas", "jnp"):
+                assert peaks_crop_width(valid, block, impl) == jax_crop_width(
+                    valid, block, impl
+                )
     with pytest.raises(ValueError):
         z = torch.zeros((1, 700))
         pick_peaks_packed(z, z, torch.ones(2), torch.ones(2), 10, 2, 512)
@@ -228,6 +233,9 @@ def test_pick_peaks_dense_equals_jax(B, V, distance, n_peaks):
 
 
 def test_pick_peaks_dispatch_flattens_and_refuses_jnp():
+    """Any leading batch shape flattens for the picker; ``"jnp"`` (once
+    refused) gives the single-read picker's results; an unknown
+    ``peaks_impl`` is refused."""
     x = np.random.default_rng(5).standard_normal((2, 3, 2048)).astype(
         np.float32
     )
@@ -242,7 +250,89 @@ def test_pick_peaks_dispatch_flattens_and_refuses_jnp():
     for g, w in zip(got, want):
         assert tuple(g.shape) == (2, 3, 4)
         assert torch.equal(g.reshape(6, 4), w)
-    with pytest.raises(NotImplementedError, match="P3"):
+    jnp_got = pick_peaks_dispatch(
+        torch.from_numpy(x), torch.from_numpy(vl), 100, 4, 512, "jnp"
+    )
+    for g, w in zip(jnp_got, got):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="peaks_impl"):
         pick_peaks_dispatch(
-            torch.from_numpy(x), torch.from_numpy(vl), 100, 4, 512, "jnp"
+            torch.from_numpy(x), torch.from_numpy(vl), 100, 4, 512, "numpy"
         )
+
+
+def _core_rows(seed, B, V, block):
+    """Rows with a plateau, equal peaks, and peaks on the first and the
+    last column of block 1."""
+    x = np.random.default_rng(seed).standard_normal((B, V)).astype(np.float32)
+    x[0, 700:710] = 6.0
+    x[0, 1000] = x[0, 1100] = 7.0
+    x[1 % B, block] = 9.0  # the first column of block 1
+    x[2 % B, 2 * block - 1] = 9.5  # the last column of block 1
+    return x
+
+
+@pytest.mark.parametrize(
+    "V,distance,n_peaks,block",
+    [
+        (3 * 2048 + 5, 300, 6, 2048),  # V off the block grid
+        (4096, 700, 40, 1024),  # slots exhausted
+        (5000, 1, 5, 512),  # distance 1: nothing suppressed
+        (2048, 10**6, 3, 1024),  # one pick empties the row
+    ],
+)
+def test_pick_peaks_core_equals_jax(V, distance, n_peaks, block):
+    """The ``"jnp"`` picker bit for bit: rows with valid_len 0, 1, 2, V
+    and cut mid-row; ties, plateaus, block-edge peaks, exhausted slots."""
+    x = _core_rows(V + distance, 6, V, block)
+    vl = np.asarray([V, 0, 1, 2, V - 7, V // 2], np.int32)
+    want = JP.pick_peaks_batch(
+        jnp.asarray(x), jnp.asarray(vl), distance=distance, n_peaks=n_peaks,
+        block=block,
+    )
+    got = TP.pick_peaks_batch(
+        torch.from_numpy(x), torch.from_numpy(vl), distance, n_peaks, block
+    )
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert np.all(np.isneginf(got[1][1:4].numpy()))  # no interior column
+    if n_peaks > 10:
+        assert np.isneginf(got[1][0, -1].item())  # slots ran out
+    # the dispatcher's "jnp" branch is this picker
+    again = pick_peaks_dispatch(
+        torch.from_numpy(x), torch.from_numpy(vl), distance, n_peaks, block,
+        "jnp",
+    )
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_argmax_keeps_the_lowest_index():
+    """The suppression rounds lean on argmax-first ties and position 0
+    for an all −inf row, as ``jnp.argmax`` does."""
+    y = torch.tensor([[1.0, 3.0, 3.0, 2.0], [float("-inf")] * 4])
+    assert y.argmax(dim=1).tolist() == [1, 0]
+    assert np.asarray(jnp.argmax(jnp.asarray(y.numpy()), axis=1)).tolist() == [
+        1, 0,
+    ]
+
+
+@pytest.mark.parametrize(
+    "distance,n_peaks",
+    [(400, None), (50, 12), (1, None)],  # the last: > 256 slots, scipy
+    ids=["device", "device-slots", "scipy"],
+)
+def test_find_peaks_device_matches_jax(distance, n_peaks):
+    rng = np.random.default_rng(distance)
+    x = np.convolve(rng.standard_normal(6000), np.ones(25) / 25, "same")
+    x = x.astype(np.float32)
+    want = JP.find_peaks_device(x, distance, 0.05, n_peaks=n_peaks)
+    got = TP.find_peaks_device(
+        x, distance, 0.05, n_peaks=n_peaks, device="cpu"
+    )
+    assert want and [p.position for p in got] == [p.position for p in want]
+    for a, b in zip(got, want):
+        assert abs(a.height - b.height) <= 1e-6
+        assert abs(a.prominence - b.prominence) <= 1e-6

@@ -13,6 +13,8 @@ compute the same f32 transforms by different FFT algorithms, which differ
 by about 1e-6 of the largest correlation.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -104,7 +106,7 @@ def _assert_raw(got, want):
 def test_scan_matches_jax(jax_run, carried):
     wire, snippets, episodes, cfg, raw, want, state = jax_run
     qs = query_state_from_numpy(*state, device="cpu") if carried else None
-    scanner = ShardedScanner(snippets, SR, cfg, query_state=qs)
+    scanner = ShardedScanner(snippets, SR, cfg, device="cpu", query_state=qs)
     dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
     _assert_raw(dispatched[0], raw)
     peaks = scanner.scan_collect(dispatched)
@@ -125,7 +127,8 @@ def test_pad_rows_match_jax(jax_run):
     js = JaxScanner(snippets, SR, jcfg, mesh=make_mesh(1))
     j_rows, j_ns, j_real = js.stage_resident(episodes, pad_to=4)
     scanner = ShardedScanner(
-        snippets, SR, cfg, query_state=query_state_from_numpy(*state, "cpu")
+        snippets, SR, cfg, device="cpu",
+        query_state=query_state_from_numpy(*state, "cpu"),
     )
     staged = scanner.stage_resident(episodes, pad_to=4)
     rows, ns, n_real = staged
@@ -140,14 +143,21 @@ def test_pad_rows_match_jax(jax_run):
 
 
 def test_refuses_off_slice_configurations():
-    """What the port lacks raises, naming its ROADMAP item; one snippet
-    and ``fft_len`` < 2^14 are scanned (the tests below)."""
+    """What the port lacks raises, naming its ROADMAP item (several
+    devices, P7); every ``fft_impl`` × ``peaks_impl`` is scanned, one
+    snippet and ``fft_len`` < 2^14 too (the tests below); above 2^24 a
+    ``"vpu"`` scanner on a CUDA device is refused at construction, which
+    allocates nothing."""
     snippets, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="P3"):
-        ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0, fft_impl="xla"))
-    with pytest.raises(NotImplementedError, match="P3"):
-        ShardedScanner(snippets, SR,
-                       MatchConfig(chunk_secs=1.0, peaks_impl="jnp"))
+    for fft_impl in ("vpu", "xla_packed", "xla", "mxu"):
+        for peaks_impl in ("pallas", "jnp"):
+            cfg = MatchConfig(chunk_secs=1.0, fft_impl=fft_impl,
+                              peaks_impl=peaks_impl)
+            assert ShardedScanner(snippets, SR, cfg).fft_impl == fft_impl
+    with pytest.raises(ValueError, match="fft_impl"):
+        ShardedScanner(snippets, SR, MatchConfig(fft_impl="fftw"))
+    with pytest.raises(ValueError, match="peaks_impl"):
+        ShardedScanner(snippets, SR, MatchConfig(peaks_impl="numpy"))
     single = ShardedScanner(snippets[:1], SR, MatchConfig(chunk_secs=1.0))
     assert single.fft_impl == "vpu" and len(single.queries) == 1
     small = ShardedScanner(
@@ -157,6 +167,13 @@ def test_refuses_off_slice_configurations():
     with pytest.raises(NotImplementedError, match="P7"):
         ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
                        device=["cpu", "cpu"])
+    huge = MatchConfig(chunk_secs=2200.0)  # fft_len 2^25
+    with pytest.raises(ValueError, match="2\\^24"):
+        ShardedScanner(snippets, SR, huge, device="cuda")
+    assert ShardedScanner(snippets, SR, huge, device="cpu").fft_len == 1 << 25
+    for cfg in (dataclasses.replace(huge, fft_impl="xla"),
+                MatchConfig(chunk_secs=2000.0)):  # fft_len 2^24 runs
+        assert ShardedScanner(snippets, SR, cfg, device="cuda").fft_len
 
 
 def _jax_scan(snippets, episodes, jcfg):
@@ -184,7 +201,8 @@ def test_single_query_scan_matches_jax(wire):
     impl, raw, want, state = _jax_scan(snippets[:1], episodes, jcfg)
     assert impl == "vpu"
     for qs in (None, query_state_from_numpy(*state, device="cpu")):
-        scanner = ShardedScanner(snippets[:1], SR, cfg, query_state=qs)
+        scanner = ShardedScanner(snippets[:1], SR, cfg, device="cpu",
+                                 query_state=qs)
         dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
         assert dispatched[0][0].shape[:2] == (2, 1)
         _assert_raw(dispatched[0], raw)
@@ -214,7 +232,7 @@ def test_small_fft_fallback_matches_jax(n_queries):
     assert impl == "xla_packed"
     for qs in (None, query_state_from_numpy(*state, device="cpu")):
         scanner = ShardedScanner(
-            snippets, SR, MatchConfig(**kw), query_state=qs
+            snippets, SR, MatchConfig(**kw), device="cpu", query_state=qs
         )
         assert scanner.fft_impl == "xla_packed"
         dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
