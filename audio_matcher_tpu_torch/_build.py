@@ -34,15 +34,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
-    "am_major_fwd_wire": (_I, _P, _LL, _P, _P, _I, _I, _I, _LL, _P),
+    "am_twiddles": (_P, _I, _P),
+    "am_major_fwd_wire": (_I, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _P),
     "am_major_fwd_wire2": (
-        _I, _P, _LL, _P, _LL, _I, _P, _P, _I, _I, _I, _LL, _P
+        _I, _P, _LL, _P, _LL, _I, _P, _P, _P, _I, _I, _I, _LL, _P
     ),
-    "am_major_forward": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "am_major_inverse": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "am_minor_forward": (_P, _P, _P, _P, _I, _I, _P),
-    "am_minor_inverse": (_P, _P, _P, _P, _I, _I, _P),
-    "am_minor_product": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_major_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "am_major_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_minor_forward": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    "am_minor_inverse": (_P, _P, _P, _P, _P, _LL, _I, _P),
+    "am_minor_product": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_block_reduce_packed": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P
     ),
@@ -80,12 +81,13 @@ def find_nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The sources nvcc compiles, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())

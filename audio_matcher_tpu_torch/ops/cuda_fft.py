@@ -19,9 +19,10 @@ permuted into it once (:func:`scrambled_query_spectra`).
 
 Each pass has a wrapper and a plain PyTorch version beside it. The wrapper
 runs the plain version for CPU tensors and launches its CUDA kernel
-(``csrc/fft_passes.cu``) for CUDA tensors; it never falls back. The plain
-versions use ``torch.fft`` along the axis plus the bit-reversal permutation,
-the masks and the twiddles, and are what the kernels are checked against.
+(``csrc/fft_major.cu``, ``csrc/fft_minor.cu``) for CUDA tensors; it never
+falls back. The plain versions use ``torch.fft`` along the axis plus the
+bit-reversal permutation, the masks and the twiddles, and are what the
+kernels are checked against.
 Forward transforms are unscaled; the inverse's 1/n is folded into the query
 spectra.
 """
@@ -35,13 +36,15 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import fft_plan
 from .wire import dequant_to_f32, silence_code
 
 MIN_N = 1 << 14  # two 128-wide factors
-MAX_FACTOR = 4096  # shared-memory tiles of the CUDA passes (see csrc)
+MIN_FACTOR = 1 << fft_plan.MIN_LOG2  # 16 points a thread, 8+ threads a line
+MAX_FACTOR = 1 << fft_plan.MAX_LOG2  # shared-memory tiles (see csrc)
 # above 2^24 the cross twiddle's integer exponent is no longer exact in f32
 MAX_FFT_LEN = MAX_FACTOR * MAX_FACTOR
-MAX_GRID_Y = 65535  # the major pass launches one grid row per plane
+MAX_BLOCKS = (1 << 31) - 1  # a major pass counts its strips in an int
 _F32 = torch.float32
 _WIRE_CODES = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}
 
@@ -162,15 +165,61 @@ def _wire_rows(xw, eff: int, what: str) -> None:
 
 
 def _check_factors(A: int, M: int) -> None:
-    if A > MAX_FACTOR or M > MAX_FACTOR:
+    if not (MIN_FACTOR <= A <= MAX_FACTOR and MIN_FACTOR <= M <= MAX_FACTOR):
         raise ValueError(
-            f"the CUDA passes take factors up to {MAX_FACTOR} (fft_len up "
-            f"to {MAX_FFT_LEN}), got A = {A}, M = {M}"
+            f"the CUDA passes take factors from {MIN_FACTOR} to {MAX_FACTOR} "
+            f"(fft_len up to {MAX_FFT_LEN}), got A = {A}, M = {M}"
+        )
+
+
+def _aligned16(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                "the passes move f32 planes 16 bytes at a time: they must "
+                "be 16-byte aligned"
+            )
+
+
+def _check_blocks(P: int, log2A: int, log2M: int) -> None:
+    """Raise if a major pass's strips (P·M/C) would pass MAX_BLOCKS."""
+    if P << (log2M - fft_plan.major_strip_log2(log2A)) > MAX_BLOCKS:
+        raise ValueError(
+            f"{P} planes of {1 << log2M} columns exceed {MAX_BLOCKS} strips"
         )
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_TWIDDLES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def twiddle_table(L: int, device) -> torch.Tensor:
+    """The passes' per-stage twiddle table for lines of L points, [L, 2]
+    f32 (:func:`fft_plan.twiddle_table_plain`). On a CUDA device the
+    ``twiddle_table`` kernel builds it once per (device, L) and it is kept;
+    on the CPU it is the plain one."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fft_plan.twiddle_table_plain(L, device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tw = _TWIDDLES.get((device.index, L))
+    if tw is None:
+        tw = torch.empty((L, 2), dtype=_F32, device=device)
+        with torch.cuda.device(device):
+            rc = _build.load().am_twiddles(
+                tw.data_ptr(), _log2(L, "L"), _stream(tw))
+        _build.check(rc, "am_twiddles")
+        _TWIDDLES[(device.index, L)] = tw
+    return tw
+
+
+def _twiddles(L: int, like: torch.Tensor) -> int:
+    """The twiddle table's pointer for lines of L points on like's device."""
+    return twiddle_table(L, like.device).data_ptr()
 
 
 def _cross_twiddle(A: int, M: int, n: int, sign: float, device):
@@ -234,13 +283,13 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
     P = xw.shape[0]
     eff = min(int(w_len), n)
     _wire_rows(xw, eff, "xw")
-    if P > MAX_GRID_Y:
-        raise ValueError(f"at most {MAX_GRID_Y} windows per launch, got {P}")
+    _check_blocks(P, log2A, log2M)
     yr, yi = _planes(out, (P, A, M), xw)
     with torch.cuda.device(xw.device):
         rc = _build.load().am_major_fwd_wire(
             _WIRE_CODES[xw.dtype], xw.data_ptr(), xw.stride(0),
-            yr.data_ptr(), yi.data_ptr(), P, log2A, log2M, eff, _stream(xw),
+            yr.data_ptr(), yi.data_ptr(), _twiddles(A, xw), P, log2A, log2M,
+            eff, _stream(xw),
         )
     _build.check(rc, "am_major_fwd_wire")
     fft_major_fwd_wire.launches += 1
@@ -287,16 +336,13 @@ def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
             f"x1 must be {x0.dtype} with at most {P} rows, got {x1.dtype} "
             f"{tuple(x1.shape)}"
         )
-    if P > MAX_GRID_Y:
-        raise ValueError(
-            f"at most {MAX_GRID_Y} window pairs per launch, got {P}"
-        )
+    _check_blocks(P, log2A, log2M)
     yr, yi = _planes(out, (P, A, M), x0)
     with torch.cuda.device(x0.device):
         rc = _build.load().am_major_fwd_wire2(
             _WIRE_CODES[x0.dtype], x0.data_ptr(), x0.stride(0),
-            x1.data_ptr(), x1.stride(0), P1,
-            yr.data_ptr(), yi.data_ptr(), P, log2A, log2M, eff, _stream(x0),
+            x1.data_ptr(), x1.stride(0), P1, yr.data_ptr(), yi.data_ptr(),
+            _twiddles(A, x0), P, log2A, log2M, eff, _stream(x0),
         )
     _build.check(rc, "am_major_fwd_wire2")
     fft_major_fwd_wire2.launches += 1
@@ -326,15 +372,16 @@ def _minor_launch(entry: str, xr, xi, M: int, out):
     log2M = _log2(M, "M")
     if xr.shape[-1] != M or xr.shape != xi.shape:
         raise ValueError(f"the minor pass takes two [..., M = {M}] planes")
-    _check_factors(1, M)
+    _check_factors(MIN_FACTOR, M)
     _f32_contig(xr, xi)
     yr, yi = _planes(out, tuple(xr.shape), xr)
     if {yr.data_ptr(), yi.data_ptr()} & {xr.data_ptr(), xi.data_ptr()}:
         raise ValueError("the minor pass does not run in place")
+    _aligned16(xr, xi, yr, yi)
     with torch.cuda.device(xr.device):
         rc = getattr(_build.load(), entry)(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            xr.numel() // M, log2M, _stream(xr),
+            _twiddles(M, xr), xr.numel() // M, log2M, _stream(xr),
         )
     _build.check(rc, entry)
     return yr, yi
@@ -402,10 +449,12 @@ def ifft_minor_product(xr, xi, tr, ti, M: int, out=None):
     _check_factors(A, M)
     _f32_contig(xr, xi, tr, ti)
     yr, yi = _planes(out, (B * Qh, A, M), xr)
+    _aligned16(xr, xi, tr, ti)
     with torch.cuda.device(xr.device):
         rc = _build.load().am_minor_product(
             xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), B, A, Qh, log2M, _stream(xr),
+            yr.data_ptr(), yi.data_ptr(), _twiddles(M, xr), B, A, Qh, log2M,
+            _stream(xr),
         )
     _build.check(rc, "am_minor_product")
     ifft_minor_product.launches += 1
@@ -435,16 +484,17 @@ def fft_major_plain(xr, xi, A: int, n: int, a_crop: int, out=None):
 
 
 def _major_planes(xr, xi, A: int, n: int):
-    """Check [P, A, M] f32 planes for a major pass; returns (P, log2A, log2M)."""
+    """Check [P, A, M] f32 planes for a major pass; returns
+    (P, log2A, log2M)."""
     M = n // A
     log2A, log2M = _log2(A, "A"), _log2(M, "M")
     P = xr.shape[0]
     if tuple(xr.shape) != (P, A, M) or xi.shape != xr.shape:
         raise ValueError(f"the major pass takes two [P, {A}, {M}] planes")
     _check_factors(A, M)
-    if P > MAX_GRID_Y:
-        raise ValueError(f"at most {MAX_GRID_Y} planes per launch, got {P}")
     _f32_contig(xr, xi)
+    _aligned16(xr, xi)
+    _check_blocks(P, log2A, log2M)
     return P, log2A, log2M
 
 
@@ -462,7 +512,7 @@ def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
     with torch.cuda.device(xr.device):
         rc = _build.load().am_major_inverse(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            P, log2A, log2M, a_crop, _stream(xr),
+            _twiddles(A, xr), P, log2A, log2M, a_crop, _stream(xr),
         )
     _build.check(rc, "am_major_inverse")
     fft_major.launches += 1
@@ -493,7 +543,7 @@ def fft_major_forward(xr, xi, A: int, n: int, out=None):
     with torch.cuda.device(xr.device):
         rc = _build.load().am_major_forward(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            P, log2A, log2M, _stream(xr),
+            _twiddles(A, xr), P, log2A, log2M, _stream(xr),
         )
     _build.check(rc, "am_major_forward")
     fft_major_forward.launches += 1

@@ -1,7 +1,7 @@
 """The staging wire grid's device decode (port of ``ops/wire.py``).
 
 Encode lives host-side in ``models.matcher.quantize_wire``; this is its
-inverse on tensors. The CUDA forward major pass (``csrc/fft_passes.cu``)
+inverse on tensors. The CUDA forward major pass (``csrc/fft_major.cu``)
 decodes the same way in-register. int16 is value/65535 (the reference's
 ``(l+r)*0.5/65535`` PCM scale); μ-law (μ=255) expands with ``exp()-1``
 through an int→float hop, exactly as the JAX package does, not with

@@ -7,7 +7,9 @@ It drives the port's three paths, each through the entry points a user
 calls, and holds every kernel against its plain PyTorch version:
 
 1. Builds the hand-written kernels (``audio_matcher_tpu_torch/csrc``) with
-   nvcc for sm_90a.
+   nvcc for sm_90a, one nvcc per source, all started together, and prints
+   ptxas's registers, stack and spill bytes for every instantiation; a
+   spill in an FFT pass fails the run.
 2. The batch scan (BASELINE config #3). Runs each of the five kernel entry
    points of the multi-query path, and its plain PyTorch version, on the
    card at the config #3 slab shapes (8 windows of a 1800 s 44.1 kHz
@@ -63,8 +65,9 @@ calls, and holds every kernel against its plain PyTorch version:
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
 3.35 TB/s and its FP32 operations (10 per radix-2 butterfly, 6 per
-complex product) over 67 TFLOP/s, at the shapes it was timed at. Every
-path's launch counts are set to 0 just before the run that is read and
+complex product) over 67 TFLOP/s, at the shapes it was timed at, and the
+FFT passes beside their times when every radix-2 stage was one round trip
+through shared memory (RADIX2_CHAIN_MS). Every path's launch counts are set to 0 just before the run that is read and
 read just after it. The run uses one card: only the first visible
 device is made visible. Any failure raises and exits non-zero. The
 second-to-last line is a JSON object of the kernels; the last line is
@@ -77,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -127,30 +131,39 @@ NAME_CHARS = 96  # kernel names printed by the profile phases
 JNP_QUERIES = 64  # the vpu + jnp scan: 1 x 1800 s x 64 queries
 LARGE_CHUNKS = (120.0, 240.0)  # chunk_secs giving fft_len 2^23 and 2^24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
+# The FFT passes' times before the stage-group design, when every stage was
+# one round trip through shared memory: this script at commit 0c3e91a on an
+# NVIDIA H100 80GB HBM3 at 700 W, at the shapes timed here.
+RADIX2_CHAIN_MS = {
+    "fft_major_fwd_wire": 0.725, "fft_minor": 0.738,
+    "ifft_minor_product": 22.346, "fft_major": 22.519,
+    "fft_major_fwd_wire2": 0.440, "fft_major_forward": 0.842,
+    "ifft_minor": 0.799,
+}
 FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
-    "fft_major_fwd_wire": (CSRC + "fft_passes.cu",
+    "fft_major_fwd_wire": (CSRC + "fft_major.cu",
                            "audio_matcher_tpu/ops/pallas_fft.py:357"),
-    "fft_minor": (CSRC + "fft_passes.cu",
+    "fft_minor": (CSRC + "fft_minor.cu",
                   "audio_matcher_tpu/ops/pallas_fft.py:506"),
-    "ifft_minor_product": (CSRC + "fft_passes.cu",
+    "ifft_minor_product": (CSRC + "fft_minor.cu",
                            "audio_matcher_tpu/ops/pallas_fft.py:593"),
-    "fft_major": (CSRC + "fft_passes.cu",
+    "fft_major": (CSRC + "fft_major.cu",
                   "audio_matcher_tpu/ops/pallas_fft.py:258"),
     "local_max_block_reduce_packed": (
         CSRC + "block_reduce.cu",
         "audio_matcher_tpu/ops/pallas_kernels.py:238"),
-    "fft_major_fwd_wire2": (CSRC + "fft_passes.cu",
+    "fft_major_fwd_wire2": (CSRC + "fft_major.cu",
                             "audio_matcher_tpu/ops/pallas_fft.py:452"),
     "local_max_block_reduce": (
         CSRC + "block_reduce.cu",
         "audio_matcher_tpu/ops/pallas_kernels.py:137"),
     # fft_major with inverse=False, cross=True; fft_minor with inverse=True
-    "fft_major_forward": (CSRC + "fft_passes.cu",
+    "fft_major_forward": (CSRC + "fft_major.cu",
                           "audio_matcher_tpu/ops/pallas_fft.py:258"),
-    "ifft_minor": (CSRC + "fft_passes.cu",
+    "ifft_minor": (CSRC + "fft_minor.cu",
                    "audio_matcher_tpu/ops/pallas_fft.py:506"),
 }
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -246,6 +259,37 @@ def bound(n_bytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(log):
+    """One line per kernel of nvcc's ``-Xptxas -v`` output: registers,
+    stack and spill bytes. Fails if an FFT pass spills."""
+    fn, seen = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            seen[fn] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            seen[fn].update(stack=int(m[1]), spill=int(m[2]) + int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            seen[fn]["registers"] = int(m[1])
+    if not seen:
+        print("  no ptxas report: the library was built before this run")
+    for fn, info in seen.items():
+        m = re.search(r"\d((?:major|minor)_pass|twiddle_table|block_reduce)"
+                      r"(I\w*?EE)?", fn)
+        print(f"  {m[1] + (m[2] or '') if m else fn[:56]}: "
+              f"{info.get('registers')} registers, {info.get('stack')} B "
+              f"stack, {info.get('spill')} B spilled")
+    spills = [fn for fn, info in seen.items()
+              if ("major_pass" in fn or "minor_pass" in fn)
+              and info.get("spill", 0)]
+    if spills:
+        raise AssertionError(f"FFT passes spill registers: {spills}")
+
+
 def timed(name, kernel, plain, row=None, work=None, library=None):
     """CUDA-event times of a kernel call, its plain version and, where one
     torch call computes the same transform, of that call; ``work`` is the
@@ -260,6 +304,10 @@ def timed(name, kernel, plain, row=None, work=None, library=None):
     extra = f", bound {b_ms:.3f} ms ({b_by})" if work is not None else ""
     if library is not None:
         extra += f", torch.fft {lib_ms:.3f} ms"
+    before = RADIX2_CHAIN_MS.get(row["name"]) if row is not None else None
+    if before is not None:
+        extra += (f"; radix-2 chain {before:.3f} ms, {before / ms:.2f}x "
+                  f"faster now")
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra}")
 
 
@@ -325,7 +373,7 @@ def check_kernels(scanner, episode_wire, rows):
           lambda: F.fft_major_plain(V[0], V[1], A, n, a_crop),
           rows["fft_major"],
           (8 * P * n + 8 * P * width, fft_flops(P * M, A) + 6 * P * n),
-          lambda: torch.fft.ifft(Vc, dim=1))
+          lambda: torch.fft.ifft(Vc, dim=1, norm="forward"))
     del V, Vc
 
     zr, zi = Z[0].view(P, width), Z[1].view(P, width)
@@ -766,7 +814,7 @@ def fft_modes(config, device, rows):
     timed("ifft_minor", lambda: F.ifft_minor(Y[0], Y[1], M, out=Z),
           lambda: F.ifft_minor_plain(Y[0], Y[1], M), rows["ifft_minor"],
           (16 * B * n, fft_flops(B * A, M)),
-          lambda: torch.fft.ifft(yc, dim=-1))
+          lambda: torch.fft.ifft(yc, dim=-1, norm="forward"))
     del Y, Z, yc
 
     work_f, work_i = {}, {}
@@ -900,9 +948,7 @@ def main() -> int:
     _build.load()
     print(f"kernel build + load: {time.perf_counter() - t_start:.2f} s "
           f"(nvcc {_build.build_seconds():.2f} s)")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    ptxas_report(_build.build_log())
 
     config = MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
     dev = torch.device("cuda", 0)

@@ -45,8 +45,8 @@ def _close(got, want):
         assert ((g - w).abs().max() / w.abs().max()).item() < TOL
 
 
-# A = M (2^14, 2^22, 2^24) and M = 2A (2^15, 2^21, 2^23)
-SIZES = [1 << 14, 1 << 15, 1 << 21, 1 << 22, 1 << 23, 1 << 24]
+# every factor 128 .. 4096: A = M at even log2 n, M = 2A at odd
+SIZES = [1 << e for e in range(14, 25)]
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -110,6 +110,71 @@ def test_new_modes_match_plain(dev, n):
     _close(X, F.fft2_scrambled(xr.view(P, n), xi.view(P, n), n, plain=True))
     back = F.fft2_scrambled(X[0], X[1], n, inverse=True)
     _close(back, (xr.view(P, n) * n, xi.view(P, n) * n))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("P", [1, 3])
+def test_passes_at_one_and_odd_planes_every_crop_and_twice(dev, n, P):
+    """Every mode at P = 1 and an odd P, the inverse major pass at a_crop
+    1, A/2 + 8 and A; a second launch of each is bitwise equal to the
+    first (no order-dependent arithmetic)."""
+    g = torch.Generator(device=dev).manual_seed(n + P)
+    A, M = F.split_factors(n)
+    xr = torch.randn(P, A, M, device=dev, generator=g)
+    xi = torch.randn(P, A, M, device=dev, generator=g)
+    tr = torch.randn(2, A, M, device=dev, generator=g)
+    ti = torch.randn(2, A, M, device=dev, generator=g)
+    ep = _wire_episode(dev, g, torch.uint8, P * n)
+    w0, w1 = ep.view(P, n), ep.view(P, n)[: P // 2]
+    cases = {
+        "fft_minor": (lambda: F.fft_minor(xr, xi, M),
+                      lambda: F.fft_minor_plain(xr, xi, M)),
+        "ifft_minor": (lambda: F.ifft_minor(xr, xi, M),
+                       lambda: F.ifft_minor_plain(xr, xi, M)),
+        "ifft_minor_product": (
+            lambda: F.ifft_minor_product(xr, xi, tr, ti, M),
+            lambda: F.ifft_minor_product_plain(xr, xi, tr, ti, M)),
+        "fft_major_forward": (
+            lambda: F.fft_major_forward(xr, xi, A, n),
+            lambda: F.fft_major_forward_plain(xr, xi, A, n)),
+        "fft_major_fwd_wire": (
+            lambda: F.fft_major_fwd_wire(w0, A, n, n - 5),
+            lambda: F.fft_major_fwd_wire_plain(w0, A, n, n - 5)),
+        "fft_major_fwd_wire2": (
+            lambda: F.fft_major_fwd_wire2(w0, w1, A, n, n - 5),
+            lambda: F.fft_major_fwd_wire2_plain(w0, w1, A, n, n - 5)),
+    }
+    for a_crop in (1, A // 2 + 8, A):
+        cases[f"fft_major a_crop {a_crop}"] = (
+            lambda c=a_crop: F.fft_major(xr, xi, A, n, c),
+            lambda c=a_crop: F.fft_major_plain(xr, xi, A, n, c))
+    for name, (kernel, plain) in cases.items():
+        got, again = kernel(), kernel()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        _close(got, plain())
+
+
+@pytest.mark.parametrize("L", [1 << e for e in range(7, 13)])
+def test_twiddle_table_within_an_ulp_of_float64(dev, L):
+    got = F.twiddle_table(L, dev).cpu().numpy().astype(np.float64)
+    k = np.arange(L)
+    m = 1 << np.maximum(np.floor(np.log2(np.maximum(k, 1))), 0).astype(int)
+    want = np.exp(-1j * np.pi * (k - m) / m)
+    want[0] = 1.0
+    for g, w in ((got[:, 0], want.real), (got[:, 1], want.imag)):
+        ulp = np.spacing(np.abs(w).astype(np.float32)).astype(np.float64)
+        assert (np.abs(g - w) <= ulp + 1e-15).all()
+
+
+def test_passes_refuse_misaligned_planes(dev):
+    M = 128
+    buf = torch.zeros(M * M + 1, device=dev)
+    x = buf[1:].view(1, M, M)  # contiguous, 4 bytes off alignment
+    for call in (lambda: F.fft_minor(x, x, M), lambda: F.ifft_minor(x, x, M),
+                 lambda: F.fft_major(x, x, M, M * M, M),
+                 lambda: F.fft_major_forward(x, x, M, M * M)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
 
 
 def test_argmax_keeps_the_lowest_index_on_cuda(dev):
