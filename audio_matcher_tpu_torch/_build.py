@@ -45,9 +45,9 @@ SIGNATURES = {
     "am_minor_inverse": (_P, _P, _P, _P, _P, _LL, _I, _P),
     "am_minor_product": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "am_block_reduce_packed": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
     ),
-    "am_block_reduce": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P),
+    "am_block_reduce": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -38,9 +38,22 @@
 //    copy lands in the exchange tile's layout, so the points come out of
 //    it free of bank conflicts, and the exchanges go one plane at a time
 //    through the one tile left beside it (3 tiles: 209 KB at A = 2048).
-//  * The wire modes read 1 or 2 bytes a point: their loads are a quarter
-//    or less of their stores. A block per strip loads its points straight
-//    into registers, decodes them there and never materializes f32 windows.
+//  * The wire modes read 1 or 2 bytes a point and write 8: the stores are
+//    their bound. They walk the strips the same way (walk_wire_strips): the
+//    next strip's wire bytes come into shared memory by cp.async while the
+//    block runs the current strip, and are decoded in registers on their
+//    way to the stages; f32 windows never exist. Wire rows are strided
+//    views with any start alignment (a window starts at b * chunk samples):
+//    rows are copied in 16- or 8-byte chunks where their start allows it
+//    (one copy a row at config #3's slab), else f32 rows in 4-byte chunks
+//    and u8 and int16 rows in the 4-byte words their bytes touch
+//    (wire_copy). The mu-law table is built once a block, 16 copies so
+//    that its lookups meet at most two lanes a bank; the planes exchange
+//    one after the other through one tile (WireLayout). A warp stores C * 4
+//    contiguous bytes of each row: whole 32-byte sectors up to A = 2048.
+//    At A = 4096 a row piece is half a sector, and there the TMA stores
+//    the output from shared memory (stage_and_store), while the block goes
+//    on with the next strip.
 //  * The cross twiddle keeps its exact integer exponent brev_A(r)*c: one
 //    sincospif per thread and 16 per column of a strip (build_cross,
 //    apply_cross), one complex product per point.
@@ -50,9 +63,13 @@
 // Each C entry point returns cudaGetLastError() of its launch, or
 // cudaErrorInvalidValue for a factor it has no instantiation for.
 
+#include <cuda.h>  // CUtensorMap and its enums (headers only: no -lcuda)
+
 #include "fft_passes.cuh"
 
 namespace {
+
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
 // log2 of the strip width: 2^14 points a block, 4 to 32 columns
 // (ops/fft_plan.py's major_strip_log2). Narrower strips would write 16
@@ -79,27 +96,6 @@ __device__ __forceinline__ float dequant(int16_t v) {
     return __fmul_rn((float)v, (float)(1.0 / 65535.0));
 }
 __device__ __forceinline__ float dequant(float v) { return v; }
-
-// A strided f32 load that asks L2 to fetch the whole 128-byte line from
-// device memory: the strips of the neighbouring blocks, read at about the
-// same time, find their sectors there.
-__device__ __forceinline__ float load_line(const float* p) {
-    float v;
-    asm("ld.global.nc.L2::128B.f32 %0, [%1];" : "=f"(v) : "l"(p));
-    return v;
-}
-template <typename In>
-__device__ __forceinline__ In load_wire(const In* p) { return *p; }
-template <>
-__device__ __forceinline__ float load_wire<float>(const float* p) {
-    return load_line(p);
-}
-
-// The wire code of silence: mu-law's zero is code 128, the others' is 0.
-template <typename In>
-__device__ __forceinline__ In wire_silence() { return In(0); }
-template <>
-__device__ __forceinline__ uint8_t wire_silence<uint8_t>() { return 128; }
 
 // The cross twiddles W_n^{sign * e * D} of the strip's columns c0 + col,
 // D = c * A/16, e < 16, at ct[col * 17 + e]: one sincospif of an exact
@@ -257,83 +253,352 @@ __device__ __forceinline__ void walk_strips(
     }
 }
 
-// The wire passes: one block per strip, blockIdx.x = p * (M / C) + strip,
-// forward only. x is the real wire-dtype input, row p at x + p*in_stride,
-// element (a, c) at a*M + c, read only below w_len (zero past it); output
-// [P, A, M] planes. PAIR: the imaginary plane is read the same way from
-// x1 + p*x1_stride for p < x1_rows; rows p >= x1_rows pair with wire
-// silence (the pad window of an odd slab), decoded like any sample.
+// The TMA stores' boxes: a strip's C columns by this many rows (at most
+// 256, the TMA's limit), A / box_rows a plane (ops/fft_plan.py's wire_box).
+__host__ __device__ constexpr int box_rows(int log2A) {
+    return log2A < 8 ? 1 << log2A : 256;
+}
+
+// The wire passes' shared memory (ops/fft_plan.py's wire_layout): the
+// exchange tile, one plane (the planes exchange one after the other; both
+// at once, in a tile twice the size, measured slower: probe_wire_pass.py);
+// TMA: a dense [A, C] plane beside it that stages the real output plane for
+// the TMA stores (the imaginary one is staged in the tile); the strip's
+// wire bytes (A rows of STRIDE bytes a plane, two planes for PAIR); for
+// mu-law the 256 decoded codes 16 times (lane l reads code v at v * 16 + l
+// mod 16: at most two lanes a bank); the cross twiddles and a float2 a
+// thread. The TMA stores the output where a strip's row piece is shorter
+// than a 32-byte sector (A = 4096, C = 4) and the staging plane fits (not
+// for int16 and f32 pairs); elsewhere the threads store it themselves,
+// which is faster where the pieces are whole sectors.
 template <typename In, bool PAIR, int LOG2A>
-__device__ __forceinline__ void wire_strip(
+struct WireLayout {
+    static constexpr int LOG2C = strip_log2(LOG2A);
+    static constexpr int A = 1 << LOG2A;
+    static constexpr int TILE = (A + A / 16) << LOG2C;  // floats a plane
+    static constexpr int PIECE = (int)sizeof(In) << LOG2C;  // bytes a row
+    // u8 and int16 rows: up to 4 bytes more a row (the lead of a 4-byte
+    // word copy), rounded up to the widest copy, 16 bytes or the piece
+    static constexpr int WIDE = PIECE < 16 ? PIECE : 16;
+    static constexpr int STRIDE =
+        sizeof(In) == 4 ? PIECE : (PIECE + 4 + WIDE - 1) / WIDE * WIDE;
+    static constexpr int RAW = (PAIR ? 2 : 1) * A * STRIDE;  // bytes
+    static constexpr int LUT_COPIES = 16;
+    static constexpr int LUT = sizeof(In) == 1 ? 256 * LUT_COPIES : 0;
+    static constexpr int REST = RAW + 4 * LUT + 8 * ((PTS + 1) << LOG2C) +
+                                8 * threads_of(LOG2A);
+    static constexpr bool TMA =
+        (4 << LOG2C) < 32 && 4 * (TILE + (A << LOG2C)) + REST <= MAX_SMEM;
+    static constexpr int STAGE = TMA ? A << LOG2C : 0;  // floats
+    static constexpr int SMEM = 4 * (TILE + STAGE) + REST;
+    static constexpr int BOX = box_rows(LOG2A);
+    static_assert(SMEM <= MAX_SMEM, "the wire pass's shared memory");
+};
+
+// How one row piece of a strip (PIECE bytes from byte address `start`)
+// is copied: f32 rows exactly, in chunks of g = 16, 8 or 4 bytes (the
+// largest that divides the start). u8 and int16 rows the same way in 16 or
+// 8 bytes where the start and the piece allow it (one copy a row at config
+// #3's 8-byte pieces); else in 4-byte words from the word that holds the
+// first byte, so `lead` = start mod 4 bytes of the previous element ride
+// in front and the words are exactly those the piece's bytes touch
+// (ops/fft_plan.py's wire_copy).
+struct WireCopy {
+    int grain, lead, chunks;
+};
+template <typename In, int PIECE>
+__device__ __forceinline__ WireCopy wire_copy(const In* start) {
+    const unsigned a = (unsigned)(uintptr_t)start & 15u;
+    if (sizeof(In) == 4) {
+        const int g = a == 0 ? 16 : (a & 7) == 0 ? 8 : 4;
+        return {g, 0, PIECE / g};
+    }
+    if (PIECE >= 16 && a == 0) return {16, 0, PIECE / 16};
+    if (PIECE >= 8 && (a & 7) == 0) return {8, 0, PIECE / 8};
+    const int lead = (int)(a & 3u);
+    return {4, lead, (lead + PIECE + 3) >> 2};
+}
+
+// cp.async of g bytes, global -> shared, with a 128-byte L2 prefetch.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if (g == 16)
+        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else if (g == 8)
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src) : "memory");
+}
+
+// Start the copy of one plane's piece of strip columns c0 .. c0 + C into
+// raw: row a (elements a*M + c0 ..) at raw + a * STRIDE. A chunk is copied
+// only if its first element lies below w_len; the points past w_len are
+// masked when they are read.
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void fetch_wire_plane(unsigned char* raw,
+                                                 const In* piece, int c0,
+                                                 int log2M, long long w_len) {
+    using L = WireLayout<In, PAIR, LOG2A>;
+    const WireCopy cp = wire_copy<In, L::PIECE>(piece);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(piece) - cp.lead;
+#pragma unroll 1
+    for (int k = threadIdx.x; k < (cp.chunks << LOG2A); k += blockDim.x) {
+        const int a = k / cp.chunks, j = k - a * cp.chunks;
+        const int b = j * cp.grain - cp.lead;  // first byte in the piece
+        const long long first = ((long long)a << log2M) + c0 +
+                                (b > 0 ? b : 0) / (int)sizeof(In);
+        if (first < w_len)
+            cp_async(raw + a * L::STRIDE + j * cp.grain,
+                     src + ((long long)a << log2M) * sizeof(In) +
+                         j * cp.grain,
+                     cp.grain);
+    }
+}
+
+// The copy of strip s: plane s / (M / C), columns c0 .. c0 + C, of x and,
+// for PAIR rows below x1_rows, of x1; the rows past x1_rows get a plane of
+// the wire code of silence (stored, not copied). One commit group.
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void fetch_wire(
+    unsigned char* raw, const In* __restrict__ x, long long in_stride,
+    const In* __restrict__ x1, long long x1_stride, int x1_rows, int s,
+    int log2M, long long w_len) {
+    using L = WireLayout<In, PAIR, LOG2A>;
+    const int log2strips = log2M - L::LOG2C;
+    const long long p = s >> log2strips;
+    const int c0 = (s & ((1 << log2strips) - 1)) << L::LOG2C;
+    fetch_wire_plane<In, PAIR, LOG2A>(raw, x + p * in_stride + c0, c0, log2M,
+                                      w_len);
+    if (PAIR && p < x1_rows) {
+        fetch_wire_plane<In, PAIR, LOG2A>(raw + L::A * L::STRIDE,
+                                          x1 + p * x1_stride + c0, c0, log2M,
+                                          w_len);
+    } else if (PAIR) {
+        // four codes a word: mu-law's silence is 128, the others' 0
+        const unsigned word = sizeof(In) == 1 ? 0x80808080u : 0u;
+        unsigned* sil = reinterpret_cast<unsigned*>(raw + L::A * L::STRIDE);
+        for (int k = threadIdx.x; k < L::A * L::STRIDE / 4; k += blockDim.x)
+            sil[k] = word;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// gridDim.x, read where it is used: a volatile read is not held in a
+// register across the stages, as the compiler holds a plain one.
+__device__ __forceinline__ int grid_blocks() {
+    int g;
+    asm volatile("mov.u32 %0, %%nctaid.x;" : "=r"(g));
+    return g;
+}
+
+// The TMA stores' completion (bulk async-groups of the issuing thread):
+// until the reads of shared memory of all but the newest N groups are
+// done, or until all is written.
+template <int N>
+__device__ __forceinline__ void tma_reads_done() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void tma_writes_done() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// x[r] <- x[r ^ k] for a k < 2^BITS known only at run time: conditional
+// swaps, one level a bit, so that no register is indexed at run time.
+template <int BITS>
+__device__ __forceinline__ void xor_permute(float (&x)[PTS], int k) {
+#pragma unroll
+    for (int b = 0; b < BITS; ++b) {
+        const bool flip = (k >> b) & 1;
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+            if (r & (1 << b)) continue;
+            const float lo = x[r], hi = x[r | (1 << b)];
+            x[r] = flip ? hi : lo;
+            x[r | (1 << b)] = flip ? lo : hi;
+        }
+    }
+}
+
+// The forward wire pass's output of one strip, rows (u << 4) | r of column
+// col, through shared memory to the TMA: the real plane is written into
+// the staging plane sr, the imaginary one into the exchange tile si, each
+// as a dense [A, C] array (the layout of a box of the tensor map); then
+// threads t < A/BOX each store box t of BOX rows of both planes, columns
+// c0 .. c0 + C of plane p, the imaginary plane's first: each box is a bulk
+// async-group of the thread, so that the next strip waits only for the
+// imaginary plane to leave the tile (tma_reads_done<1>) before its first
+// exchange, and the real plane has until this point in the next strip. A
+// warp holds 32/C values of u at each r: thread u writes register r ^ (u
+// mod 32/C) at step r, so that the warp's rows differ modulo 32/C and its
+// words fall in 32 banks.
+template <int LOG2A, int LOG2C>
+__device__ __forceinline__ void stage_and_store(
+    float (&vr)[PTS], float (&vi)[PTS], float* sr, float* si, int col, int u,
+    const CUtensorMap* out_r, const CUtensorMap* out_i, int c0, int p) {
+    constexpr int A = 1 << LOG2A;
+    constexpr int KBITS = 5 - LOG2C;  // log2 of the u values a warp holds
+    constexpr int BOX = box_rows(LOG2A);
+    const int k = u & ((1 << KBITS) - 1);
+    const int t = threadIdx.x;
+    xor_permute<KBITS>(vr, k);
+    xor_permute<KBITS>(vi, k);
+    if (t < A / BOX) tma_reads_done<0>();  // the last real plane left sr
+    __syncthreads();  // and the last exchange's reads of the tile are done
+#pragma unroll
+    for (int r = 0; r < PTS; ++r) {
+        const int w = ((((u << LOG2_PTS) | r) ^ k) << LOG2C) | col;
+        sr[w] = vr[r];
+        si[w] = vi[r];
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the strip's output is in sr and si
+    if (t < A / BOX) {
+#pragma unroll
+        for (int im = 1; im >= 0; --im) {
+            const unsigned src = (unsigned)__cvta_generic_to_shared(
+                (im ? si : sr) + ((t * BOX) << LOG2C));
+            asm volatile(
+                "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+                " [%0, {%2, %3, %4}], [%1];\n"
+                :: "l"(im ? out_i : out_r), "r"(src), "r"(c0),
+                   "r"(t * BOX), "r"(p)
+                : "memory");
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+    }
+}
+
+// The wire passes, forward only: a persistent block walks strips s =
+// blockIdx.x, + gridDim.x, ... of the P * M / C strips, as walk_strips
+// does. The next strip's wire bytes come into raw by cp.async while the
+// block runs the current strip's stages, and (TMA) the TMA stores the last
+// strip's output from shared memory while the block works on the next
+// (stage_and_store). x is the real wire-dtype input, row p at x +
+// p*in_stride, element (a, c) at a*M + c, read only below w_len (zero past
+// it); output [P, A, M] planes (out_r, out_i: their tensor maps). PAIR:
+// the imaginary plane is read the same way from x1 + p*x1_stride for p <
+// x1_rows; rows p >= x1_rows pair with wire silence (the pad window of an
+// odd slab), decoded like any sample. Decoding is in-register (the mu-law
+// table is built once a block).
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void walk_wire_strips(
     const In* __restrict__ x, long long in_stride, const In* __restrict__ x1,
     long long x1_stride, int x1_rows, float* __restrict__ yr,
-    float* __restrict__ yi, const float2* __restrict__ tw, int log2M,
-    long long w_len, float* smem) {
-    constexpr int A = 1 << LOG2A;
-    constexpr int LOG2C = strip_log2(LOG2A);
+    float* __restrict__ yi, const CUtensorMap* out_r,
+    const CUtensorMap* out_i, const float2* __restrict__ tw, int log2M,
+    long long w_len, int strips, float* smem) {
+    using L = WireLayout<In, PAIR, LOG2A>;
+    using Pl = Plan<LOG2A>;
+    constexpr int LOG2C = L::LOG2C;
     constexpr int TOP = LOG2A - LOG2_PTS;
-    constexpr int PLANE = (A + A / 16) << LOG2C;
-    const int log2n = LOG2A + log2M;
-    const int log2strips = log2M - LOG2C;
-    const long long p = blockIdx.x >> log2strips;
-    const int col = threadIdx.x & ((1 << LOG2C) - 1);
-    const int c = ((blockIdx.x & ((1 << log2strips) - 1)) << LOG2C) + col;
-    const int u = threadIdx.x >> LOG2C;
-    float* sr = smem;
-    float* si = smem + PLANE;
-    float* lut = smem + 2 * PLANE;  // the mu-law codes, decoded
-    float2* ct = reinterpret_cast<float2*>(lut + 256);  // cross twiddles
-    const MajorTile<LOG2C> tile{col};
+    float* xt = smem;  // the exchange tile
+    float* stage = smem + L::TILE;  // TMA: the real output plane
+    unsigned char* raw =
+        reinterpret_cast<unsigned char*>(stage + L::STAGE);
+    float* lut = reinterpret_cast<float*>(raw + L::RAW);
+    float2* ct = reinterpret_cast<float2*>(lut + L::LUT);
+    float2* bases = ct + ((PTS + 1) << LOG2C);
     float vr[PTS], vi[PTS];
 
     if (sizeof(In) == 1)
-        for (int v = threadIdx.x; v < 256; v += blockDim.x)
-            lut[v] = dequant((uint8_t)v);
-    build_cross<LOG2A, LOG2C>(ct, c - col, log2n, -1.0f);
-    __syncthreads();
-    auto decode = [lut](In v) {
-        return sizeof(In) == 1 ? lut[(uint8_t)v] : dequant(v);
-    };
-    // rows a = u + r * A/16, read below w_len: a < a_end
-    const long long first = ((long long)u << log2M) + c;
-    const In* xp = x + p * in_stride + first;
-    const bool x1_real = PAIR && p < x1_rows;
-    const In* x1p = x1_real ? x1 + p * x1_stride + first : nullptr;
-    const float x1_silence = PAIR ? decode(wire_silence<In>()) : 0.0f;
-    const long long ends = (w_len - c + (1LL << log2M) - 1) >> log2M;
-    const int a_end = (int)(ends < 0 ? 0 : ends < A ? ends : A);
-    const int step = 1 << (TOP + log2M);  // A/16 rows, n/16 elements
+        for (int k = threadIdx.x; k < L::LUT; k += blockDim.x)
+            lut[k] = dequant((uint8_t)(k / L::LUT_COPIES));
+    fetch_wire<In, PAIR, LOG2A>(raw, x, in_stride, x1, x1_stride, x1_rows,
+                                blockIdx.x, log2M, w_len);
+    for (int s = blockIdx.x; s < strips; s += grid_blocks()) {
+        // the thread's place, the strip's plane and column, and what
+        // derives from log2M: computed anew in each strip, where they are
+        // needed (opaque), not held across the stages
+        const int lm = opaque(log2M);
+        const int log2n = LOG2A + lm, log2strips = lm - LOG2C;
+        const int col = opaque(threadIdx.x) & ((1 << LOG2C) - 1);
+        const int u = opaque(threadIdx.x) >> LOG2C;
+        const long long p = s >> log2strips;
+        const int c0 = (s & ((1 << log2strips) - 1)) << LOG2C;
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();  // the strip is in raw; the last one's reads are done
+        build_cross<LOG2A, LOG2C>(ct, c0, log2n, -1.0f);
+        bases[threadIdx.x] = cross_base<LOG2A>(u, c0 + col, log2n, -1.0f);
+        {
+            const float* lane_lut = lut + (threadIdx.x & (L::LUT_COPIES - 1));
+            auto decode = [lane_lut](In v) {
+                return sizeof(In) == 1
+                           ? lane_lut[(uint8_t)v * L::LUT_COPIES]
+                           : dequant(v);
+            };
+            // rows a = u + r * A/16 of column c, read below w_len: a < a_end
+            const int c = c0 + col;
+            const long long ends = (w_len - c + (1LL << lm) - 1) >> lm;
+            const int a_end = (int)(ends < 0 ? 0 : ends < L::A ? ends : L::A);
+            const int at = u * L::STRIDE + col * (int)sizeof(In);
+            const unsigned char* r0 =
+                raw + at +
+                wire_copy<In, L::PIECE>(x + p * in_stride + c0).lead;
+            const unsigned char* r1 =
+                raw + L::A * L::STRIDE + at +
+                (PAIR && p < x1_rows
+                     ? wire_copy<In, L::PIECE>(x1 + p * x1_stride + c0).lead
+                     : 0);
+            constexpr int STEP = (L::A / PTS) * L::STRIDE;  // A/16 rows
 #pragma unroll
-    for (int r = 0; r < PTS; ++r) {
-        const bool in = u + (r << TOP) < a_end;
-        vr[r] = in ? decode(load_wire(xp + r * step)) : 0.0f;
-        if (PAIR)
-            vi[r] = in ? (x1_real ? decode(load_wire(x1p + r * step))
-                                  : x1_silence)
-                       : 0.0f;
+            for (int r = 0; r < PTS; ++r) {
+                const bool in = u + (r << TOP) < a_end;
+                vr[r] = in ? decode(*reinterpret_cast<const In*>(
+                                 r0 + r * STEP))
+                           : 0.0f;
+                vi[r] = PAIR && in ? decode(*reinterpret_cast<const In*>(
+                                         r1 + r * STEP))
+                                   : 0.0f;
+            }
+        }
+        __syncthreads();  // raw is free, the cross twiddles are built
+        const int next = opaque(s) + grid_blocks();  // not kept: opaque
+        if (next < strips)
+            fetch_wire<In, PAIR, LOG2A>(raw, x, in_stride, x1, x1_stride,
+                                        x1_rows, next, lm, w_len);
+        const MajorTile<LOG2C> tile{opaque(threadIdx.x) & ((1 << LOG2C) - 1)};
+        const int u2 = opaque(threadIdx.x) >> LOG2C;
+        if constexpr (L::TMA) {
+            // the first group needs no tile: the TMA may read the last
+            // strip's imaginary plane from it until then
+            run_group<true, Pl::w(0), Pl::qlo(0), Pl::k(0)>(vr, vi, u2, tw);
+            if (opaque(threadIdx.x) < L::A / L::BOX) tma_reads_done<1>();
+            transform<true, false, LOG2A, 1>(vr, vi, xt, xt, tile, u2, tw);
+        } else {
+            transform<true, false, LOG2A>(vr, vi, xt, xt, tile, u2, tw);
+        }
+        // physical row a holds frequency brev(a): twiddle W_n^{brev(a)*c};
+        // the strip's place again (opaque), not held across the stages
+        const int tid = opaque(threadIdx.x);
+        const unsigned s2 = (unsigned)opaque(s);
+        const int lm2 = opaque(log2M), strips2 = lm2 - LOG2C;
+        const int col2 = tid & ((1 << LOG2C) - 1);
+        apply_cross(vr, vi, bases[tid], ct + col2 * (PTS + 1));
+        if constexpr (L::TMA)
+            stage_and_store<LOG2A, LOG2C>(
+                vr, vi, stage, xt, col2, tid >> LOG2C, out_r, out_i,
+                (int)((s2 & ((1u << strips2) - 1)) << LOG2C),
+                (int)(s2 >> strips2));
         else
-            vi[r] = 0.0f;
+            store_forward(vr, vi, yr, yi,
+                          ((long long)(s2 >> strips2) << (LOG2A + lm2)) +
+                              ((long long)(tid >> LOG2C) << (lm2 + 4)) +
+                              ((s2 & ((1u << strips2) - 1)) << LOG2C) + col2,
+                          lm2);
     }
-    transform<true, true, LOG2A>(vr, vi, sr, si, tile, u, tw);
-    // physical row a holds frequency brev(a): twiddle W_n^{brev(a)*c}; the
-    // block's place again (opaque), not held across the stages
-    const int bid = opaque(blockIdx.x), tid = opaque(threadIdx.x);
-    const int c2 = ((bid & ((1 << log2strips) - 1)) << LOG2C) +
-                   (tid & ((1 << LOG2C) - 1));
-    const int u2 = tid >> LOG2C;
-    apply_cross(vr, vi, cross_base<LOG2A>(u2, c2, log2n, -1.0f),
-                ct + (tid & ((1 << LOG2C) - 1)) * (PTS + 1));
-    store_forward(vr, vi, yr, yi,
-                  ((long long)(bid >> log2strips) << log2n) +
-                      ((long long)u2 << (log2M + 4)) + c2,
-                  log2M);
+    if constexpr (L::TMA) tma_writes_done();  // before the block's exit
 }
 
 // Thread (col, u) = (tid mod C, tid / C) holds 16 points of column c =
-// c0 + col of a strip of C columns. PLANES: x, x1 are the two [P, A, M]
-// f32 planes (walk_strips, at most one block per SM, so all of the SM's
-// registers; the inverse, PLANES only, writes [P, a_crop, M]). Otherwise
-// the wire passes (wire_strip), 64 registers a thread.
+// c0 + col of a strip of C columns; a persistent block walks the strips.
+// PLANES: x, x1 are the two [P, A, M] f32 planes (walk_strips, one block
+// per SM, so all of the SM's registers; the inverse, PLANES only, writes
+// [P, a_crop, M]). Otherwise the wire passes (walk_wire_strips), 64
+// registers a thread, as many blocks per SM as fit.
 template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A>
 __global__ void __launch_bounds__(threads_of(LOG2A),
                                   PLANES ? 1 : 1024 / threads_of(LOG2A))
@@ -341,23 +606,70 @@ major_pass(const In* __restrict__ x, long long in_stride,
            const In* __restrict__ x1, long long x1_stride, int x1_rows,
            float* __restrict__ yr, float* __restrict__ yi,
            const float2* __restrict__ tw, int log2M, long long w_len,
-           int a_crop, int strips) {
-    extern __shared__ float smem[];
+           int a_crop, int strips, const __grid_constant__ CUtensorMap out_r,
+           const __grid_constant__ CUtensorMap out_i) {
+    extern __shared__ __align__(128) float smem[];
     if constexpr (PLANES)
         walk_strips<INVERSE, LOG2A>(reinterpret_cast<const float*>(x),
                                     reinterpret_cast<const float*>(x1), yr,
                                     yi, tw, log2M, a_crop, strips, smem);
     else
-        wire_strip<In, PAIR, LOG2A>(x, in_stride, x1, x1_stride, x1_rows, yr,
-                                    yi, tw, log2M, w_len, smem);
+        walk_wire_strips<In, PAIR, LOG2A>(x, in_stride, x1, x1_stride,
+                                          x1_rows, yr, yi, &out_r, &out_i, tw,
+                                          log2M, w_len, strips, smem);
 }
 
-// Shared memory: the wire passes 2 * (A + A/16) * C floats of tile, 256 of
-// the mu-law decode table and C * 17 float2 of cross twiddles; the planes'
-// passes 3 * (A + A/16) * C floats (raw and the one-plane tile), the cross
-// twiddles and a float2 a thread, at most one block per SM walking the
-// strips. The strips
-// must number at least one and below 2^31.
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so that the library links against nothing more than libcudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+        if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(f);
+    }
+    return fn;
+}
+
+// The tensor map of one [P, A, M] f32 output plane for the wire passes'
+// TMA stores: boxes of C columns by `box` rows of one plane. The plane must
+// be 16-byte aligned (the wrappers check).
+bool output_map(CUtensorMap* map, float* plane, int P, int log2A, int log2M,
+                int C, int box) {
+    const EncodeTiled encode = encode_tiled();
+    if (!encode) return false;
+    const cuuint64_t dims[3] = {1ull << log2M, 1ull << log2A,
+                                (cuuint64_t)P};
+    const cuuint64_t strides[2] = {4ull << log2M, 4ull << (log2A + log2M)};
+    const cuuint32_t boxes[3] = {(cuuint32_t)C, (cuuint32_t)box, 1};
+    const cuuint32_t steps[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, plane, dims,
+                  strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Shared memory: the planes' passes 3 * (A + A/16) * C floats (raw and the
+// one-plane tile), the cross twiddles and a float2 a thread; the wire
+// passes WireLayout, with the tensor maps of their output planes where
+// they store by TMA. The grid is the card's SMs times the blocks an SM
+// holds, or the strips where there are fewer. The strips must number at
+// least one and below 2^31.
 template <typename In, bool INVERSE, bool PAIR, bool PLANES>
 int launch_major(const In* x, long long in_stride, const In* x1,
                  long long x1_stride, int x1_rows, float* yr, float* yi,
@@ -368,29 +680,38 @@ int launch_major(const In* x, long long in_stride, const In* x1,
     return with_factor(log2A, [&](auto L) {
         constexpr int LOG2A = decltype(L)::value;
         constexpr int LOG2C = strip_log2(LOG2A);
+        using Wire = WireLayout<In, PAIR, LOG2A>;
         const long long strips = (long long)P << (log2M - LOG2C);
         if (strips > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+        CUtensorMap out_r{}, out_i{};
+        constexpr int C = 1 << LOG2C, BOX = Wire::BOX;
+        if (!PLANES && Wire::TMA &&
+            !(output_map(&out_r, yr, P, LOG2A, log2M, C, BOX) &&
+              output_map(&out_i, yi, P, LOG2A, log2M, C, BOX)))
+            return (int)cudaErrorInvalidValue;
         auto kern = major_pass<In, INVERSE, PAIR, PLANES, LOG2A>;
         const size_t tile = ((1 << LOG2A) + (1 << LOG2A) / 16) << LOG2C;
         const size_t threads = threads_of(LOG2A);
-        const size_t own = PLANES ? 3 * tile + 2 * threads : 2 * tile + 256;
-        const size_t smem = (own + (2 * (PTS + 1) << LOG2C)) * sizeof(float);
+        const size_t smem =
+            PLANES ? (3 * tile + 2 * threads + (2 * (PTS + 1) << LOG2C)) *
+                         sizeof(float)
+                   : (size_t)Wire::SMEM;
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        int dev = 0, sms = 0, per_sm = 1;
+        if (err == cudaSuccess) err = cudaGetDevice(&dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev);
+        if (err == cudaSuccess && !PLANES)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kern, (int)threads, smem);
         if (err != cudaSuccess) return (int)err;
-        long long blocks = strips;
-        if (PLANES) {
-            int dev = 0, sms = 0;
-            err = cudaGetDevice(&dev);
-            if (err == cudaSuccess)
-                err = cudaDeviceGetAttribute(
-                    &sms, cudaDevAttrMultiProcessorCount, dev);
-            if (err != cudaSuccess) return (int)err;
-            blocks = strips < sms ? strips : sms;
-        }
+        const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+        const long long blocks = strips < fit ? strips : fit;
         kern<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(
             x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, log2M, w_len,
-            a_crop, (int)strips);
+            a_crop, (int)strips, out_r, out_i);
         return (int)cudaGetLastError();
     });
 }

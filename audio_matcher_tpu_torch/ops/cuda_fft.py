@@ -285,6 +285,7 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
     _wire_rows(xw, eff, "xw")
     _check_blocks(P, log2A, log2M)
     yr, yi = _planes(out, (P, A, M), xw)
+    _aligned16(yr, yi)  # the TMA stores' tensor maps
     with torch.cuda.device(xw.device):
         rc = _build.load().am_major_fwd_wire(
             _WIRE_CODES[xw.dtype], xw.data_ptr(), xw.stride(0),
@@ -338,6 +339,7 @@ def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
         )
     _check_blocks(P, log2A, log2M)
     yr, yi = _planes(out, (P, A, M), x0)
+    _aligned16(yr, yi)  # the TMA stores' tensor maps
     with torch.cuda.device(x0.device):
         rc = _build.load().am_major_fwd_wire2(
             _WIRE_CODES[x0.dtype], x0.data_ptr(), x0.stride(0),

@@ -15,9 +15,14 @@ go to the lowest column (argmax-first); a tile without a candidate reports
 
 The wrappers run the plain versions below for CPU tensors and the CUDA
 kernel (``csrc/block_reduce.cu``) for CUDA tensors; they never fall back.
+The kernel's geometry is kept here, where the CPU tests reach it: which
+warp takes which run of tiles (:func:`reduce_grid`) and which columns of a
+tile are valid and may be candidates (:func:`tile_columns`).
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -26,7 +31,12 @@ from .cuda_fft import on_cuda
 
 GROUP = 128  # tiles per segment
 BLOCKS = (128, 256, 512)  # tile widths the CUDA kernel is built for
-MAX_ROWS = 65535  # the kernel launches one grid row per logical row
+MAX_ROWS = 65535  # logical rows per launch
+MAX_V = (1 << 31) - 1  # the kernel's columns and positions are int32
+WARPS = 8  # warps of a CUDA block (csrc/block_reduce.cu)
+SM_WARPS = 64  # warps an H100 SM holds at once
+MAX_RUN = 16  # tiles one warp walks
+WAVES = 8  # full waves of warps the runs leave at least
 _NEG = float("-inf")
 _POS = float("inf")
 _ROWS_PER_STEP = 64  # bounds the plain versions' temporaries
@@ -99,6 +109,56 @@ def local_max_block_reduce_plain(x, valid_len, block: int = 512):
     )
 
 
+def reduce_grid(rows: int, nb: int, sms: int) -> tuple[int, int, int]:
+    """The kernel's launch: (run, runs, blocks). Warp w takes run
+    ``w % runs`` of row ``w // runs``, tiles [r·run, min(r·run + run, nb)).
+    The longest run of at most MAX_RUN tiles (a power of two) that still
+    gives WAVES full waves of warps on ``sms`` SMs, else 1: a short last
+    wave of long-lived blocks leaves the card part-empty for a block's
+    life (``probe_reduce_runs.py``)."""
+    run = MAX_RUN
+    while run > 1 and rows * -(-nb // run) < WAVES * sms * SM_WARPS:
+        run //= 2
+    runs = -(-nb // run)
+    return run, runs, -(-rows * runs // WARPS)
+
+
+def warp_tiles(w: int, rows: int, nb: int, run: int, runs: int):
+    """(row, first tile, end tile) of warp ``w``, or None past the last
+    run: the kernel's assignment."""
+    if w >= rows * runs:
+        return None
+    row, r = divmod(w, runs)
+    return row, r * run, min(r * run + run, nb)
+
+
+def tile_columns(tile: int, block: int, valid_len: int):
+    """The kernel's per-tile rule: (valid, candidate) bool [block] of the
+    columns of ``tile``. Column j is valid below ``valid_len``, and may be
+    a candidate below ``valid_len - 1`` unless it is a segment seam: column
+    0 of a tile with tile % GROUP == 0, the last column of a tile with
+    tile % GROUP == GROUP - 1."""
+    j = torch.arange(block)
+    rv = valid_len - tile * block
+    valid = j < rv
+    cand = j < rv - 1
+    if tile % GROUP == 0:
+        cand[0] = False
+    if tile % GROUP == GROUP - 1:
+        cand[-1] = False
+    return valid, cand
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_run(dev, rows: int, V: int, block: int) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return reduce_grid(rows, V // block, _sm_count(index))[0]
+
+
 def _launchable(planes, rows: int, block: int) -> None:
     """Refuse what the CUDA reduction cannot read."""
     if block not in BLOCKS:
@@ -107,6 +167,8 @@ def _launchable(planes, rows: int, block: int) -> None:
         raise ValueError(
             f"at most {MAX_ROWS} logical rows per launch, got {rows}"
         )
+    if planes[0].shape[1] > MAX_V:
+        raise ValueError(f"at most {MAX_V} columns, got {planes[0].shape[1]}")
     for t in planes:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("rows must be contiguous float32")
@@ -147,6 +209,7 @@ def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
             yr.data_ptr(), yi.data_ptr(), scale.data_ptr(),
             valid_len.data_ptr(), bv.data_ptr(), bp.data_ptr(),
             bmin.data_ptr(), bmax.data_ptr(), 2 * P, V, block, GROUP,
+            _launch_run(dev, 2 * P, V, block),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "am_block_reduce_packed")
@@ -177,6 +240,7 @@ def local_max_block_reduce(x, valid_len, block: int = 512):
         rc = _build.load().am_block_reduce(
             x.data_ptr(), valid_len.data_ptr(), bv.data_ptr(), bp.data_ptr(),
             bmin.data_ptr(), bmax.data_ptr(), B, V, block, GROUP,
+            _launch_run(dev, B, V, block),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "am_block_reduce")

@@ -16,7 +16,11 @@ grouping the kernels' compile-time ``Plan`` makes); the strip width and
 thread count of the major pass; the shared-memory bytes of each pass; the
 shared-memory address of a point in each pass's exchange tile (the same
 functions as the kernels' ``MinorTile`` and ``MajorTile``), with which a
-test counts bank conflicts; and the plain per-stage twiddle table.
+test counts bank conflicts; the wire passes' copy of a strip's rows into
+shared memory (``wire_copy``, ``wire_layout``), their output's staging
+for the TMA stores (``stage_word``, ``wire_box``) and the strips each
+persistent block walks (``block_strips``); and the plain per-stage
+twiddle table.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ MAJOR_TILE_LOG2 = 14  # points of a major-pass strip: C·A = 2^14 ...
 MAJOR_MIN_LOG2C = 2  # ... and at least 4 columns (16 bytes of a row)
 MAX_SMEM = 232448  # bytes a Hopper block may use (227 KB)
 BANKS = 32
+LUT_COPIES = 16  # copies of the wire passes' mu-law table
 
 
 def stage_groups(log2L: int) -> list[tuple[int, int, int]]:
@@ -78,17 +83,102 @@ def major_threads(log2A: int) -> int:
     return 1 << (major_strip_log2(log2A) + log2A - LOG2_PTS)
 
 
-def major_smem_bytes(log2A: int, planes: bool = False) -> int:
-    """The wire passes: two f32 planes of the [A + A/16, C] exchange tile,
-    the 256 decoded μ-law codes and 17 cross twiddles (float2) per column.
-    The f32 planes' passes (``planes``): three planes of that tile (the
-    next strip's two, copied in while the block works, and one to
-    exchange through), the cross twiddles and one float2 a thread."""
+def major_smem_bytes(log2A: int, planes: bool = False, elem_size: int = 4,
+                     pair: bool = True) -> int:
+    """The f32 planes' passes (``planes``): three planes of the
+    [A + A/16, C] exchange tile (the next strip's two, copied in while the
+    block works, and one to exchange through), 17 cross twiddles (float2)
+    per column and one float2 a thread. The wire passes: ``wire_layout``'s
+    bytes for wire elements of ``elem_size`` bytes (the default, f32 pairs,
+    is the largest)."""
+    if not planes:
+        return wire_layout(log2A, elem_size, pair)["smem"]
     A = 1 << log2A
     C = 1 << major_strip_log2(log2A)
     tile = (A + A // 16) * C
-    own = 3 * tile + 2 * major_threads(log2A) if planes else 2 * tile + 256
-    return 4 * (own + 34 * C)
+    return 4 * (3 * tile + 2 * major_threads(log2A) + 34 * C)
+
+
+def wire_stride(elem_size: int, log2C: int) -> int:
+    """Bytes of shared memory a row piece of a strip takes in the wire
+    passes: f32 pieces exactly; u8 and int16 pieces up to 4 bytes more (the
+    lead of a 4-byte word copy), rounded up to their widest copy (16 bytes,
+    or the piece where it is shorter)."""
+    piece = elem_size << log2C
+    if elem_size == 4:
+        return piece
+    wide = min(16, piece)
+    return -(-(piece + 4) // wide) * wide
+
+
+def wire_copy(elem_size: int, log2C: int, start: int) -> tuple[int, int, int]:
+    """How the wire passes copy one row piece of a strip (C elements of
+    ``elem_size`` bytes from byte address ``start``) into shared memory, as
+    (grain, lead, chunks): ``chunks`` cp.async copies of ``grain`` bytes
+    from ``start - lead``. f32 rows are copied exactly in the largest of
+    16, 8 or 4 bytes that divides the start. u8 and int16 rows likewise in
+    16 or 8 bytes where the start and the piece allow it (one copy a row at
+    config #3's 8-byte pieces); else in the 4-byte words that their bytes
+    touch, from the word that holds the first byte (``lead`` = start mod
+    4)."""
+    piece = elem_size << log2C
+    if elem_size == 4:
+        g = 16 if start % 16 == 0 else 8 if start % 8 == 0 else 4
+        return g, 0, piece // g
+    for g in (16, 8):
+        if g <= piece and start % g == 0:
+            return g, 0, piece // g
+    lead = start % 4
+    return 4, lead, -(-(lead + piece) // 4)
+
+
+def wire_layout(log2A: int, elem_size: int, pair: bool) -> dict[str, int]:
+    """The wire passes' shared memory (``WireLayout`` in fft_major.cu), in
+    bytes: the exchange tile, one plane; ``tma``: a dense [A, C] plane
+    beside it that stages the real output plane for the TMA stores, where a
+    strip's output row piece is shorter than a 32-byte sector (A = 4096)
+    and it fits; the strip's wire rows (``stride`` bytes each, A rows a
+    plane, one plane or two for ``pair``); for mu-law the 256 decoded codes
+    LUT_COPIES times; the cross twiddles and a float2 a thread."""
+    A = 1 << log2A
+    log2C = major_strip_log2(log2A)
+    tile = 4 * (A + A // 16 << log2C)
+    stride = wire_stride(elem_size, log2C)
+    raw = (2 if pair else 1) * A * stride
+    lut = 4 * 256 * LUT_COPIES if elem_size == 1 else 0
+    rest = raw + lut + 8 * (PTS + 1 << log2C) + 8 * major_threads(log2A)
+    tma = 4 << log2C < 32 and tile + 4 * (A << log2C) + rest <= MAX_SMEM
+    stage = 4 * (A << log2C) if tma else 0
+    return {"tile": tile, "stage": stage, "piece": elem_size << log2C,
+            "stride": stride, "raw": raw, "tma": int(tma),
+            "smem": tile + stage + rest}
+
+
+def wire_box(log2A: int) -> int:
+    """Rows of a TMA store's box: a strip's C columns by this many rows
+    (at most 256, the TMA's limit), A / box boxes a plane of a strip."""
+    return min(1 << log2A, 256)
+
+
+def stage_word(log2A: int, tid: int, r: int) -> int:
+    """The word of the [A, C] staging arrays (the real plane's beside the
+    exchange tile, the imaginary plane's in it) that thread ``tid`` writes
+    at step ``r`` of the wire passes' TMA output: row (u << 4 | r) ^ k,
+    column col,
+    with k = u mod 32/C, so that the rows of a warp's writes differ modulo
+    32/C (``stage_and_store``)."""
+    log2C = major_strip_log2(log2A)
+    col, u = tid & ((1 << log2C) - 1), tid >> log2C
+    k = u & ((32 >> log2C) - 1)
+    return ((u << LOG2_PTS | r) ^ k) << log2C | col
+
+
+def block_strips(P: int, log2A: int, log2M: int, blocks: int) -> list[range]:
+    """The strips each block of a major pass walks: block b takes strips
+    b, b + blocks, ... of the P·M/C, where strip s is columns
+    (s mod M/C)·C of plane s // (M/C)."""
+    strips = P << (log2M - major_strip_log2(log2A))
+    return [range(b, strips, blocks) for b in range(min(blocks, strips))]
 
 
 def minor_smem_bytes(product: bool = False) -> int:

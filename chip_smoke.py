@@ -9,7 +9,7 @@ calls, and holds every kernel against its plain PyTorch version:
 1. Builds the hand-written kernels (``audio_matcher_tpu_torch/csrc``) with
    nvcc for sm_90a, one nvcc per source, all started together, and prints
    ptxas's registers, stack and spill bytes for every instantiation; a
-   spill in an FFT pass fails the run.
+   spill in an FFT pass or in the block reduction fails the run.
 2. The batch scan (BASELINE config #3). Runs each of the five kernel entry
    points of the multi-query path, and its plain PyTorch version, on the
    card at the config #3 slab shapes (8 windows of a 1800 s 44.1 kHz
@@ -67,7 +67,11 @@ move (each input read once, each output written once) over the H100's
 3.35 TB/s and its FP32 operations (10 per radix-2 butterfly, 6 per
 complex product) over 67 TFLOP/s, at the shapes it was timed at, and the
 FFT passes beside their times when every radix-2 stage was one round trip
-through shared memory (RADIX2_CHAIN_MS). Every path's launch counts are set to 0 just before the run that is read and
+through shared memory (RADIX2_CHAIN_MS); the four rows redesigned after
+that (the wire passes and both block reductions) also beside their times
+before that redesign (BEFORE_REDESIGN_MS), and the two reductions beside
+one ``torch.amax`` over the same planes, a plain streaming read's time on
+this card (not the same function, so not a library time). Every path's launch counts are set to 0 just before the run that is read and
 read just after it. The run uses one card: only the first visible
 device is made visible. Any failure raises and exits non-zero. The
 second-to-last line is a JSON object of the kernels; the last line is
@@ -139,6 +143,13 @@ RADIX2_CHAIN_MS = {
     "ifft_minor_product": 22.346, "fft_major": 22.519,
     "fft_major_fwd_wire2": 0.440, "fft_major_forward": 0.842,
     "ifft_minor": 0.799,
+}
+# The times of the wire passes and the block reductions before their
+# redesign: this script at commit 28b7f84 on an NVIDIA H100 80GB HBM3 at
+# 700 W, at the shapes timed here.
+BEFORE_REDESIGN_MS = {
+    "fft_major_fwd_wire": 0.261, "local_max_block_reduce_packed": 3.467,
+    "fft_major_fwd_wire2": 0.196, "local_max_block_reduce": 0.475,
 }
 FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 
@@ -215,13 +226,19 @@ def check_plants(peaks, offsets, distance_secs):
                 f"episode {e}: plants at {want}, found {got}")
 
 
-def cuda_ms(fn, reps=5):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def cuda_ms(fn, reps=7):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up,
+    with the card idle before it. Each timed call is queued behind an
+    untimed one, so that the host's part of a wrapper (checks, allocation,
+    launch) overlaps the card's work and the events read the card's time of
+    one call."""
+    torch.cuda.synchronize()
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        fn()
         start.record()
         fn()
         end.record()
@@ -261,7 +278,8 @@ def bound(n_bytes, flops):
 
 def ptxas_report(log):
     """One line per kernel of nvcc's ``-Xptxas -v`` output: registers,
-    stack and spill bytes. Fails if an FFT pass spills."""
+    stack and spill bytes. Fails if an FFT pass or the block reduction
+    spills."""
     fn, seen = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -284,10 +302,10 @@ def ptxas_report(log):
               f"{info.get('registers')} registers, {info.get('stack')} B "
               f"stack, {info.get('spill')} B spilled")
     spills = [fn for fn, info in seen.items()
-              if ("major_pass" in fn or "minor_pass" in fn)
+              if re.search(r"major_pass|minor_pass|block_reduce", fn)
               and info.get("spill", 0)]
     if spills:
-        raise AssertionError(f"FFT passes spill registers: {spills}")
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def timed(name, kernel, plain, row=None, work=None, library=None):
@@ -304,11 +322,26 @@ def timed(name, kernel, plain, row=None, work=None, library=None):
     extra = f", bound {b_ms:.3f} ms ({b_by})" if work is not None else ""
     if library is not None:
         extra += f", torch.fft {lib_ms:.3f} ms"
-    before = RADIX2_CHAIN_MS.get(row["name"]) if row is not None else None
+    name_of = row["name"] if row is not None else None
+    before = RADIX2_CHAIN_MS.get(name_of)
     if before is not None:
         extra += (f"; radix-2 chain {before:.3f} ms, {before / ms:.2f}x "
                   f"faster now")
+    before = BEFORE_REDESIGN_MS.get(name_of)
+    if before is not None:
+        extra += (f"; before redesign (28b7f84) {before:.3f} ms, "
+                  f"{before / ms:.2f}x faster now")
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra}")
+
+
+def read_once(label, planes, block, kernel_ms):
+    """The yardstick of a plain streaming read: one ``torch.amax`` over
+    each of the planes viewed as [rows, nb, block], timed."""
+    views = [p.view(p.shape[0], -1, block) for p in planes]
+    ms = cuda_ms(lambda: [v.amax(-1) for v in views])
+    gb = sum(p.numel() for p in planes) * 4 / 1e9
+    print(f"{label}: torch.amax over the same planes (read once) {ms:.3f} ms "
+          f"({gb / ms:.1f} TB/s), the kernel {kernel_ms / ms:.2f}x of it")
 
 
 def check_kernels(scanner, episode_wire, rows):
@@ -402,12 +435,13 @@ def check_reduce_packed(zr, zi, scale, valid, rows=None, label=""):
     nb = got[0].shape[1]
     if rows is not None:
         rows[name]["max_abs_err"] = 0.0
+    row = rows[name] if rows is not None else {"name": None}
     timed(name + label,
           lambda: K.local_max_block_reduce_packed(zr, zi, scale, valid, 512),
           lambda: K.local_max_block_reduce_packed_plain(
               zr, zi, scale, valid, 512),
-          rows[name] if rows is not None else None,
-          (8 * P * V + 16 * P + 32 * P * nb, 2 * P * V))
+          row, (8 * P * V + 16 * P + 32 * P * nb, 2 * P * V))
+    read_once(name + label, (zr, zi), 512, row["ms"])
 
 
 def compare_raw(label, got, want):
@@ -758,6 +792,7 @@ def xla_packed_scan(config, device, rows):
           lambda: K.local_max_block_reduce(x, valid, block),
           lambda: K.local_max_block_reduce_plain(x, valid, block), row,
           (4 * x.numel() + 4 * x.shape[0] + 16 * x.shape[0] * nb, 0))
+    read_once("local_max_block_reduce", (x,), block, row["ms"])
     del x, got, want
     torch.cuda.empty_cache()
 

@@ -136,3 +136,93 @@ def test_grouped_transform_matches_the_plain_passes(b, forward):
     yr, yi = plain(xr, xi, 1 << b)
     want = yr.numpy() + 1j * yi.numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("b", LOG2S)
+@pytest.mark.parametrize("P_", [1, 3, 8, 512])
+def test_every_strip_goes_to_exactly_one_block(P_, b):
+    """The persistent major passes: block k walks strips k, k + blocks, ...
+    for the card's SMs times the blocks an SM holds (1-4)."""
+    for log2M in {b, min(b + 1, P.MAX_LOG2)}:
+        strips = P_ << (log2M - P.major_strip_log2(b))
+        for blocks in (132, 264, 528, strips):
+            walks = P.block_strips(P_, b, log2M, blocks)
+            got = sorted(s for walk in walks for s in walk)
+            assert got == list(range(strips))
+            assert len(walks) == min(blocks, strips)
+
+
+WIRE_STARTS = [(size, start) for size in (1, 2, 4)
+               for start in range(0, 16, size)]
+
+
+@pytest.mark.parametrize("size,start", WIRE_STARTS)
+def test_wire_copy_covers_the_row_bytes_exactly(size, start):
+    """Every start alignment a wire row of each dtype can have: the copies
+    are aligned at both ends, read the row piece's bytes (f32, and u8 and
+    int16 rows that start on 8 bytes, in one copy a row where the piece
+    allows it) or exactly the 4-byte words they touch (u8, int16), and fit
+    the row's slot."""
+    for log2C in range(P.MAJOR_MIN_LOG2C, 6):
+        piece = size << log2C
+        g, lead, chunks = P.wire_copy(size, log2C, start)
+        assert g in (4, 8, 16) and (start - lead) % g == 0
+        read = {start - lead + i for i in range(chunks * g)}
+        stride = P.wire_stride(size, log2C)
+        if size == 4 or start % 8 == 0:
+            assert read == set(range(start, start + piece))
+            assert lead == 0
+            assert size == 4 or g >= min(8, piece)
+        else:
+            lo, hi = start // 4 * 4, -(-(start + piece) // 4) * 4
+            assert read == set(range(lo, hi))
+        assert chunks * g <= stride and stride % g == 0
+        # the element a thread reads lies in its row's copied bytes
+        assert lead + piece <= chunks * g
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("b", LOG2S)
+def test_wire_passes_fit_and_read_without_bank_conflicts(b, pair):
+    log2C = P.major_strip_log2(b)
+    C = 1 << log2C
+    for size in (1, 2, 4):
+        lay = P.wire_layout(b, size, pair)
+        assert lay["smem"] <= P.MAX_SMEM
+        assert P.major_smem_bytes(b, elem_size=size, pair=pair) == lay["smem"]
+        if size == 1:  # mulaw8: by TMA where rows are half sectors
+            assert lay["tma"] == (P.major_strip_log2(b) == 2)
+        for lead in range(0, 4, size) if size < 4 else (0,):
+            for warp in range(0, P.major_threads(b), 32):
+                for r in range(P.PTS):
+                    banks: dict[int, set[int]] = {}
+                    for tid in range(warp, warp + 32):
+                        col, u = tid % C, tid >> log2C
+                        a = u + r * ((1 << b) // P.PTS)
+                        word = (a * lay["stride"] + lead + col * size) // 4
+                        banks.setdefault(word % P.BANKS, set()).add(word)
+                    assert max(len(w) for w in banks.values()) == 1
+
+
+@pytest.mark.parametrize("b", LOG2S)
+def test_wire_output_staging_fills_the_boxes_without_bank_conflicts(b):
+    """The TMA output of a strip: each warp's writes at each step fall in
+    32 banks, the block's writes fill the dense [A, C] plane once, and the
+    A / box boxes of each plane (the imaginary one in the exchange tile,
+    the real one beside it) start on 128 bytes and tile it; one warp
+    starts them."""
+    A, C = 1 << b, 1 << P.major_strip_log2(b)
+    seen = np.zeros(A * C, np.int32)
+    for warp in range(0, P.major_threads(b), 32):
+        for r in range(P.PTS):
+            words = [P.stage_word(b, tid, r) for tid in range(warp, warp + 32)]
+            assert len({w % P.BANKS for w in words}) == 32
+            for w in words:
+                seen[w] += 1
+    assert (seen == 1).all()
+    box = P.wire_box(b)
+    tile = P.wire_layout(b, 1, True)["tile"]  # where TMA: the real stage
+    starts = [base + a0 * C * 4 for base in (0, tile)
+              for a0 in range(0, A, box)]
+    assert len(starts) == 2 * A // box and A // box <= 32
+    assert all(x % 128 == 0 for x in starts) and box <= 256

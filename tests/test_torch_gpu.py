@@ -170,9 +170,13 @@ def test_passes_refuse_misaligned_planes(dev):
     M = 128
     buf = torch.zeros(M * M + 1, device=dev)
     x = buf[1:].view(1, M, M)  # contiguous, 4 bytes off alignment
+    w = torch.zeros((1, M * M), dtype=torch.uint8, device=dev)
     for call in (lambda: F.fft_minor(x, x, M), lambda: F.ifft_minor(x, x, M),
                  lambda: F.fft_major(x, x, M, M * M, M),
-                 lambda: F.fft_major_forward(x, x, M, M * M)):
+                 lambda: F.fft_major_forward(x, x, M, M * M),
+                 lambda: F.fft_major_fwd_wire(w, M, M * M, M * M, (x, x)),
+                 lambda: F.fft_major_fwd_wire2(w, w, M, M * M, M * M,
+                                               (x, x))):
         with pytest.raises(ValueError, match="16-byte"):
             call()
 
@@ -429,3 +433,105 @@ def test_xla_packed_scan_launches_the_dense_reduction(dev):
     assert K.local_max_block_reduce.launches > before
     _assert_paths_agree(got[0], plain.scan_dispatch(staged)[0])
     assert [p.position for p in scanner.scan_collect(got)[0][0]] == [4 * sr]
+
+
+def _reduce_case(dev, g, rows, V, block):
+    """[rows, V] values with plateaus, two equal maxima in one tile (the
+    lower column must win), seam peaks and negative stretches, and
+    valid_len cycling through its edge values."""
+    seg = K.GROUP * block
+    x = torch.randn(rows, V, device=dev, generator=g)
+    x[:, 3 : 3 + min(10, V - 3)] = 6.0  # a plateau: never a peak
+    if V >= block:
+        x[:, 10] = x[:, block - 40] = 9.0  # equal maxima in tile 0
+        x[:, V // 2 : V // 2 + 5] -= 20.0
+    if V > seg:
+        x[:, seg - 1] = 12.0
+        x[:, seg] = 12.5
+    edges = [0, 1, 2, block - 1, block + 1, seg - 1, seg + 1, V, V + 1]
+    vl = torch.tensor([edges[r % len(edges)] for r in range(rows)],
+                      dtype=torch.int32, device=dev)
+    return x, vl
+
+
+def _reduce_both_modes(x, vl, block):
+    """Both reductions against their plain versions, exactly: dense over
+    the rows, packed over the rows as (even, odd) planes with a scale."""
+    got = K.local_max_block_reduce(x, vl, block)
+    want = K.local_max_block_reduce_plain(x, vl, block)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    R = x.shape[0] - x.shape[0] % 2
+    if R:
+        scale = torch.linspace(0.5, 1.5, R, device=x.device)
+        yr, yi = x[0:R:2].contiguous(), x[1:R:2].contiguous()
+        got = K.local_max_block_reduce_packed(yr, yi, scale, vl[:R], block)
+        want = K.local_max_block_reduce_packed_plain(yr, yi, scale, vl[:R],
+                                                     block)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("block", K.BLOCKS)
+@pytest.mark.parametrize("rows,nb", [(1, 1), (3, 1), (1, 300), (7, 3 * 128),
+                                     (512, 999), (512, 130)])
+def test_block_reduce_edge_cases_match_plain(dev, block, rows, nb):
+    """Both modes exactly equal to plain at one-tile rows, odd rows, rows
+    of up to three segments, and a run length that does not divide the
+    tiles of a row (512 x 999)."""
+    g = torch.Generator(device=dev).manual_seed(block * rows + nb)
+    x, vl = _reduce_case(dev, g, rows, nb * block, block)
+    if (rows, nb) == (512, 999):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        run = K.reduce_grid(rows, nb, sms)[0]
+        assert run > 1 and nb % run
+    _reduce_both_modes(x, vl, block)
+
+
+@pytest.mark.parametrize("block", K.BLOCKS)
+def test_block_reduce_near_max_rows(dev, block):
+    g = torch.Generator(device=dev).manual_seed(block + 7)
+    x, vl = _reduce_case(dev, g, K.MAX_ROWS, block, block)
+    _reduce_both_modes(x, vl, block)
+
+
+def _offset_windows(ep, off, rows, W, chunk):
+    """[rows, W] windows of ``ep`` ``chunk`` apart, starting ``off``
+    elements in: row starts at every alignment."""
+    return ep[off:].as_strided((rows, W), (chunk, 1))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
+def test_wire_passes_at_every_row_alignment_match_plain(dev, n, dtype):
+    """Kernels 1 and 6 on 3 windows (odd P) whose starts sit 0-15 bytes off
+    a 16-byte boundary, an odd chunk apart; kernel 6 with 1 and 3 odd
+    windows."""
+    g = torch.Generator(device=dev).manual_seed(n + dtype.itemsize)
+    A, M = F.split_factors(n)
+    P, chunk = 3, int(0.6 * n) + 1
+    size = dtype.itemsize
+    ep = _wire_episode(dev, g, dtype, (P - 1) * chunk + n + 16)
+    for off in range(16 // size):
+        win = _offset_windows(ep, off, P, n, chunk)
+        assert win.data_ptr() % 16 == off * size
+        _close(F.fft_major_fwd_wire(win, A, n, n - 1),
+               F.fft_major_fwd_wire_plain(win, A, n, n - 1))
+        for p1 in (1, P):
+            _close(F.fft_major_fwd_wire2(win, win[:p1], A, n, n - 1),
+                   F.fft_major_fwd_wire2_plain(win, win[:p1], A, n, n - 1))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_wire_passes_at_strip_and_row_edges_match_plain(dev, n):
+    """w_len on a row edge (a * M), on a strip edge (+ C), one short of
+    it, and 5 samples: the points past it read as zero."""
+    g = torch.Generator(device=dev).manual_seed(n + 3)
+    A, M = F.split_factors(n)
+    C = 1 << F.fft_plan.major_strip_log2(A.bit_length() - 1)
+    a = A // 2 + 1
+    ep = _wire_episode(dev, g, torch.uint8, 2 * n + 16)
+    win = _offset_windows(ep, 3, 3, n, n // 2 + 3)
+    for w_len in (a * M, a * M + C, a * M + C - 1, 5):
+        _close(F.fft_major_fwd_wire(win, A, n, w_len),
+               F.fft_major_fwd_wire_plain(win, A, n, w_len))
+        _close(F.fft_major_fwd_wire2(win, win[:2], A, n, w_len),
+               F.fft_major_fwd_wire2_plain(win, win[:2], A, n, w_len))
