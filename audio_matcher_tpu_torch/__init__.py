@@ -10,8 +10,17 @@ falls back to the CPU. They are :func:`match` and
 :class:`~audio_matcher_tpu_torch.models.matcher.SnippetMatcher` (one
 query snippet, BASELINE config #2), and
 :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedScanner` (a batch
-of episodes against one or more snippets, configs #2 and #3).
+of episodes against one or more snippets, configs #2 and #3), and
+:func:`~audio_matcher_tpu_torch.parallel.sweep.sweep_archive` over files on
+disk (config #5 on one device). The CLIs ``cli.matcher_cli``
+(``audio-matcher-torch``) and ``cli.sweep_cli`` (``audio-sweep-torch``)
+drive them from files, with the host modules ``hostio`` (decode, labels,
+prefetch), ``meta`` (the resume store and tags) and ``utils``.
 """
+
+APP_NAME = "audio-matcher"  # config dir name, as the JAX package's
+
+__version__ = "0.1.0"
 
 
 def match(snippet, episode, sr, device="cuda", **config_kwargs):

@@ -144,6 +144,21 @@ def is_fused(fft_impl: str, peaks_impl: str) -> bool:
     return fft_impl == "vpu" and peaks_impl == "pallas"
 
 
+def describe_path(device: torch.device, fft_impl: str, peaks_impl: str,
+                  plain: bool) -> str:
+    """Which path a scan runs, for the log: the device, the correlation
+    and peak paths, and whether the kernels or their plain versions run
+    (CPU tensors always take the plain versions)."""
+    if plain or device.type != "cuda":
+        kernels = "the kernels' plain PyTorch versions"
+    elif fft_impl == "vpu" or peaks_impl == "pallas":
+        kernels = "the hand-written CUDA kernels"
+    else:
+        kernels = "torch ops (no hand-written kernel on this path)"
+    return (f"device {device}, fft_impl {fft_impl}, peaks_impl {peaks_impl}, "
+            f"{kernels}")
+
+
 def correlation_crop(
     valid_max: int, block: int, fft_len: int, fft_impl: str,
     peaks_impl: str,
@@ -227,38 +242,99 @@ def wire_buffer(shape, transfer_dtype: str) -> np.ndarray:
     )
 
 
-def _fill_wire_rows(episodes, n_pad: int, transfer: str, out: np.ndarray):
-    """Pack episodes into the [rows, n_pad] wire-dtype buffer ``out``;
-    rows past the episodes and every tail are wire silence. Rows already
-    in the wire dtype are copied; others quantize here."""
-    dtype = WIRE_DTYPES[transfer]
-    out.fill(wire_silence(transfer))
-    for i, ep in enumerate(episodes):
-        ep = np.asarray(ep)
-        if len(ep) > n_pad:
-            raise ValueError(f"episode {i} is longer than the staged width")
-        out[i, : len(ep)] = ep if ep.dtype == dtype else quantize_wire(
-            ep, transfer
-        )
-    return out
+def _wire_row(ep, i: int, n_pad: int, transfer: str) -> np.ndarray:
+    """Episode ``i`` in the wire dtype: rows already in it are copied,
+    others quantize here."""
+    ep = np.asarray(ep)
+    if len(ep) > n_pad:
+        raise ValueError(f"episode {i} is longer than the staged width")
+    return ep if ep.dtype == WIRE_DTYPES[transfer] else quantize_wire(
+        ep, transfer)
+
+
+def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
+                   pinned: bool = False) -> torch.Tensor:
+    """Pack episodes into a fresh [rows, n_pad] wire-dtype host tensor
+    (page-locked when ``pinned``, so that its upload is one DMA): each row
+    is its episode, then silence to ``n_pad``; rows past the episodes are
+    silence. Only what no episode covers is silenced, row by row, and a
+    pinned tensor comes from PyTorch's caching host allocator, which hands
+    a freed block out again only after the copies that read it completed."""
+    buf = torch.empty((rows, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
+                      pin_memory=pinned)
+    out = buf.numpy()
+    silence = wire_silence(transfer)
+    for i in range(rows):
+        n = 0
+        if i < len(episodes):
+            wire = _wire_row(episodes[i], i, n_pad, transfer)
+            n = len(wire)
+            out[i, :n] = wire
+        out[i, n:] = silence
+    return buf
+
+
+class _SideStreams:
+    by_key: dict = {}
+
+
+def side_stream(device: torch.device, role: str = "upload"):
+    """The side stream of ``device`` that uploads staged groups
+    (``"upload"``) or reads scan results back (``"readback"``)."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    stream = _SideStreams.by_key.get((index, role))
+    if stream is None:
+        stream = _SideStreams.by_key[index, role] = torch.cuda.Stream(index)
+    return stream
+
+
+def read_back(tensors, ready=None) -> list[np.ndarray]:
+    """Device tensors → numpy arrays. With ``ready``, a CUDA event recorded
+    behind the work that wrote them, the copy runs on the readback stream
+    after that event only, so it does not wait for work queued later on
+    the current stream (the next group's scan)."""
+    if ready is None:
+        return [a.cpu().numpy() for a in tensors]
+    stream = side_stream(tensors[0].device, "readback")
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        host = [a.to("cpu", non_blocking=True) for a in tensors]
+    stream.synchronize()
+    return [h.numpy() for h in host]
+
+
+def upload(host: torch.Tensor, device: torch.device):
+    """Copy a staged host tensor to ``device``.
+
+    On a CUDA device the copy runs on :func:`side_stream` from the pinned
+    buffer without blocking the host, so it overlaps the scan already
+    queued on the current stream. The current stream waits for the copy,
+    and the copied tensor is marked as used there (it was allocated on the
+    side stream, and the caching allocator must not hand its memory out
+    while the scan still reads it)."""
+    if device.type != "cuda":
+        return host.to(device)
+    side = side_stream(device)
+    with torch.cuda.stream(side):
+        staged = host.to(device, non_blocking=True)
+    main = torch.cuda.current_stream(device)
+    main.wait_stream(side)
+    staged.record_stream(main)
+    return staged
 
 
 def stage_rows_host(episodes, ns, n_pad: int, transfer: str, e_pad: int,
                     device):
-    """Fill a (pinned, for a CUDA device) host buffer with the wire rows
-    and upload it with one copy; no computation runs on the device.
-    Returns the staged triple (tensor [e_pad, n_pad], ns_pad, n_real)."""
+    """Fill a fresh (pinned, for a CUDA device) host buffer with the wire
+    rows and upload it with one copy (:func:`upload`); no computation runs
+    on the device. Returns the staged triple (tensor [e_pad, n_pad],
+    ns_pad, n_real)."""
     ns_pad = np.zeros(e_pad, np.int32)
     ns_pad[: len(ns)] = ns
-    host = torch.empty(
-        (e_pad, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
-        pin_memory=device.type == "cuda",
-    )
-    _fill_wire_rows(episodes, n_pad, transfer, host.numpy())
-    staged = host if device.type == "cpu" else host.to(
-        device, non_blocking=True
-    )
-    return staged, ns_pad, len(episodes)
+    host = fill_wire_rows(episodes, n_pad, transfer, e_pad,
+                          pinned=device.type == "cuda")
+    return upload(host, device), ns_pad, len(episodes)
 
 
 def pad_wire_on_device(episode: torch.Tensor, target: int) -> torch.Tensor:

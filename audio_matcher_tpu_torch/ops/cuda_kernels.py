@@ -31,7 +31,6 @@ from .cuda_fft import on_cuda
 
 GROUP = 128  # tiles per segment
 BLOCKS = (128, 256, 512)  # tile widths the CUDA kernel is built for
-MAX_ROWS = 65535  # logical rows per launch
 MAX_V = (1 << 31) - 1  # the kernel's columns and positions are int32
 WARPS = 8  # warps of a CUDA block (csrc/block_reduce.cu)
 SM_WARPS = 64  # warps an H100 SM holds at once
@@ -159,14 +158,12 @@ def _launch_run(dev, rows: int, V: int, block: int) -> int:
     return reduce_grid(rows, V // block, _sm_count(index))[0]
 
 
-def _launchable(planes, rows: int, block: int) -> None:
-    """Refuse what the CUDA reduction cannot read."""
+def _launchable(planes, block: int) -> None:
+    """Refuse what the CUDA reduction cannot read. Rows are not capped: the
+    grid is 1-D over warps, and the launch refuses more than 2^31 - 1
+    blocks itself."""
     if block not in BLOCKS:
         raise ValueError(f"the CUDA reduction takes block in {BLOCKS}")
-    if rows > MAX_ROWS:
-        raise ValueError(
-            f"at most {MAX_ROWS} logical rows per launch, got {rows}"
-        )
     if planes[0].shape[1] > MAX_V:
         raise ValueError(f"at most {MAX_V} columns, got {planes[0].shape[1]}")
     for t in planes:
@@ -199,7 +196,7 @@ def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
         return local_max_block_reduce_packed_plain(
             yr, yi, scale, valid_len, block
         )
-    _launchable((yr, yi), 2 * P, block)
+    _launchable((yr, yi), block)
     scale = scale.to(torch.float32).contiguous()
     valid_len = valid_len.to(torch.int32).contiguous()
     dev = yr.device
@@ -232,7 +229,7 @@ def local_max_block_reduce(x, valid_len, block: int = 512):
         raise ValueError(f"valid_len must be [{B}]")
     if not on_cuda(x, valid_len):
         return local_max_block_reduce_plain(x, valid_len, block)
-    _launchable((x,), B, block)
+    _launchable((x,), block)
     valid_len = valid_len.to(torch.int32).contiguous()
     dev = x.device
     bv, bp, bmin, bmax = _block_outputs(B, V // block, dev)

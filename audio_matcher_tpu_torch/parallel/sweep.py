@@ -22,13 +22,18 @@ query count, ``fft_impl`` and ``peaks_impl`` (the JAX package's branches of
     peaks come from pick_peaks_dispatch under ``peaks_impl``.
 
 On the host, :meth:`ShardedScanner.scan_collect` rebases positions and
-dedups across windows with ``overshadow_filter``. More than one device
-raises :class:`NotImplementedError` naming the ROADMAP item that ports it.
+dedups across windows with ``overshadow_filter``. :func:`sweep_archive`
+runs the scanner over an archive of files, group by group, with prefetched
+decode, pinned staging uploaded on a side stream and a resumable progress
+store. More than one device raises :class:`NotImplementedError` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 from typing import Sequence
 
 import numpy as np
@@ -38,9 +43,11 @@ from ..models.matcher import (
     MatchConfig,
     check_fft_len,
     correlation_crop,
+    describe_path,
     is_fused,
     overshadow_filter,
     pad_wire_on_device,
+    read_back,
     resolve_fft_impl,
     scan_slab,
     single_query_slab,
@@ -64,6 +71,8 @@ from ..ops.cuda_fft import (
 from ..ops.mxu_fft import corr_slab_mxu, scrambled_spectra_parts
 from ..ops.peaks import Peak, pick_peaks_dispatch, pick_peaks_packed
 from ..ops.wire import dequant_to_f32
+
+log = logging.getLogger("audio_matcher_torch.sweep")
 
 
 @dataclasses.dataclass
@@ -310,9 +319,10 @@ class ShardedScanner:
         return self._state
 
     def stage_resident(self, episodes: Sequence[np.ndarray], pad_to=None):
-        """Pack the batch into one [E, Npad] wire-dtype host buffer
-        (pinned for a CUDA device) and upload it with one copy.
-        ``pad_to``: minimum episode count (silence rows)."""
+        """Pack the batch into one fresh [E, Npad] wire-dtype host buffer
+        (pinned for a CUDA device) and upload it with one copy (on a side
+        stream for a CUDA device, see :func:`upload`). ``pad_to``: minimum
+        episode count (silence rows)."""
         ns = np.array([len(e) for e in episodes], np.int32)
         n_max = int(ns.max()) if len(ns) else 0
         n_pad = staged_width(self.config, self.chunk, self.overlap, n_max)
@@ -322,9 +332,12 @@ class ShardedScanner:
             self.device,
         )
 
-    def scan_dispatch(self, staged):
-        """Run the scan of a :meth:`stage_resident` upload; the returned
-        device tensors may still be in flight."""
+    def scan_dispatch(self, staged, scale: bool = True):
+        """Run the scan of a :meth:`stage_resident` upload → ((pos, h,
+        prom), ns, n_real, ready): the device tensors may still be in
+        flight; ``ready`` is a CUDA event behind them (None on the CPU).
+        ``scale=False`` leaves the correlations (and prominences) unscaled
+        by the inverse autocorrelations."""
         episodes_dev, ns, n_real = staged
         cfg = self.config
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
@@ -337,14 +350,20 @@ class ShardedScanner:
             plain=self.plain,
         )
         st = self.query_state
-        outs = step(episodes_dev, ns, st.t_r, st.t_i, st.inv_ac, st.m)
-        return outs, ns, n_real
+        inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
+        outs = step(episodes_dev, ns, st.t_r, st.t_i, inv_ac, st.m)
+        ready = None
+        if episodes_dev.is_cuda:  # lets scan_collect skip later groups' work
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(episodes_dev.device))
+        return outs, ns, n_real, ready
 
     def scan_collect(self, dispatched) -> list[list[list[Peak]]]:
-        """Read back a :meth:`scan_dispatch` result → peaks[episode][query]."""
-        (pos, h, prom), ns, n_real = dispatched
+        """Read back a :meth:`scan_dispatch` result → peaks[episode][query].
+        Waits for that scan only, not for scans dispatched after it."""
+        outs, ns, n_real, ready = dispatched
         cfg = self.config
-        pos, h, prom = (a.cpu().numpy() for a in (pos, h, prom))
+        pos, h, prom = read_back(outs, ready)
         out = []
         for e in range(n_real):
             n_windows = max(-(-int(ns[e]) // self.chunk), 1)
@@ -370,12 +389,140 @@ class ShardedScanner:
             out.append(per_query)
         return out
 
-    def scan_staged(self, staged) -> list[list[list[Peak]]]:
+    def scan_staged(
+        self, staged, scale: bool = True
+    ) -> list[list[list[Peak]]]:
         """Scan a :meth:`stage_resident` upload → peaks[episode][query]."""
-        return self.scan_collect(self.scan_dispatch(staged))
+        return self.scan_collect(self.scan_dispatch(staged, scale))
 
     def scan_resident(
-        self, episodes: Sequence[np.ndarray], pad_to=None
+        self, episodes: Sequence[np.ndarray], scale: bool = True, pad_to=None,
     ) -> list[list[list[Peak]]]:
         """Stage and scan a batch → peaks[episode][query]."""
-        return self.scan_staged(self.stage_resident(episodes, pad_to))
+        return self.scan_staged(self.stage_resident(episodes, pad_to), scale)
+
+
+def sweep_archive(
+    paths,
+    snippets: Sequence[np.ndarray],
+    sr: int,
+    config: MatchConfig | None = None,
+    device="cuda",
+    progress_path=None,
+    write_labels_for=None,
+    prefetch_depth: int | None = None,
+    resample_mismatched: bool = False,
+    mode: str = "pcm",
+    group_size: int | None = None,
+):
+    """Scan an archive of files against query snippets, with resume
+    (BASELINE config #5 on one device).
+
+    Files decode ahead of the scan on worker threads, straight to the
+    staging wire (``hostio.prefetch``); groups of ``group_size`` episodes
+    (default 8) stage exactly their decoded rows and scan on ``device``.
+    Group N is collected only after group N+1 has been staged and its scan
+    queued, so on a CUDA device the next group's decode, packing and
+    upload overlap the current group's scan. A file is marked
+    Done in the ``.done.txt`` store at ``progress_path`` once its peaks
+    are collected and passed to ``write_labels_for(path, query, peaks)``,
+    so an interrupted sweep resumes after the last collected file; files
+    already Done are skipped. Files that fail to decode, and files at
+    another sample rate unless ``resample_mismatched``, are logged and
+    skipped. ``AUDIO_MATCHER_GROUP_BYTES`` (default 1 GiB) bounds a
+    group's padded staging buffer and the prefetch queue.
+    ``mode="spectrogram"`` is ROADMAP P5; several devices (a list) are P7.
+    Returns {path: [peaks per query]}.
+    """
+    from ..hostio.decode import resample
+    from ..hostio.prefetch import decode_prefetched
+    from ..meta.progress import Progress, State
+
+    if mode == "spectrogram":
+        raise NotImplementedError("spectrogram mode is ROADMAP P5")
+    if mode != "pcm":
+        raise ValueError(f"mode={mode!r}: expected 'pcm' or 'spectrogram'")
+    scanner = ShardedScanner(snippets, sr, config, device=device)
+    log.info("sweep: %s", describe_path(
+        scanner.device, scanner.fft_impl, scanner.config.peaks_impl,
+        scanner.plain))
+    progress = Progress(progress_path) if progress_path is not None else None
+    todo = [p for p in paths
+            if progress is None or progress.get(str(p)) != State.DONE]
+    group_size = 8 if group_size is None else max(int(group_size), 1)
+    if prefetch_depth is None:
+        prefetch_depth = max(group_size, 3)  # the next group, decoded
+    transfer = scanner.config.transfer_dtype
+    results = {}
+    pending: list = []  # at most one (dispatched, ok_items)
+
+    def emit(dispatched, ok_items):
+        peaks = scanner.scan_collect(dispatched)
+        for item, per_query in zip(ok_items, peaks):
+            results[str(item.path)] = per_query
+            if write_labels_for is not None:
+                for q, pk in enumerate(per_query):
+                    write_labels_for(item.path, q, pk)
+            if progress is not None:
+                progress.append(str(item.path), State.DONE)
+
+    def flush(group):
+        episodes, ok_items = [], []
+        for item in group:
+            if item.error is not None:
+                log.error("skipping %s: %s", item.path, item.error)
+                continue
+            samples = item.samples
+            if item.sr != scanner.sr:
+                if not resample_mismatched:
+                    log.error(
+                        "skipping %s: sample rate %s != %s "
+                        "(pass --resample to convert)",
+                        item.path, item.sr, scanner.sr,
+                    )
+                    continue
+                # the int16 wire only where staging quantizes anyway: a
+                # float32 sweep keeps f32 samples end to end
+                samples = resample(
+                    samples, item.sr, scanner.sr,
+                    impl=scanner.config.resample_impl,
+                    wire_int16=transfer != "float32",
+                )
+            ok_items.append(item)
+            episodes.append(samples)
+        if not episodes:
+            return
+        dispatched = scanner.scan_dispatch(scanner.stage_resident(episodes))
+        if pending:
+            emit(*pending.pop())
+        pending.append((dispatched, ok_items))
+
+    # the budget is judged on the PADDED staging buffer (every row is
+    # padded to the group's longest episode), so long episodes go fewer
+    # per group and a long one after short ones flushes the shorts first
+    max_group_bytes = int(
+        os.environ.get("AUDIO_MATCHER_GROUP_BYTES", str(1 << 30))
+    )
+    group: list = []
+    row_max = 0  # the widest episode of the current group, wire bytes
+    for decoded in decode_prefetched(
+        todo, depth=prefetch_depth, wire_dtype=transfer,
+        expect_sr=scanner.sr, max_bytes=max_group_bytes,
+    ):
+        new_max = max(row_max, decoded.samples.nbytes)
+        if group and (len(group) + 1) * new_max > max_group_bytes:
+            flush(group)
+            group, new_max = [], decoded.samples.nbytes
+        group.append(decoded)
+        row_max = new_max
+        if len(group) == group_size:
+            flush(group)
+            group, row_max = [], 0
+        elif len(group) * row_max >= max_group_bytes:
+            flush(group)
+            group, row_max = [], 0
+    if group:
+        flush(group)
+    if pending:  # drain the one-group-deep pipeline
+        emit(*pending.pop())
+    return results

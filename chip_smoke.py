@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
-It drives the port's three paths, each through the entry points a user
-calls, and holds every kernel against its plain PyTorch version:
+It drives the port's paths, each through the entry points a user calls
+(the library, and the matcher and sweep CLIs over files on disk), and
+holds every kernel against its plain PyTorch version:
 
 1. Builds the hand-written kernels (``audio_matcher_tpu_torch/csrc``) with
    nvcc for sm_90a, one nvcc per source, all started together, and prints
@@ -61,6 +62,26 @@ calls, and holds every kernel against its plain PyTorch version:
    ``SnippetMatcher(chunk_secs=120)`` and ``(chunk_secs=240)`` on the
    fused path; kernels 6, 2, 3, 4 and 5 against their plain versions on
    one slab, timed; the plants found in p50-of-5 timed runs.
+8. The archive sweep (config #5's path on one card), through
+   ``sweep_cli.run`` with --resample, --progress-file and the int16 wire:
+   24 mono wav episodes of 600 s at 44.1 kHz (config #3's literal episode
+   length and query count, cut to three groups of 8), one at 22.05 kHz
+   and a file of random bytes, against 4 snippets of 10-11.5 s, each
+   planted twice in every episode from seed 42. Every plant must be in
+   the label files within 1 sample, 25 files Done and the random one
+   skipped, and kernels 1-5 launched once a slab of each of the 25
+   staged rows (a group stages only its decoded rows). The first group's raw candidates against the plain path; a
+   resume from a progress file holding the first group, which must
+   rewrite the other files' labels byte for byte; files/s and pair
+   audio-hours/s end to end; one group's wav decode and the resample on
+   one host thread; the staging rate of one group into a fresh pinned
+   buffer and of a group of mixed durations; torch.profiler traces of one
+   group's
+   scan and of one group from decode to collect.
+9. Config #2 through the matcher CLI: ``matcher_cli.run`` on the
+   3600 s episode and the 10 s snippet as wav files, mulaw8; the label
+   file must hold both plants, and kernels 6, 2, 3, 4 and 5 must each
+   have been launched once a slab of the 3600 s episode.
 
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -83,11 +104,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
+import wave
+from pathlib import Path
 
 os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
     "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -96,11 +121,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from audio_matcher_tpu_torch import _build, match  # noqa: E402
+from audio_matcher_tpu_torch.cli import matcher_cli, sweep_cli  # noqa: E402
+from audio_matcher_tpu_torch.hostio.decode import (  # noqa: E402
+    read_audio,
+    read_audio_int16,
+    resample,
+)
+from audio_matcher_tpu_torch.hostio.labels import read_labels  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
     _match_episode_resident,
     correlation_crop,
+    effective_slab,
     pad_wire_on_device,
     quantize_wire,
     scan_slab,
@@ -114,7 +147,10 @@ from audio_matcher_tpu_torch.ops.correlate import (  # noqa: E402
 )
 from audio_matcher_tpu_torch.ops.peaks import peaks_crop_width  # noqa: E402
 from audio_matcher_tpu_torch.ops.wire import dequant_to_f32  # noqa: E402
-from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner  # noqa: E402
+from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
+    ShardedScanner,
+    sweep_archive,
+)
 
 SR = 44100
 EPISODE_SECS = 1800
@@ -152,6 +188,14 @@ BEFORE_REDESIGN_MS = {
     "fft_major_fwd_wire2": 0.196, "local_max_block_reduce": 0.475,
 }
 FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
+# The archive sweep: config #3's episode length and query count (the
+# literal 64 x 10 min x 4 shape), cut to 24 files, three groups of 8.
+SWEEP_EPISODES = 24
+SWEEP_EPISODE_SECS = 600
+SWEEP_QUERIES = 4
+SWEEP_GROUP = 8  # sweep_archive's default group size
+SWEEP_SLOW_SR = 22050  # one more episode, resampled by the sweep
+CARD = {"line": ""}  # nvidia-smi's name and power limit, set by main()
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -966,6 +1010,264 @@ def large_fft(config, device, rows):
         torch.cuda.empty_cache()
 
 
+def write_mono_wav(path, sr, samples):
+    """A mono 16-bit wav of reference-scale samples (the int16 wire)."""
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(quantize_wire(samples, "int16").astype("<i2").tobytes())
+
+
+def make_sweep_archive(root):
+    """Seed-42 wav archive: SWEEP_QUERIES snippets of 10-11.5 s, then
+    SWEEP_EPISODES episodes of SWEEP_EPISODE_SECS at 44.1 kHz and one at
+    SWEEP_SLOW_SR, each with every snippet planted twice, 500-530 s apart
+    (more than the 480 s distance, so both are kept), and one file of
+    random bytes. Returns the planted samples at 44.1 kHz per file and
+    query."""
+    rng = np.random.default_rng(42)
+    snippets = [
+        np.clip(rng.standard_normal(int((SNIPPET_SECS + 0.5 * q) * SR))
+                * 0.15, -0.45, 0.45).astype(np.float32)
+        for q in range(SWEEP_QUERIES)
+    ]
+    for q, snip in enumerate(snippets):
+        write_mono_wav(root / f"snippet{q}.wav", SR, snip)
+    plants = {}
+    for e in range(SWEEP_EPISODES + 1):
+        slow = e == SWEEP_EPISODES
+        sr = SWEEP_SLOW_SR if slow else SR
+        x = rng.standard_normal(SWEEP_EPISODE_SECS * sr,
+                                dtype=np.float32) * np.float32(0.05)
+        gap = 500.0 + rng.uniform(0.0, 30.0)
+        per_query = []
+        for q, snip in enumerate(snippets):
+            t1 = 2.0 + 14.0 * q + rng.uniform(0.0, 1.0)
+            at = [int(t * sr) for t in (t1, t1 + gap)]
+            piece = snip[::2] if slow else snip
+            for i in at:
+                x[i : i + len(piece)] = piece
+            per_query.append([i * (SR // sr) for i in at])
+        name = f"ep{e:02d}{'_22k' if slow else ''}.wav"
+        write_mono_wav(root / name, sr, x)
+        plants[name] = per_query
+    (root / "zz_random.wav").write_bytes(rng.bytes(1 << 20))
+    return plants
+
+
+class _Records(logging.Handler):
+    """Keeps the log records of a run."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def check_sweep_labels(root, plants, skip=()):
+    """Every plant within PLANT_TOL samples in the ``.q{i}.txt`` labels:
+    two plants give one label [first + 7 s, second]."""
+    for name, per_query in plants.items():
+        if name in skip:
+            continue
+        for q, (p1, p2) in enumerate(per_query):
+            labels = read_labels((root / name).with_suffix(f".q{q}.txt"))
+            got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
+            if len(got) != 1 or abs(got[0][0] - p1) > PLANT_TOL + 0.5 or (
+                    abs(got[0][1] - p2) > PLANT_TOL + 0.5):
+                raise AssertionError(
+                    f"{name}, query {q}: plants at {(p1, p2)}, labels {got}")
+
+
+def archive_sweep(config, device, rows):
+    """Path 8, the archive sweep (config #5's path on one card) through
+    ``sweep_cli.run`` with --resample, --progress-file and the default
+    int16 wire: every plant in the labels, 25 files Done and the random
+    file skipped, kernels 1-5 launched once a slab of each staged row;
+    the first group's raw candidates against the plain path; a resume;
+    the staging rate; profiles of one group."""
+    with tempfile.TemporaryDirectory(prefix="am_sweep_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        plants = make_sweep_archive(root)
+        disk_mb = sum(f.stat().st_size for f in root.iterdir()) / 1e6
+        print(f"sweep archive: {SWEEP_EPISODES} x {SWEEP_EPISODE_SECS} s at "
+              f"{SR} Hz, one at {SWEEP_SLOW_SR} Hz, one random file, "
+              f"{SWEEP_QUERIES} snippets; {disk_mb:.0f} MB of wav written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        argv = [str(root / "ep*.wav"), str(root / "zz_random.wav"),
+                "--resample", "--progress-file", str(root / ".done.txt"),
+                "--device", str(device)]
+        for q in range(SWEEP_QUERIES):
+            argv += ["--snippet", str(root / f"snippet{q}.wav")]
+        ns = sweep_cli.build_parser().parse_args(argv)
+        records = _Records()
+        logger = logging.getLogger("audio_matcher_torch")
+        logger.addHandler(records)
+        logger.setLevel(logging.INFO)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, launches = counted(lambda: sweep_cli.run(ns), BATCH_PATH)
+            torch.cuda.synchronize()
+            t_sweep = time.perf_counter() - t0
+        finally:
+            logger.removeHandler(records)
+        if rc != 0:
+            raise AssertionError(f"sweep_cli.run returned {rc}")
+        print("sweep path: " + next(m for m in records.messages
+                                    if m.startswith("sweep: ")))
+        skipped = [m for m in records.messages if m.startswith("skipping")]
+        print(f"sweep log, skipped: {skipped}")
+        if len(skipped) != 1 or "zz_random.wav" not in skipped[0]:
+            raise AssertionError("the random file was not skipped alone")
+        done = (root / ".done.txt").read_text().splitlines()
+        if len(done) != len(plants) or not all(
+                line.endswith(" Done") for line in done) or any(
+                "zz_random" in line for line in done):
+            raise AssertionError(f".done.txt: {done}")
+        check_sweep_labels(root, plants)
+        n = SWEEP_EPISODE_SECS * SR
+        n_windows = -(-n // int(config.chunk_secs * SR))
+        slab = effective_slab(config, n_windows)
+        # every file, the resampled one too, is 600 s at 44.1 kHz: each
+        # staged row is one decoded file, scanned in the same slabs
+        want = len(plants) * -(-n_windows // slab)
+        print(f"sweep launches: {launches}; {len(plants)} staged rows x "
+              f"{-(-n_windows // slab)} slabs of {slab} windows = {want} "
+              f"for each of kernels 1-5")
+        if any(launches[k.__name__] != want for k in BATCH_PATH) or any(
+                v for k, v in launches.items()
+                if k not in {f.__name__ for f in BATCH_PATH}):
+            raise AssertionError(f"sweep launches {launches}, want {want}")
+        pair_h = len(plants) * SWEEP_QUERIES * SWEEP_EPISODE_SECS / 3600.0
+        print(f"sweep end to end (decode + stage + scan + labels): "
+              f"{len(plants)} files in {t_sweep:.3f} s, "
+              f"{len(plants) / t_sweep:.3f} files/s, "
+              f"{pair_h / t_sweep:.3f} pair audio-hours/s; plants found "
+              f"within {PLANT_TOL} sample in all {len(plants)} x "
+              f"{SWEEP_QUERIES} label files; {CARD['line']}")
+
+        # the first group: kernels against the plain path, raw candidates
+        names = sorted(plants)[:SWEEP_GROUP]
+        snippets = [read_audio(root / f"snippet{q}.wav")[1]
+                    for q in range(SWEEP_QUERIES)]
+        cfg = dataclasses.replace(config, transfer_dtype="int16")
+        scanner = ShardedScanner(snippets, SR, cfg, device=device)
+        plain = ShardedScanner(snippets, SR, cfg, device=device,
+                               query_state=scanner.query_state, plain=True)
+        # the host's share of a group, one thread: decode, then the scipy
+        # resample the sweep runs for the 22.05 kHz file
+        t0 = time.perf_counter()
+        episodes = [read_audio_int16(root / name)[1] for name in names]
+        t_decode = time.perf_counter() - t0
+        slow_sr, slow = read_audio_int16(
+            root / next(n for n in plants if n.endswith("_22k.wav")))
+        t0 = time.perf_counter()
+        resample(slow, slow_sr, SR, wire_int16=True)
+        print(f"host, one thread: wav decode of one group ({SWEEP_GROUP} "
+              f"files) {t_decode:.3f} s; scipy resample of the "
+              f"{slow_sr} Hz file {time.perf_counter() - t0:.3f} s; "
+              f"{CARD['line']}")
+        staged = scanner.stage_resident(episodes)
+        compare_raw("sweep, first group", scanner.scan_dispatch(staged)[0],
+                    plain.scan_dispatch(staged)[0])
+
+        # resume: the progress file holds the first group, no labels left
+        first = {}
+        for f in sorted(root.glob("*.q*.txt")):
+            first[f.name] = f.read_bytes()
+            f.unlink()
+        (root / ".done.txt").write_text("\n".join(done[:SWEEP_GROUP]) + "\n")
+        t0 = time.perf_counter()
+        if sweep_cli.run(ns) != 0:
+            raise AssertionError("the resumed sweep failed")
+        t_resume = time.perf_counter() - t0
+        again = {f.name: f.read_bytes() for f in root.glob("*.q*.txt")}
+        skip = {f"{Path(name).stem}.q{q}.txt" for name in names
+                for q in range(SWEEP_QUERIES)}
+        if again != {k: v for k, v in first.items() if k not in skip}:
+            raise AssertionError("the resumed sweep's labels differ")
+        if (root / ".done.txt").read_text().splitlines() != done:
+            raise AssertionError("the resumed sweep's .done.txt differs")
+        print(f"resume: {len(again)} label files rewritten byte for byte, "
+              f"the first group's {len(skip)} left out, .done.txt equal; "
+              f"{len(plants) - SWEEP_GROUP} files in {t_resume:.3f} s")
+
+        # staging: the sweep's group, then a group of mixed durations
+        # (120-600 s, one staged width for every row)
+        mixed = [ep[: int(secs * SR)] for ep, secs in zip(
+            episodes, np.linspace(120, SWEEP_EPISODE_SECS, len(episodes)))]
+        for label, group in (("sweep group", episodes),
+                             ("mixed 120-600 s", mixed)):
+            times = []
+            for _ in range(REPEATS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                staged = scanner.stage_resident(group)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            mb = staged[0].numel() * staged[0].element_size() / 1e6
+            t = statistics.median(times[1:])
+            print(f"staging one group ({label}, {len(group)} rows, {mb:.1f} "
+                  f"MB int16, fill + upload into a fresh pinned buffer): "
+                  f"p50 {t:.4f} s, {mb / t:.1f} MB/s; {CARD['line']}")
+        staged = scanner.stage_resident(episodes)
+        profile_run("the scan of one staged group",
+                    lambda: scanner.scan_staged(staged))
+        print(CARD["line"])
+        profile_run(f"one sweep group, decode to collect ({SWEEP_GROUP} "
+                    f"files, sweep_archive)",
+                    lambda: sweep_archive([root / name for name in names],
+                                          snippets, SR, cfg, device=device))
+        print(CARD["line"])
+
+
+def matcher_cli_run(config, device, rows):
+    """Path 9, config #2 through the matcher CLI: one 3600 s episode x one
+    10 s snippet (seed 42, plants at 21 s and 1980 s) as wav files,
+    ``matcher_cli.run`` with --transfer mulaw8: the label file holds both
+    plants, and kernel 6 was launched."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    with tempfile.TemporaryDirectory(prefix="am_cli_") as tmp:
+        root = Path(tmp)
+        write_mono_wav(root / "intro.wav", SR, snippets[0])
+        write_mono_wav(root / "episode.wav", SR, episode)
+        argv = [str(root / "episode.wav"), "--snippet",
+                str(root / "intro.wav"), "--transfer", "mulaw8",
+                "--device", str(device)]
+        parser = matcher_cli.build_parser()
+        matcher_cli.run(parser.parse_args(argv + ["--no-out"]))  # warm
+        ns = parser.parse_args(argv)
+        t0 = time.perf_counter()
+        rc, launches = counted(lambda: matcher_cli.run(ns), SINGLE_PATH)
+        t_run = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"matcher_cli.run returned {rc}")
+        chunk = int(round(float(ns.chunk_size) * SR))
+        n_windows = -(-SINGLE_EPISODE_SECS * SR // chunk)
+        slabs = -(-n_windows // effective_slab(MatchConfig(), n_windows))
+        if any(launches[k.__name__] != slabs for k in SINGLE_PATH) or any(
+                v for k, v in launches.items()
+                if k not in {f.__name__ for f in SINGLE_PATH}):
+            raise AssertionError(f"matcher CLI launches {launches}, want "
+                                 f"{slabs} of each of kernels 6, 2, 3, 4, 5")
+        labels = read_labels(root / "episode.txt")
+        want = [int(o * SR) for o in offsets]
+        got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
+        if len(got) != 1 or any(abs(g - w) > PLANT_TOL + 0.5
+                                for g, w in zip(got[0], want)):
+            raise AssertionError(f"matcher CLI labels {got}, plants {want}")
+        print(f"matcher CLI, config #2 ({SINGLE_EPISODE_SECS} s episode, "
+              f"mulaw8, decode + stage + scan + labels): {t_run:.3f} s; "
+              f"label {labels[0].to_line()!r} holds both plants within "
+              f"{PLANT_TOL} sample; launches {launches} (one a slab, {slabs} "
+              f"slabs); {CARD['line']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -976,6 +1278,7 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    CARD["line"] = smi
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -991,7 +1294,8 @@ def main() -> int:
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
-                  jnp_scan, single_query_jnp, large_fft):
+                  jnp_scan, single_query_jnp, large_fft, archive_sweep,
+                  matcher_cli_run):
         t0 = time.perf_counter()
         phase(config, dev, rows)
         torch.cuda.empty_cache()

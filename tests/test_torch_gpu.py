@@ -487,9 +487,12 @@ def test_block_reduce_edge_cases_match_plain(dev, block, rows, nb):
 
 
 @pytest.mark.parametrize("block", K.BLOCKS)
-def test_block_reduce_near_max_rows(dev, block):
-    g = torch.Generator(device=dev).manual_seed(block + 7)
-    x, vl = _reduce_case(dev, g, K.MAX_ROWS, block, block)
+@pytest.mark.parametrize("rows", [65535, 65537, 65538])
+def test_block_reduce_near_max_rows(dev, block, rows):
+    """Around the 65535 rows one grid axis held: the 1-D warp grid takes
+    65537 dense rows and 65538 packed ones (32769 planes), exactly."""
+    g = torch.Generator(device=dev).manual_seed(block + rows)
+    x, vl = _reduce_case(dev, g, rows, block, block)
     _reduce_both_modes(x, vl, block)
 
 
@@ -535,3 +538,112 @@ def test_wire_passes_at_strip_and_row_edges_match_plain(dev, n):
                F.fft_major_fwd_wire_plain(win, A, n, w_len))
         _close(F.fft_major_fwd_wire2(win, win[:2], A, n, w_len),
                F.fft_major_fwd_wire2_plain(win, win[:2], A, n, w_len))
+
+
+def _staged_rows(eps, rows, width, silence):
+    want = np.full((rows, width), silence, eps[0].dtype)
+    for i, e in enumerate(eps):
+        want[i, : len(e)] = e
+    return want
+
+
+def test_pinned_staging_through_the_copy_stream(dev):
+    """20 groups staged back to back from fresh pinned buffers, each upload
+    on the side stream without a host synchronization: every staged
+    tensor equals its host rows bit for bit, though the next group's rows
+    are written while the last copy may still run (the caching host
+    allocator hands a buffer out again only after its copy completed)."""
+    from audio_matcher_tpu_torch.models.matcher import (
+        side_stream, stage_rows_host, wire_silence)
+
+    rng = np.random.default_rng(1)
+    rows, width = 4, 1 << 22  # 32 MB of int16 a group
+    groups = [[rng.integers(-30000, 30000, int(rng.integers(width // 4,
+                                                            width)),
+                            dtype=np.int16) for _ in range(rows - k % 2)]
+              for k in range(20)]
+    staged, busy = [], 0
+    torch.cuda.synchronize()
+    for k, eps in enumerate(groups):
+        if k:
+            busy += not side_stream(dev).query()
+        out = stage_rows_host(eps, [len(e) for e in eps], width, "int16",
+                              rows, dev)
+        staged.append(out[0])
+    torch.cuda.synchronize()
+    silence = wire_silence("int16")
+    for got, eps in zip(staged, groups):
+        assert np.array_equal(got.cpu().numpy(),
+                              _staged_rows(eps, rows, width, silence))
+    assert busy > 0  # some copy was still running when the next group came
+
+
+@pytest.mark.parametrize("pad_to", [None, 4])
+def test_stage_resident_on_cuda_equals_cpu(dev, pad_to):
+    """The staged tensor through the side stream equals the CPU staging."""
+    sr = 8000
+    rng = np.random.default_rng(6)
+    snippets = [(rng.standard_normal(4000) * 0.2).astype(np.float32)] * 2
+    scanner = ShardedScanner(snippets, sr, MatchConfig(
+        chunk_secs=1.0, transfer_dtype="mulaw8"), device=dev)
+    cpu = ShardedScanner(snippets, sr, scanner.config, device="cpu")
+    for lengths in ((9.5, 3.0), (2.0,), (12.25, 1.0, 7.0)):
+        eps = [quantize_wire((rng.standard_normal(int(s * sr)) * 0.05)
+                             .astype(np.float32), "mulaw8") for s in lengths]
+        got = scanner.stage_resident(eps, pad_to)
+        want = cpu.stage_resident(eps, pad_to)
+        assert got[0].is_cuda and torch.equal(got[0].cpu(), want[0])
+        assert np.array_equal(got[1], want[1]) and got[2] == want[2]
+
+
+def test_sweep_archive_on_cuda_matches_cpu(dev, tmp_path):
+    """``sweep_archive`` over a small wav directory (mixed durations, a
+    corrupt file, groups of 2 with a tail) on the card, with the kernels
+    of the fused path launched, gives the CPU run's label files and
+    ``.done.txt``."""
+    from audio_matcher_tpu_torch.hostio.decode import write_wav
+    from audio_matcher_tpu_torch.hostio.labels import (
+        timelabel_from_peaks, write_labels)
+    from audio_matcher_tpu_torch.parallel.sweep import sweep_archive
+
+    sr = 8000
+    rng = np.random.default_rng(13)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (4000, 3600, 3800)]
+    paths = []
+    for e, secs in enumerate((9.0, 4.5, 13.0, 6.0, 7.5)):
+        ep = (rng.standard_normal(int(secs * sr)) * 0.05).astype(np.float32)
+        for q, at in ((e % 3, 1.0), ((e + 1) % 3, secs - 2.5)):
+            ep[int(at * sr) : int(at * sr) + len(snippets[q])] = snippets[q]
+        paths.append(tmp_path / f"ep{e}.wav")
+        write_wav(paths[-1], sr, ep)
+    (tmp_path / "ep9.wav").write_bytes(rng.bytes(2000))
+    paths.insert(2, tmp_path / "ep9.wav")
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="int16")
+    path = (F.fft_major_fwd_wire, F.fft_minor, F.ifft_minor_product,
+            F.fft_major, K.local_max_block_reduce_packed)
+    outs = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        out = tmp_path / name
+        out.mkdir()
+
+        def sink(p, q, peaks, out=out):
+            write_labels(timelabel_from_peaks(peaks, sr),
+                         out / f"{p.stem}.q{q}.txt")
+
+        before = [k.launches for k in path]
+        outs[name] = sweep_archive(paths, snippets, sr, cfg, device=device,
+                                   progress_path=out / ".done.txt",
+                                   write_labels_for=sink, group_size=2)
+        launched = [k.launches - b for k, b in zip(path, before)]
+        assert all(launched) == (name == "cuda"), launched
+    assert list(outs["cuda"]) == list(outs["cpu"]) and len(outs["cpu"]) == 5
+    names = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    assert len(names) == 16
+    for n in names:
+        got = (tmp_path / "cuda" / n).read_bytes()
+        assert got == (tmp_path / "cpu" / n).read_bytes(), n
+    for p in paths:
+        if p.name != "ep9.wav":
+            assert outs["cuda"][str(p)][0] or outs["cuda"][str(p)][1]

@@ -49,6 +49,29 @@ _SCAN_WITHOUT_JAX = textwrap.dedent(
         got = pkg.match(snippets[0], ep, sr, device="cpu", chunk_secs=1.0,
                         fft_impl=fft_impl, peaks_impl=peaks_impl)
         assert [p.position for p in got] == [2 * sr], (fft_impl, got)
+
+    # the sweep CLI over a wav directory, with a resume store
+    import tempfile
+    from pathlib import Path
+    from audio_matcher_tpu_torch.cli import sweep_cli
+    from audio_matcher_tpu_torch.hostio.decode import write_wav
+    from audio_matcher_tpu_torch.hostio.labels import read_labels
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        write_wav(d / "intro.wav", sr, snippets[0])
+        for e in range(3):
+            x = (rng.standard_normal(6 * sr) * 0.05).astype(np.float32)
+            for at in (1, 4):
+                x[at * sr : at * sr + 4000] = snippets[0]
+            write_wav(d / f"ep{e}.wav", sr, x)
+        argv = [str(d / "ep*.wav"), "--snippet", str(d / "intro.wav"),
+                "--chunk-size", "1", "--distance", "2", "--device", "cpu",
+                "--progress-file", str(d / ".done.txt"), "--group-size", "2"]
+        assert sweep_cli.main(argv) == 0
+        for e in range(3):
+            got = [(lb.start, lb.end) for lb in read_labels(d / f"ep{e}.txt")]
+            assert got == [(4.0, 4.0)], got  # plants 3 s apart: clamped
+        assert (d / ".done.txt").read_text().count("Done") == 3
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules if sys.modules[m] is not None)
     assert "audio_matcher_tpu" not in sys.modules

@@ -78,9 +78,12 @@ def test_every_tile_goes_to_exactly_one_warp(rows, nb):
 def test_the_wrappers_refuse_what_the_kernel_cannot_index():
     x = torch.zeros((1, 512))
     with pytest.raises(ValueError, match="block"):
-        K._launchable((x,), 1, 384)
-    with pytest.raises(ValueError, match="rows"):
-        K._launchable((x,), K.MAX_ROWS + 1, 512)
+        K._launchable((x,), 384)
     wide = torch.zeros(1).expand(1, K.MAX_V + 1)
     with pytest.raises(ValueError, match="columns"):
-        K._launchable((wide,), 1, 512)
+        K._launchable((wide,), 512)
+    # no row cap: the grid is 1-D over warps; 65537 rows of one tile
+    K._launchable((torch.zeros((65537, 512)),), 512)
+    assert not hasattr(K, "MAX_ROWS")
+    run, runs, blocks = K.reduce_grid(65537, 1, SMS)
+    assert blocks * K.WARPS >= 65537 * runs and blocks < 1 << 31
