@@ -2,7 +2,8 @@
 
 The package mirrors the JAX package's module names. It imports ``torch``
 and numpy only (scipy lazily, for one fallback of
-``ops.peaks.find_peaks_device``), never ``jax``. Every kernel wrapper runs
+``ops.peaks.find_peaks_device``, the scipy resampler and the resampler's
+filter design), never ``jax``. Every kernel wrapper runs
 its plain PyTorch version on a CPU tensor and its hand-written CUDA kernel
 (``csrc/``) on a CUDA tensor, or raises. The entry points run on the
 current CUDA device unless the caller passes ``device="cpu"``; nothing
@@ -12,7 +13,10 @@ query snippet, BASELINE config #2), and
 :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedScanner` (a batch
 of episodes against one or more snippets, configs #2 and #3), and
 :func:`~audio_matcher_tpu_torch.parallel.sweep.sweep_archive` over files on
-disk (config #5 on one device). The CLIs ``cli.matcher_cli``
+disk (config #5 on one device); the spectrogram mode (config #4),
+:class:`~audio_matcher_tpu_torch.models.spectrogram.SpectrogramMatcher`
+and :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedSpectrogramScanner`,
+and the device resampler ``ops.resample.resample_poly_device``. The CLIs ``cli.matcher_cli``
 (``audio-matcher-torch``) and ``cli.sweep_cli`` (``audio-sweep-torch``)
 drive them from files, with the host modules ``hostio`` (decode, labels,
 prefetch), ``meta`` (the resume store and tags) and ``utils``.

@@ -6,6 +6,9 @@ offsets as ``Offset i: hh:mm:ss with prominence p`` and write an Audacity
 label track (``Segment #i``, starts delayed 7 s) next to each input.
 ``--device`` (default ``cuda``) names the torch device that scans; a CUDA
 device runs the hand-written kernels, ``cpu`` their plain versions.
+``--mode spectrogram`` matches log-mel fingerprints instead (torch ops on
+the device); ``--resample-impl auto`` resamples the snippet on a CUDA
+device and with scipy on the CPU.
 
     python -m audio_matcher_tpu_torch.cli.matcher_cli episode.mp3 \\
         --snippet intro.mp3 --device cpu
@@ -26,6 +29,7 @@ from ..hostio.decode import (
     read_audio,
     read_audio_int16,
     resample,
+    resolve_resample_impl,
 )
 from ..hostio.labels import timelabel_from_peaks, write_labels
 from ..models.matcher import (
@@ -37,6 +41,11 @@ from ..models.matcher import (
     MatchConfig,
     SnippetMatcher,
     describe_path,
+)
+from ..models.spectrogram import (
+    SpectrogramConfig,
+    SpectrogramMatcher,
+    describe_spectrogram_path,
 )
 from ..utils.durations import fmt_hms, parse_duration
 from ..utils.progressbar import Progress
@@ -98,8 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--resample-impl", choices=RESAMPLE_IMPLS,
         default="auto", metavar="IMPL",
-        help="resampler: scipy = host polyphase; device is ROADMAP P6; "
-        "auto = scipy",
+        help="resampler: scipy = host polyphase, device = polyphase on "
+        "--device; auto = device on CUDA, scipy on the CPU",
     )
     p.add_argument(
         "--fft-impl", choices=("auto",) + FFT_IMPLS,
@@ -116,8 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mode", choices=("pcm", "spectrogram"), default="pcm",
-        help="matching domain: raw-PCM correlation (reference semantics); "
-        "spectrogram is ROADMAP P5",
+        help="matching domain: raw-PCM correlation (reference semantics) "
+        "or spectrogram (noise-robust log-mel NCC)",
     )
     p.add_argument(
         "--transfer", choices=("float32", "int16", "mulaw8"),
@@ -166,13 +175,26 @@ def _profiled(xprof: Path | None, device, name: str):
     return trace()
 
 
+def _match_pcm(matcher, samples, est_samples: int, fancy: bool):
+    """One PCM scan with the progress bar over its duration-estimated
+    windows."""
+    n_windows = max(-(-est_samples // matcher.chunk), 1)
+    bar = Progress(n_windows, fancy=fancy)
+
+    def progress(phase: str, _k: int) -> None:
+        (bar.start if phase == "start" else bar.finish)()
+
+    peaks = matcher.match(samples, scale=True, n_samples=est_samples,
+                          progress=progress)
+    bar.close()  # n_windows is duration-estimated
+    return peaks
+
+
 def run(args: argparse.Namespace) -> int:
     inputs = common.Inputs.from_args(args)
     if args.out is not None and len(args.within) != 1:
         log.error("provided outfile only compatible with one main file")
         return 1
-    if args.mode == "spectrogram":
-        raise NotImplementedError("spectrogram mode is ROADMAP P5")
     device = common.resolve_device(args.device)
 
     log.debug("collecting snippet data")
@@ -195,17 +217,30 @@ def run(args: argparse.Namespace) -> int:
     )
 
     def build_matcher(snip, rate):
-        matcher = SnippetMatcher(snip, rate, config, device=device)
-        log.info("matcher at %d Hz: %s", rate, describe_path(
-            device, matcher.fft_impl, config.peaks_impl, matcher.plain))
+        if args.mode == "spectrogram":
+            matcher = SpectrogramMatcher(snip, rate, SpectrogramConfig(
+                distance_secs=float(args.distance),
+                transfer_dtype=args.transfer,
+                resample_impl=args.resample_impl,
+            ), device=device)
+            path = describe_spectrogram_path(device)
+        else:
+            matcher = SnippetMatcher(snip, rate, config, device=device)
+            path = describe_path(device, matcher.fft_impl,
+                                 config.peaks_impl, matcher.plain)
+        log.info("matcher at %d Hz: %s", rate, path)
         return matcher
 
-    matchers: dict[int, SnippetMatcher] = {sr: build_matcher(s_samples, sr)}
+    matchers = {sr: build_matcher(s_samples, sr)}
+    resample_impl = resolve_resample_impl(args.resample_impl, device)
 
-    def matcher_for(rate: int) -> SnippetMatcher:
+    def matcher_for(rate: int):
         if rate not in matchers:
+            log.info("resampling the snippet to %d Hz by %s", rate,
+                     resample_impl)
             matchers[rate] = build_matcher(
-                resample(s_samples, sr, rate, impl=args.resample_impl), rate
+                resample(s_samples, sr, rate, impl=resample_impl,
+                         device=device), rate,
             )
         return matchers[rate]
 
@@ -224,7 +259,7 @@ def run(args: argparse.Namespace) -> int:
                 out_path = None
 
         log.log(level, "preparing data of '%s'", main_file)
-        if args.transfer != "float32":
+        if args.mode == "pcm" and args.transfer != "float32":
             # decode straight to the int16 wire grid (no host float pass)
             m_sr, m_samples = read_audio_int16(main_file)
         else:
@@ -248,17 +283,11 @@ def run(args: argparse.Namespace) -> int:
         )
 
         with _profiled(args.xprof, device, main_file.stem):
-            n_windows = max(-(-est_samples // matcher.chunk), 1)
-            bar = Progress(n_windows, fancy=args.fancy_bar)
-
-            def progress(phase: str, _k: int) -> None:
-                (bar.start if phase == "start" else bar.finish)()
-
-            peaks = matcher.match(
-                m_samples, scale=True, n_samples=est_samples,
-                progress=progress,
-            )
-            bar.close()  # n_windows is duration-estimated
+            if args.mode == "spectrogram":
+                peaks = matcher.match(m_samples)
+            else:
+                peaks = _match_pcm(matcher, m_samples, est_samples,
+                                   args.fancy_bar)
         print_offsets(peaks, m_sr)
         log.debug("found peaks %s", peaks)
 

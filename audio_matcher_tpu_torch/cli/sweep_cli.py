@@ -5,7 +5,9 @@ against one or more query snippets in groups, with prefetched decode and a
 resumable ``.done.txt`` store, writing one Audacity label file per
 (recording, query): ``<file>.txt`` for one snippet, ``<file>.q{i}.txt``
 for several. ``--device`` (default ``cuda``) names the torch device that
-scans; ``--devices`` above 1 is ROADMAP P7.
+scans; ``--mode spectrogram`` scans log-mel fingerprints (torch ops on the
+device); ``--resample-impl auto`` resamples on a CUDA device and with scipy
+on the CPU; ``--devices`` above 1 is ROADMAP P7.
 
     python -m audio_matcher_tpu_torch.cli.sweep_cli 'archive/**/*.mp3' \\
         --snippet intro.mp3 --progress-file .done.txt --device cpu
@@ -30,6 +32,7 @@ from ..models.matcher import (
     PEAKS_IMPLS,
     MatchConfig,
 )
+from ..models.spectrogram import SpectrogramConfig
 from ..parallel.sweep import sweep_archive
 from ..utils.durations import parse_duration
 from . import common
@@ -88,8 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--resample-impl", choices=RESAMPLE_IMPLS,
         default="auto", metavar="IMPL",
-        help="resampler: scipy = host polyphase; device is ROADMAP P6; "
-        "auto = scipy",
+        help="resampler: scipy = host polyphase, device = polyphase on "
+        "--device; auto = device on CUDA, scipy on the CPU",
     )
     p.add_argument(
         "--transfer", choices=("float32", "int16", "mulaw8"),
@@ -111,7 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mode", choices=("pcm", "spectrogram"), default="pcm",
-        help="matching domain (spectrogram is ROADMAP P5)",
+        help="matching domain (spectrogram = noise-robust log-mel NCC)",
     )
     p.add_argument(
         "--device", default="cuda", metavar="DEVICE",
@@ -133,8 +136,6 @@ def run(args: argparse.Namespace) -> int:
     if not paths:
         log.error("no input files")
         return 1
-    if args.mode == "spectrogram":
-        raise NotImplementedError("spectrogram mode is ROADMAP P5")
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError("sweeping over several devices is ROADMAP P7")
     device = common.resolve_device(args.device)
@@ -173,6 +174,13 @@ def run(args: argparse.Namespace) -> int:
         )
         log.info("%s → %d peaks → %s", path.name, len(peaks), out.name)
 
+    spectrogram_config = None
+    if args.mode == "spectrogram":
+        spectrogram_config = SpectrogramConfig(
+            distance_secs=float(args.distance),
+            transfer_dtype=args.transfer,
+            resample_impl=args.resample_impl,
+        )
     results = sweep_archive(
         paths,
         snippets,
@@ -183,6 +191,7 @@ def run(args: argparse.Namespace) -> int:
         write_labels_for=write_result,
         resample_mismatched=args.resample,
         mode=args.mode,
+        spectrogram_config=spectrogram_config,
         group_size=args.group_size,
     )
     log.info("scanned %d file(s) on %s", len(results), device)

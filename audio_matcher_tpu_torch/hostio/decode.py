@@ -7,8 +7,8 @@ Python; mp3 and opus go through the C++ runtime ``native/am_native.cpp``
 this package's ``_build/`` and loaded with :mod:`ctypes`. Without the
 native library, WAV still decodes and mp3/opus raise :class:`DecodeError`.
 
-``resample`` runs scipy's polyphase filter on the host; the device
-resampler is ROADMAP P6, and until then ``impl="auto"`` means scipy.
+``resample`` runs scipy's polyphase filter on the host or the port's
+polyphase matmul on a torch device (``ops.resample``).
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import wave
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..models.matcher import quantize_wire
+from ..ops.resample import resample_poly_device
 
 log = logging.getLogger("audio_matcher_torch.decode")
 
@@ -264,25 +266,43 @@ def read_audio_int16(path: str | Path) -> tuple[int, np.ndarray]:
 RESAMPLE_IMPLS = ("auto", "scipy", "device")
 
 
+def resolve_resample_impl(impl: str, device=None) -> str:
+    """``"auto"`` → ``"device"`` when ``device`` is a CUDA device, else
+    ``"scipy"`` (the counterpart of the JAX package choosing its device
+    resampler when an accelerator is attached); other names pass through,
+    an unknown one raises :class:`ValueError`."""
+    if impl not in RESAMPLE_IMPLS:
+        raise ValueError(f"impl={impl!r}: expected one of {RESAMPLE_IMPLS}")
+    if impl != "auto":
+        return impl
+    if device is not None and torch.device(device).type == "cuda":
+        return "device"
+    return "scipy"
+
+
 def resample(
     samples: np.ndarray,
     sr_from: int,
     sr_to: int,
     impl: str = "scipy",
     wire_int16: bool = False,
+    device=None,
 ) -> np.ndarray:
-    """Polyphase resampling with scipy's ``resample_poly`` (float64 inside,
-    f32 out; the int16 wire is read on the reference PCM scale).
-    ``wire_int16`` returns the int16 staging wire instead of f32.
-    ``impl="device"`` is ROADMAP P6 and raises; ``"auto"`` is scipy until
-    then."""
-    if impl not in RESAMPLE_IMPLS:
-        raise ValueError(f"impl={impl!r}: expected one of {RESAMPLE_IMPLS}")
-    if impl == "device":
-        raise NotImplementedError(
-            "device resampling is ROADMAP P6; use impl='scipy'"
-        )
+    """Polyphase resampling (the int16 wire is read on the reference PCM
+    scale), f32 out, or the int16 staging wire with ``wire_int16``.
+
+    ``impl``: ``"scipy"`` (``resample_poly`` on the host, float64 inside),
+    ``"device"`` (``ops.resample.resample_poly_device`` on ``device``,
+    default the current CUDA device; a failure raises, nothing moves to
+    scipy) or ``"auto"`` (:func:`resolve_resample_impl`: the device path
+    on a CUDA ``device``, scipy otherwise and when no device is given)."""
+    impl = resolve_resample_impl(impl, device)
     samples = quantize_wire(samples, "float32")
+    if impl == "device":
+        return resample_poly_device(
+            samples, sr_from, sr_to, wire_int16,
+            device="cuda" if device is None else device,
+        ).cpu().numpy()
     if sr_from == sr_to:
         out = samples.astype(np.float32)
     else:

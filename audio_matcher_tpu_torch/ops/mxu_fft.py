@@ -29,7 +29,7 @@ _F32 = torch.float32
 
 
 @contextlib.contextmanager
-def _fp32_matmul():
+def fp32_matmul():
     """Full FP32 products inside, whatever the caller's precision."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
@@ -130,7 +130,7 @@ def cfft_scrambled_parts(xr, xi, factors: tuple[int, ...]):
     outputs are views [..., G, c_last] of the scrambled layout, meaningful
     only to :func:`icfft_scrambled_parts` and elementwise arithmetic."""
     x = torch.stack([xr.to(_F32), xi.to(_F32)], dim=-2)
-    with _fp32_matmul():
+    with fp32_matmul():
         out = _fft2p_rec(x, factors, -1)  # [..., 2n]
     v = out.reshape(*out.shape[:-1], -1, 2, factors[-1])
     return v[..., 0, :], v[..., 1, :]
@@ -141,7 +141,7 @@ def icfft_scrambled_parts(yr, yi, factors: tuple[int, ...]):
     scaled by 1/n."""
     y = torch.stack([yr, yi], dim=-2)  # [..., G, 2, cL]
     n2 = y.shape[-3] * y.shape[-2] * y.shape[-1]
-    with _fp32_matmul():
+    with fp32_matmul():
         x = _ifft2p_rec(y.reshape(*y.shape[:-3], n2), factors, -1)
     s = torch.tensor(2.0 / n2, dtype=_F32, device=x.device)
     return x[..., 0, :] * s, x[..., 1, :] * s

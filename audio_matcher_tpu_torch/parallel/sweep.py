@@ -22,8 +22,11 @@ query count, ``fft_impl`` and ``peaks_impl`` (the JAX package's branches of
     peaks come from pick_peaks_dispatch under ``peaks_impl``.
 
 On the host, :meth:`ShardedScanner.scan_collect` rebases positions and
-dedups across windows with ``overshadow_filter``. :func:`sweep_archive`
-runs the scanner over an archive of files, group by group, with prefetched
+dedups across windows with ``overshadow_filter``.
+:class:`ShardedSpectrogramScanner` scans the same staged rows in the
+spectrogram domain (BASELINE config #4: log-mel fingerprints, frame NCC,
+the multi-pass picker; torch ops). :func:`sweep_archive` runs either
+scanner over an archive of files, group by group, with prefetched
 decode, pinned staging uploaded on a side stream and a resumable progress
 store. More than one device raises :class:`NotImplementedError` naming the
 ROADMAP item that ports it.
@@ -56,6 +59,7 @@ from ..models.matcher import (
     window_rows,
     windows_from_episode,
 )
+from ..models.spectrogram import SpectrogramConfig, describe_spectrogram_path
 from ..ops.correlate import (
     corr_single_query_packed,
     corr_slab_xla_packed,
@@ -69,7 +73,19 @@ from ..ops.cuda_fft import (
     scrambled_query_spectra,
 )
 from ..ops.mxu_fft import corr_slab_mxu, scrambled_spectra_parts
-from ..ops.peaks import Peak, pick_peaks_dispatch, pick_peaks_packed
+from ..ops.peaks import (
+    Peak,
+    pick_peaks_core,
+    pick_peaks_dispatch,
+    pick_peaks_packed,
+)
+from ..ops.stft import (
+    log_mel,
+    mel_filterbank,
+    n_frames_of,
+    ncc_frames_multi_core,
+    stft_log_mel_core,
+)
 from ..ops.wire import dequant_to_f32
 
 log = logging.getLogger("audio_matcher_torch.sweep")
@@ -231,11 +247,74 @@ def resident_match_step(
     return step
 
 
-class ShardedScanner:
+class _Scanner:
+    """What the two scanners share: the device, the staging of a group's
+    wire rows, the event behind a dispatched scan and the stage → scan →
+    collect chain. A scanner gives the staged width of its rows
+    (:meth:`_width`), runs the scan of a staged group on the device
+    (:meth:`_scan`) and turns the arrays read back into peaks
+    (:meth:`_peaks`)."""
+
+    def __init__(self, device):
+        if isinstance(device, (list, tuple)):
+            if len(device) != 1:
+                raise NotImplementedError(
+                    "scanning over several devices is ROADMAP P7"
+                )
+            device = device[0]
+        self.device = torch.device(device)
+
+    def stage_resident(self, episodes: Sequence[np.ndarray], pad_to=None):
+        """Pack the batch into one fresh [E, Npad] wire-dtype host buffer
+        (pinned for a CUDA device) and upload it with one copy (on a side
+        stream for a CUDA device, see :func:`upload`). ``pad_to``: minimum
+        episode count (silence rows)."""
+        ns = np.array([len(e) for e in episodes], np.int32)
+        n_max = int(ns.max()) if len(ns) else 0
+        e_pad = max(len(episodes), int(pad_to or 0))
+        return stage_rows_host(
+            episodes, ns, self._width(n_max), self.config.transfer_dtype,
+            e_pad, self.device,
+        )
+
+    def scan_dispatch(self, staged, scale: bool = True):
+        """Run the scan of a :meth:`stage_resident` upload → ((pos, h,
+        prom), ns, n_real, ready): the device tensors may still be in
+        flight; ``ready`` is a CUDA event behind them (None on the CPU)."""
+        episodes_dev, ns, n_real = staged
+        outs = self._scan(episodes_dev, ns, scale)
+        ready = None
+        if episodes_dev.is_cuda:  # lets scan_collect skip later groups' work
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(episodes_dev.device))
+        return outs, ns, n_real, ready
+
+    def scan_collect(self, dispatched) -> list[list[list[Peak]]]:
+        """Read back a :meth:`scan_dispatch` result → peaks[episode][query].
+        Waits for that scan only, not for scans dispatched after it."""
+        outs, ns, n_real, ready = dispatched
+        return self._peaks(read_back(outs, ready), ns, n_real)
+
+    def scan_staged(
+        self, staged, scale: bool = True
+    ) -> list[list[list[Peak]]]:
+        """Scan a :meth:`stage_resident` upload → peaks[episode][query]."""
+        return self.scan_collect(self.scan_dispatch(staged, scale))
+
+    def scan_resident(
+        self, episodes: Sequence[np.ndarray], scale: bool = True, pad_to=None,
+    ) -> list[list[list[Peak]]]:
+        """Stage and scan a batch → peaks[episode][query]."""
+        return self.scan_staged(self.stage_resident(episodes, pad_to), scale)
+
+
+class ShardedScanner(_Scanner):
     """Scan groups of episodes against one or more query snippets on one
     device: the batch scan of BASELINE config #3 at Q ≥ 2, and config #2
     (one episode × one snippet) at Q = 1. Snippets are zero-padded to a
     common length; per-query valid ranges are masked on the device.
+    ``scan_dispatch(staged, scale=False)`` leaves the correlations (and
+    prominences) unscaled by the inverse autocorrelations.
 
     ``device``: the torch device that stages and scans (default the
     current CUDA device; ``"cpu"`` runs every kernel's plain version);
@@ -254,13 +333,7 @@ class ShardedScanner:
         query_state: QueryState | None = None,
         plain: bool = False,
     ):
-        if isinstance(device, (list, tuple)):
-            if len(device) != 1:
-                raise NotImplementedError(
-                    "scanning over several devices is ROADMAP P7"
-                )
-            device = device[0]
-        self.device = torch.device(device)
+        super().__init__(device)
         self.sr = int(sr)
         self.config = cfg = config or MatchConfig()
         self.plain = bool(plain)
@@ -287,6 +360,11 @@ class ShardedScanner:
             padded[i, : p.m] = p.data
         self._sample_padded = padded
         self._state = query_state
+
+    def describe(self) -> str:
+        """Which path the scan runs, for the log."""
+        return describe_path(self.device, self.fft_impl,
+                             self.config.peaks_impl, self.plain)
 
     @property
     def query_state(self) -> QueryState:
@@ -318,27 +396,10 @@ class ShardedScanner:
             )
         return self._state
 
-    def stage_resident(self, episodes: Sequence[np.ndarray], pad_to=None):
-        """Pack the batch into one fresh [E, Npad] wire-dtype host buffer
-        (pinned for a CUDA device) and upload it with one copy (on a side
-        stream for a CUDA device, see :func:`upload`). ``pad_to``: minimum
-        episode count (silence rows)."""
-        ns = np.array([len(e) for e in episodes], np.int32)
-        n_max = int(ns.max()) if len(ns) else 0
-        n_pad = staged_width(self.config, self.chunk, self.overlap, n_max)
-        e_pad = max(len(episodes), int(pad_to or 0))
-        return stage_rows_host(
-            episodes, ns, n_pad, self.config.transfer_dtype, e_pad,
-            self.device,
-        )
+    def _width(self, n_max: int) -> int:
+        return staged_width(self.config, self.chunk, self.overlap, n_max)
 
-    def scan_dispatch(self, staged, scale: bool = True):
-        """Run the scan of a :meth:`stage_resident` upload → ((pos, h,
-        prom), ns, n_real, ready): the device tensors may still be in
-        flight; ``ready`` is a CUDA event behind them (None on the CPU).
-        ``scale=False`` leaves the correlations (and prominences) unscaled
-        by the inverse autocorrelations."""
-        episodes_dev, ns, n_real = staged
+    def _scan(self, episodes_dev, ns, scale: bool):
         cfg = self.config
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         n_max = int(ns.max()) if len(ns) else 0
@@ -351,19 +412,12 @@ class ShardedScanner:
         )
         st = self.query_state
         inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
-        outs = step(episodes_dev, ns, st.t_r, st.t_i, inv_ac, st.m)
-        ready = None
-        if episodes_dev.is_cuda:  # lets scan_collect skip later groups' work
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(episodes_dev.device))
-        return outs, ns, n_real, ready
+        return step(episodes_dev, ns, st.t_r, st.t_i, inv_ac, st.m)
 
-    def scan_collect(self, dispatched) -> list[list[list[Peak]]]:
-        """Read back a :meth:`scan_dispatch` result → peaks[episode][query].
-        Waits for that scan only, not for scans dispatched after it."""
-        outs, ns, n_real, ready = dispatched
+    def _peaks(self, arrays, ns, n_real) -> list[list[list[Peak]]]:
+        """Rebase each window's candidates and dedup across windows."""
         cfg = self.config
-        pos, h, prom = read_back(outs, ready)
+        pos, h, prom = arrays
         out = []
         for e in range(n_real):
             n_windows = max(-(-int(ns[e]) // self.chunk), 1)
@@ -389,17 +443,124 @@ class ShardedScanner:
             out.append(per_query)
         return out
 
-    def scan_staged(
-        self, staged, scale: bool = True
-    ) -> list[list[list[Peak]]]:
-        """Scan a :meth:`stage_resident` upload → peaks[episode][query]."""
-        return self.scan_collect(self.scan_dispatch(staged, scale))
 
-    def scan_resident(
-        self, episodes: Sequence[np.ndarray], scale: bool = True, pad_to=None,
-    ) -> list[list[list[Peak]]]:
-        """Stage and scan a batch → peaks[episode][query]."""
-        return self.scan_staged(self.stage_resident(episodes, pad_to), scale)
+def spectrogram_pad_width(
+    n_max: int, n_fft: int, max_waste: float = 0.25
+) -> int:
+    """Staged episode width of the spectrogram scanner, the JAX package's:
+    the largest power-of-two quantum in [2^18, 2^22] whose padding stays
+    under ``max_waste`` of the real samples, else the 2^18 floor (tiny
+    episodes). Deterministic in (n_max, n_fft), so both packages frame
+    and tile the same padded fingerprint."""
+    n = max(int(n_max), int(n_fft))
+    for b in (1 << 22, 1 << 21, 1 << 20, 1 << 19, 1 << 18):
+        p = max(-(-n // b) * b, b)
+        if p - n <= max_waste * n:
+            return p
+    return p  # the 2^18-quantum width: bounded absolute waste
+
+
+class ShardedSpectrogramScanner(_Scanner):
+    """Scan groups of episodes against query snippets in the spectrogram
+    domain on one device (BASELINE config #4 at archive scale): each
+    staged wire row is decoded on the device, reduced to its block-fused
+    log-mel fingerprint, scored against every query by the overlap-save
+    ZNCC that shares the episode's tile spectra, and its peaks are picked
+    by the multi-pass picker (``ops.peaks.pick_peaks_core``). The same
+    staging and ``scan_resident`` interface as :class:`ShardedScanner`, so
+    the sweep (resume, prefetch, grouping, labels) is shared. Torch ops,
+    no hand-written kernel.
+
+    ``query_fps``: the padded [Q, t_max, n_mels] query fingerprints to
+    scan with (e.g. the JAX scanner's ``_snip_fps``) instead of computing
+    them from ``snippets``. NCC scores are scale-invariant: ``scale`` is
+    accepted and ignored.
+    """
+
+    def __init__(self, snippets, sr, config=None, device="cuda",
+                 query_fps=None):
+        super().__init__(device)
+        self.sr = int(sr)
+        self.config = cfg = config or SpectrogramConfig()
+        self._snippets = [np.asarray(s, np.float32) for s in snippets]
+        self.t_ss = tuple(n_frames_of(len(s), cfg.n_fft, cfg.hop)
+                          for s in self._snippets)
+        self.distance_frames = cfg.frame_distance(self.sr)
+        self._fb = torch.from_numpy(
+            mel_filterbank(cfg.n_mels, cfg.n_fft, self.sr)).to(self.device)
+        self._fps = None
+        if query_fps is not None:
+            self._fps = torch.from_numpy(
+                np.asarray(query_fps, np.float32)).to(self.device)
+
+    def describe(self) -> str:
+        """Which path the scan runs, for the log."""
+        return describe_spectrogram_path(self.device)
+
+    @property
+    def query_fps(self) -> torch.Tensor:
+        """The padded [Q, t_max, n_mels] query fingerprints on the scan's
+        device, computed on first use."""
+        if self._fps is None:
+            cfg = self.config
+            fps = torch.zeros((len(self.t_ss), max(self.t_ss), cfg.n_mels),
+                              dtype=torch.float32, device=self.device)
+            for q, s in enumerate(self._snippets):
+                fps[q, : self.t_ss[q]] = log_mel(
+                    s, self.sr, cfg.n_fft, cfg.hop, cfg.n_mels, fb=self._fb,
+                    device=self.device)
+            self._fps = fps
+        return self._fps
+
+    def _width(self, n_max: int) -> int:
+        return spectrogram_pad_width(n_max, self.config.n_fft)
+
+    def scores(self, row: torch.Tensor) -> torch.Tensor:
+        """One staged wire row [Npad] → its [Q, V] NCC scores against the
+        queries, V = frames of the row − min(t_ss) + 1 (lags past a
+        query's own valid range are not meaningful)."""
+        cfg = self.config
+        n_frames_pad = 1 + (row.shape[0] - cfg.n_fft) // cfg.hop
+        fp = stft_log_mel_core(dequant_to_f32(row), self._fb, cfg.n_fft,
+                               cfg.hop, n_frames_pad)
+        return ncc_frames_multi_core(fp, self.query_fps, self.t_ss)
+
+    def _scan(self, episodes_dev, ns, scale: bool):
+        del scale  # NCC scores are scale-invariant
+        cfg = self.config
+        n_frames_pad = 1 + (episodes_dev.shape[1] - cfg.n_fft) // cfg.hop
+        n_peaks = min(
+            (n_frames_pad - min(self.t_ss) + 1) // self.distance_frames + 2,
+            64,
+        )
+        t_ss = torch.tensor(self.t_ss, device=self.device)
+        per = []
+        for e in range(episodes_dev.shape[0]):
+            scores = self.scores(episodes_dev[e])
+            n_frames = max(1 + (int(ns[e]) - cfg.n_fft) // cfg.hop, 0)
+            valid = (n_frames - t_ss + 1).clamp(min=0)
+            per.append(pick_peaks_core(scores, valid, self.distance_frames,
+                                       n_peaks, 2048))
+        return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+
+    def _peaks(self, arrays, ns, n_real) -> list[list[list[Peak]]]:
+        """Finite heights ≥ ``min_score``, positions in samples, sorted."""
+        cfg = self.config
+        pos, h, prom = arrays
+        out = []
+        for e in range(n_real):
+            per_query = []
+            for q in range(len(self.t_ss)):
+                peaks = [
+                    Peak(int(pos[e, q, s]) * cfg.hop, float(h[e, q, s]),
+                         float(prom[e, q, s]))
+                    for s in range(pos.shape[2])
+                    if np.isfinite(h[e, q, s]) and h[e, q, s] >= cfg.min_score
+                ]
+                peaks.sort(key=lambda p: p.position)
+                per_query.append(peaks)
+            out.append(per_query)
+        return out
 
 
 def sweep_archive(
@@ -413,6 +574,7 @@ def sweep_archive(
     prefetch_depth: int | None = None,
     resample_mismatched: bool = False,
     mode: str = "pcm",
+    spectrogram_config: SpectrogramConfig | None = None,
     group_size: int | None = None,
 ):
     """Scan an archive of files against query snippets, with resume
@@ -431,21 +593,31 @@ def sweep_archive(
     another sample rate unless ``resample_mismatched``, are logged and
     skipped. ``AUDIO_MATCHER_GROUP_BYTES`` (default 1 GiB) bounds a
     group's padded staging buffer and the prefetch queue.
-    ``mode="spectrogram"`` is ROADMAP P5; several devices (a list) are P7.
-    Returns {path: [peaks per query]}.
+    ``mode="spectrogram"`` scans log-mel fingerprints
+    (:class:`ShardedSpectrogramScanner` under ``spectrogram_config``, whose
+    transfer dtype and resampler then apply) on the same machinery.
+    Files at another rate resample by the config's ``resample_impl``,
+    ``"auto"`` resolving from ``device`` (on the card for a CUDA device).
+    Several devices (a list) are ROADMAP P7. Returns {path: [peaks per
+    query]}.
     """
-    from ..hostio.decode import resample
+    from ..hostio.decode import resample, resolve_resample_impl
     from ..hostio.prefetch import decode_prefetched
     from ..meta.progress import Progress, State
 
     if mode == "spectrogram":
-        raise NotImplementedError("spectrogram mode is ROADMAP P5")
-    if mode != "pcm":
+        scanner = ShardedSpectrogramScanner(snippets, sr, spectrogram_config,
+                                            device=device)
+    elif mode == "pcm":
+        scanner = ShardedScanner(snippets, sr, config, device=device)
+    else:
         raise ValueError(f"mode={mode!r}: expected 'pcm' or 'spectrogram'")
-    scanner = ShardedScanner(snippets, sr, config, device=device)
-    log.info("sweep: %s", describe_path(
-        scanner.device, scanner.fft_impl, scanner.config.peaks_impl,
-        scanner.plain))
+    log.info("sweep: %s", scanner.describe())
+    resample_impl = resolve_resample_impl(scanner.config.resample_impl,
+                                          scanner.device)
+    if resample_mismatched:
+        log.info("sweep: files at another rate resample by %s",
+                 resample_impl)
     progress = Progress(progress_path) if progress_path is not None else None
     todo = [p for p in paths
             if progress is None or progress.get(str(p)) != State.DONE]
@@ -484,9 +656,8 @@ def sweep_archive(
                 # the int16 wire only where staging quantizes anyway: a
                 # float32 sweep keeps f32 samples end to end
                 samples = resample(
-                    samples, item.sr, scanner.sr,
-                    impl=scanner.config.resample_impl,
-                    wire_int16=transfer != "float32",
+                    samples, item.sr, scanner.sr, impl=resample_impl,
+                    wire_int16=transfer != "float32", device=scanner.device,
                 )
             ok_items.append(item)
             episodes.append(samples)

@@ -81,7 +81,28 @@ holds every kernel against its plain PyTorch version:
 9. Config #2 through the matcher CLI: ``matcher_cli.run`` on the
    3600 s episode and the 10 s snippet as wav files, mulaw8; the label
    file must hold both plants, and kernels 6, 2, 3, 4 and 5 must each
-   have been launched once a slab of the 3600 s episode.
+   have been launched once a slab of the 3600 s episode. Then
+   ``--mode spectrogram`` on the same files: both plants within one hop,
+   no kernel launched.
+10. Spectrogram mode (BASELINE config #4; torch ops, no hand-written
+   kernel on its path, so every launch count must stay 0): the batch scan
+   at the JAX bench's spectrogram shape (4 x 1800 s x 8 queries of
+   10-13.5 s, int16 wire, n_fft 1024, hop 256, 64 mels, distance 480 s,
+   min_score 0.4; the bench's plants, seed 42, under added noise) through
+   ``ShardedSpectrogramScanner``: every plant within one hop, the first
+   episode's [Q, V] scores within TOL_SPEC of the port's CPU path on the
+   same staged row, stage and scan times, pair audio-hours/s and a
+   profile. Then ``SpectrogramMatcher`` on config #2's pair, p50 of 5.
+11. The device resampler: 600 s of 22.05 kHz and of 48 kHz noise to
+   44.1 kHz through ``hostio.decode.resample(impl="device")``, within
+   TOL_RESAMPLE of scipy's float64 ``resample_poly`` (the int16 wire
+   within 1), timed from the host and device-resident beside scipy. The
+   archive sweep (8) resolves ``--resample`` to it (its log says so) and
+   prints its share of a group; then ``sweep_cli.run --mode spectrogram
+   --resample --progress-file`` over the archive's first 8 files and its
+   22.05 kHz file: every plant of the 44.1 kHz files within one hop in the
+   labels, the 22.05 kHz file's peaks equal to the CPU path's, a resume
+   byte for byte.
 
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -128,6 +149,10 @@ from audio_matcher_tpu_torch.hostio.decode import (  # noqa: E402
     resample,
 )
 from audio_matcher_tpu_torch.hostio.labels import read_labels  # noqa: E402
+from audio_matcher_tpu_torch.models.spectrogram import (  # noqa: E402
+    SpectrogramConfig,
+    SpectrogramMatcher,
+)
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
@@ -146,9 +171,13 @@ from audio_matcher_tpu_torch.ops.correlate import (  # noqa: E402
     corr_slab_xla_packed,
 )
 from audio_matcher_tpu_torch.ops.peaks import peaks_crop_width  # noqa: E402
+from audio_matcher_tpu_torch.ops.resample import (  # noqa: E402
+    resample_poly_device,
+)
 from audio_matcher_tpu_torch.ops.wire import dequant_to_f32  # noqa: E402
 from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
     ShardedScanner,
+    ShardedSpectrogramScanner,
     sweep_archive,
 )
 
@@ -196,6 +225,14 @@ SWEEP_QUERIES = 4
 SWEEP_GROUP = 8  # sweep_archive's default group size
 SWEEP_SLOW_SR = 22050  # one more episode, resampled by the sweep
 CARD = {"line": ""}  # nvidia-smi's name and power limit, set by main()
+# Config #4, the JAX bench's spectrogram shape (BENCH_MODE=spectrogram):
+# 4 x 1800 s x 8 queries of 10-13.5 s, int16 wire, n_fft 1024, hop 256,
+# 64 mels, distance 480 s, min_score 0.4.
+SPEC_QUERIES = 8
+SPEC_NOISE = 0.05  # noise added over each episode, plants included
+TOL_SPEC = 2e-4  # the JAX package's NCC tolerance (tests/test_spectrogram.py)
+TOL_RESAMPLE = 2e-6  # against scipy's float64 resample_poly (tests/test_resample.py)
+RESAMPLE_SECS = 600
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -1010,6 +1047,167 @@ def large_fft(config, device, rows):
         torch.cuda.empty_cache()
 
 
+def check_frame_plants(label, peaks, offsets, hop):
+    """Every episode finds query 0's plants within one hop (the
+    spectrogram mode is frame-accurate)."""
+    want = sorted(int(o * SR) for o in offsets)
+    for e, ep_peaks in enumerate(peaks):
+        got = sorted(p.position for p in ep_peaks if p.height > 0.5)
+        if len(got) != len(want) or any(
+                abs(a - b) > hop for a, b in zip(got, want)):
+            raise AssertionError(
+                f"{label}, episode {e}: plants at {want}, found {got}")
+
+
+def spectrogram_batch(config, device, rows):
+    """Config #4, the batch scan at the JAX bench's spectrogram shape: 4 x
+    1800 s x 8 queries, int16 wire, each episode the bench's (query 0
+    planted at 21 s and 990 s) under its own noise. Every plant within one
+    hop; the first episode's [Q, V] scores on the card within TOL_SPEC of
+    the port's CPU path on the same staged row; no kernel launched (torch
+    ops); stage and scan times, pair-h/s, a profile."""
+    del config, rows  # no kernel row: this path runs torch ops
+    snippets, offsets, base = make_bench_inputs(SPEC_QUERIES, EPISODE_SECS)
+    rng = np.random.default_rng(4)
+    episodes = [quantize_wire(base + rng.standard_normal(
+        len(base), dtype=np.float32) * np.float32(SPEC_NOISE), "int16")
+        for _ in range(N_EPISODES)]
+    del base
+    cfg = SpectrogramConfig(transfer_dtype="int16")
+    scanner = ShardedSpectrogramScanner(snippets, SR, cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = scanner.stage_resident(episodes)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    staged_mb = staged[0].numel() * staged[0].element_size() / 1e6
+    n_frames = 1 + (staged[0].shape[1] - cfg.n_fft) // cfg.hop
+    print(f"config #4: {N_EPISODES} x {EPISODE_SECS} s episodes "
+          f"({sum(len(e) for e in episodes) / 1e6:.1f} M samples), "
+          f"{SPEC_QUERIES} queries of {min(scanner.t_ss)}-"
+          f"{max(scanner.t_ss)} frames, int16, n_fft {cfg.n_fft}, hop "
+          f"{cfg.hop}, {cfg.n_mels} mels; staged width {staged[0].shape[1]} "
+          f"({n_frames} frames a row)")
+    scanner.scan_staged(staged)  # warm: cuFFT plans, the query fingerprints
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, launches = counted(lambda: scanner.scan_staged(staged), ())
+    t_scan = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"the spectrogram scan launched {launches}")
+    check_frame_plants("config #4", [r[0] for r in results], offsets,
+                       cfg.hop)
+    others = [p for r in results for q in r[1:] for p in q]
+    pairs = N_EPISODES * SPEC_QUERIES
+    hours = EPISODE_SECS / 3600.0 * pairs
+    print(f"config #4 stage: {staged_mb:.1f} MB in {t_stage:.3f} s "
+          f"({staged_mb / t_stage:.1f} MB/s); scan {t_scan:.3f} s for "
+          f"{pairs} pairs; pair audio-hours/s: {hours / (t_stage + t_scan):.3f}"
+          f" end to end, {hours / t_scan:.3f} device-resident; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {CARD['line']}")
+    print(f"config #4: query 0's plants found within one hop ({cfg.hop} "
+          f"samples) in all {N_EPISODES} episodes: "
+          f"{[[(p.position, round(p.height, 4)) for p in r[0]] for r in results]}"
+          f"; {len(others)} matches of the 7 unplanted queries; no kernel "
+          f"launched")
+
+    # the first episode's scores, card against the CPU path
+    row = staged[0][0]
+    got = scanner.scores(row).cpu()
+    cpu = ShardedSpectrogramScanner(snippets, SR, cfg, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.scores(row.cpu())
+    t_cpu = time.perf_counter() - t0
+    err = max((got[q, : n_frames - t_s + 1] - want[q, : n_frames - t_s + 1])
+              .abs().max().item() for q, t_s in enumerate(scanner.t_ss))
+    print(f"config #4 scores of episode 0, [{got.shape[0]}, {got.shape[1]}]:"
+          f" max |card - CPU path| = {err:.3e} (tol {TOL_SPEC:g}); the CPU "
+          f"path took {t_cpu:.2f} s")
+    if not err <= TOL_SPEC:
+        raise AssertionError("config #4 scores disagree with the CPU path")
+    profile_run("one config #4 scan", lambda: scanner.scan_staged(staged))
+    print(CARD["line"])
+
+
+def spectrogram_single(config, device, rows):
+    """Config #4 on one pair: ``SpectrogramMatcher`` on the config #2
+    episode (3600 s, plants at 21 s and 1980 s) and its 10 s snippet, p50
+    of REPEATS warm runs from the host's f32 samples; the plants within
+    one hop."""
+    del config, rows
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    matcher = SpectrogramMatcher(snippets[0], SR, device=device)
+    matcher.match(episode)  # warm
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        peaks, launches = counted(lambda: matcher.match(episode), ())
+        times.append(time.perf_counter() - t0)
+    if any(launches.values()):
+        raise AssertionError(f"SpectrogramMatcher launched {launches}")
+    check_frame_plants("config #4 single pair", [peaks], offsets,
+                       matcher.config.hop)
+    print(f"config #4 single pair (1 x {SINGLE_EPISODE_SECS} s x one "
+          f"{SNIPPET_SECS:g} s snippet, SpectrogramMatcher.match from f32 "
+          f"host samples: upload, log-mel, NCC, readback, peaks): p50 of "
+          f"{REPEATS} {statistics.median(times):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in times)}); plants "
+          f"{[(p.position, round(p.height, 4)) for p in peaks]} within one "
+          f"hop; {CARD['line']}")
+
+
+def device_resample(config, device, rows):
+    """The polyphase resampler on the card: 600 s of 22.05 kHz and of
+    48 kHz noise to 44.1 kHz through ``hostio.decode.resample(impl=
+    "device")``, within TOL_RESAMPLE of scipy's float64 resample_poly and
+    the int16 wire within 1; timed from the host (upload, matmul,
+    readback; p50 of REPEATS) and device-resident (CUDA events), beside
+    scipy on one host thread."""
+    del config, rows
+    import scipy.signal
+
+    rng = np.random.default_rng(7)
+    for sr_from in (SWEEP_SLOW_SR, 48000):
+        x = rng.standard_normal(RESAMPLE_SECS * sr_from, dtype=np.float32
+                                ) * np.float32(0.1)
+        g = np.gcd(sr_from, SR)
+        t0 = time.perf_counter()
+        want = scipy.signal.resample_poly(
+            x.astype(np.float64), SR // g, sr_from // g).astype(np.float32)
+        t_scipy = time.perf_counter() - t0
+        got = resample(x, sr_from, SR, impl="device", device=device)
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, launches = counted(
+                lambda: resample(x, sr_from, SR, impl="device",
+                                 device=device), ())
+            times.append(time.perf_counter() - t0)
+        if any(launches.values()) or got.shape != want.shape:
+            raise AssertionError(f"resample: {got.shape}, {launches}")
+        err = float(np.abs(got - want).max())
+        wire = resample(x, sr_from, SR, impl="device", wire_int16=True,
+                        device=device)
+        q = np.clip(np.round(want * 65535.0), -32768, 32767).astype(np.int32)
+        werr = int(np.abs(wire.astype(np.int32) - q).max())
+        xd = torch.from_numpy(x).to(device)
+        ms = cuda_ms(lambda: resample_poly_device(xd, sr_from, SR,
+                                                  device=device))
+        print(f"resample {RESAMPLE_SECS} s {sr_from} -> {SR} Hz "
+              f"({len(x)} -> {len(got)} samples): max |card - scipy| = "
+              f"{err:.3e} (tol {TOL_RESAMPLE:g}), int16 wire within "
+              f"{werr}; card from the host p50 "
+              f"{statistics.median(times) * 1e3:.2f} ms, device-resident "
+              f"{ms:.3f} ms; scipy (float64, one thread) {t_scipy:.3f} s; "
+              f"{CARD['line']}")
+        if not (err < TOL_RESAMPLE and werr <= 1):
+            raise AssertionError(f"the resample at {sr_from} Hz disagrees")
+
+
 def write_mono_wav(path, sr, samples):
     """A mono 16-bit wav of reference-scale samples (the int16 wire)."""
     with wave.open(str(path), "wb") as w:
@@ -1120,6 +1318,9 @@ def archive_sweep(config, device, rows):
             raise AssertionError(f"sweep_cli.run returned {rc}")
         print("sweep path: " + next(m for m in records.messages
                                     if m.startswith("sweep: ")))
+        if "sweep: files at another rate resample by device" not in (
+                records.messages):
+            raise AssertionError("--resample did not resolve to the card")
         skipped = [m for m in records.messages if m.startswith("skipping")]
         print(f"sweep log, skipped: {skipped}")
         if len(skipped) != 1 or "zz_random.wav" not in skipped[0]:
@@ -1159,19 +1360,28 @@ def archive_sweep(config, device, rows):
         scanner = ShardedScanner(snippets, SR, cfg, device=device)
         plain = ShardedScanner(snippets, SR, cfg, device=device,
                                query_state=scanner.query_state, plain=True)
-        # the host's share of a group, one thread: decode, then the scipy
-        # resample the sweep runs for the 22.05 kHz file
+        # the host's share of a group, one thread: decode; then the
+        # resample of the 22.05 kHz file, on the card as the sweep runs it
+        # and with scipy as it ran before
         t0 = time.perf_counter()
         episodes = [read_audio_int16(root / name)[1] for name in names]
         t_decode = time.perf_counter() - t0
         slow_sr, slow = read_audio_int16(
             root / next(n for n in plants if n.endswith("_22k.wav")))
-        t0 = time.perf_counter()
-        resample(slow, slow_sr, SR, wire_int16=True)
+        t_resample = {}
+        for impl in ("device", "device", "scipy"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resample(slow, slow_sr, SR, impl=impl, wire_int16=True,
+                     device=device)
+            t_resample[impl] = time.perf_counter() - t0
+        t_group = t_sweep / -(-len(plants) // SWEEP_GROUP)
         print(f"host, one thread: wav decode of one group ({SWEEP_GROUP} "
-              f"files) {t_decode:.3f} s; scipy resample of the "
-              f"{slow_sr} Hz file {time.perf_counter() - t0:.3f} s; "
-              f"{CARD['line']}")
+              f"files) {t_decode:.3f} s; resample of the {slow_sr} Hz file "
+              f"on the card {t_resample['device']:.3f} s (warm; "
+              f"{100 * t_resample['device'] / t_group:.1f} % of the sweep's "
+              f"mean group, {t_group:.3f} s), with scipy "
+              f"{t_resample['scipy']:.3f} s; {CARD['line']}")
         staged = scanner.stage_resident(episodes)
         compare_raw("sweep, first group", scanner.scan_dispatch(staged)[0],
                     plain.scan_dispatch(staged)[0])
@@ -1224,6 +1434,97 @@ def archive_sweep(config, device, rows):
                     lambda: sweep_archive([root / name for name in names],
                                           snippets, SR, cfg, device=device))
         print(CARD["line"])
+        spectrogram_sweep(root, plants, snippets, device)
+
+
+def spectrogram_sweep(root, plants, snippets, device):
+    """Config #4 through the sweep CLI: ``sweep_cli.run --mode
+    spectrogram --resample --progress-file`` over the archive's first
+    SWEEP_GROUP files and its 22.05 kHz file (int16 wire, resampled on the
+    card). Every plant of the 44.1 kHz files within one hop in the labels.
+    The 22.05 kHz file's plants are half-band, aliased copies of
+    full-band noise snippets, which a log-mel NCC over all 64 mels does
+    not match (nor does the JAX package's, the same arithmetic): its peaks
+    must equal the port's CPU path on the same file. A resume from a
+    progress file holding the first half rewrites the rest byte for byte.
+    No kernel is launched."""
+    slow = next(n for n in plants if n.endswith("_22k.wav"))
+    names = sorted(n for n in plants if n != slow)[:SWEEP_GROUP] + [slow]
+    spec = root / "spectrogram"
+    spec.mkdir()
+    for name in names:
+        (spec / name).symlink_to(root / name)
+    argv = [str(spec / "ep*.wav"), "--mode", "spectrogram", "--resample",
+            "--progress-file", str(spec / ".done.txt"), "--device",
+            str(device)]
+    for q in range(SWEEP_QUERIES):
+        argv += ["--snippet", str(root / f"snippet{q}.wav")]
+    ns = sweep_cli.build_parser().parse_args(argv)
+    records = _Records()
+    logger = logging.getLogger("audio_matcher_torch")
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, launches = counted(lambda: sweep_cli.run(ns), ())
+        t_sweep = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(records)
+    path = [m for m in records.messages if m.startswith("sweep: ")]
+    print(f"spectrogram sweep log: {path}")
+    if rc != 0 or any(launches.values()) or not any(
+            "spectrogram mode" in m for m in path) or (
+            "sweep: files at another rate resample by device" not in path):
+        raise AssertionError(f"spectrogram sweep: rc {rc}, {launches}")
+    done = (spec / ".done.txt").read_text().splitlines()
+    if len(done) != len(names) or not all(
+            line.endswith(" Done") for line in done):
+        raise AssertionError(f"spectrogram sweep .done.txt: {done}")
+    hop = SpectrogramConfig().hop
+    for name in names[:-1]:
+        for q, (p1, p2) in enumerate(plants[name]):
+            labels = read_labels((spec / name).with_suffix(f".q{q}.txt"))
+            got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
+            if len(got) != 1 or abs(got[0][0] - p1) > hop + 0.5 or (
+                    abs(got[0][1] - p2) > hop + 0.5):
+                raise AssertionError(f"spectrogram sweep {name}, query {q}: "
+                                     f"plants at {(p1, p2)}, labels {got}")
+    cfg = SpectrogramConfig(transfer_dtype="int16", resample_impl="device")
+    want = sweep_archive([spec / slow], snippets, SR, device="cpu",
+                         mode="spectrogram", spectrogram_config=cfg,
+                         resample_mismatched=True)[str(spec / slow)]
+    got = sweep_archive([spec / slow], snippets, SR, device=device,
+                        mode="spectrogram", spectrogram_config=cfg,
+                        resample_mismatched=True)[str(spec / slow)]
+    for g, w in zip(got, want):
+        if [p.position for p in g] != [p.position for p in w] or any(
+                abs(a.height - b.height) > TOL_SPEC for a, b in zip(g, w)):
+            raise AssertionError(f"{slow}: card {got}, CPU path {want}")
+    pair_h = len(names) * SWEEP_QUERIES * SWEEP_EPISODE_SECS / 3600.0
+    print(f"spectrogram sweep (decode + resample + stage + scan + labels): "
+          f"{len(names)} files in {t_sweep:.3f} s, "
+          f"{len(names) / t_sweep:.3f} files/s, {pair_h / t_sweep:.3f} pair "
+          f"audio-hours/s; every plant of the {len(names) - 1} files at "
+          f"{SR} Hz within one hop; {slow} (plants half-band): card "
+          f"{[len(g) for g in got]} matches a query, the CPU path "
+          f"{[len(w) for w in want]}; no kernel launched; {CARD['line']}")
+
+    first = {f.name: f.read_bytes() for f in sorted(spec.glob("*.q*.txt"))}
+    for f in spec.glob("*.q*.txt"):
+        f.unlink()
+    keep = len(names) // 2
+    (spec / ".done.txt").write_text("\n".join(done[:keep]) + "\n")
+    if sweep_cli.run(ns) != 0:
+        raise AssertionError("the resumed spectrogram sweep failed")
+    again = {f.name: f.read_bytes() for f in spec.glob("*.q*.txt")}
+    skip = {f"{Path(n).stem}.q{q}.txt" for n in names[:keep]
+            for q in range(SWEEP_QUERIES)}
+    if again != {k: v for k, v in first.items() if k not in skip} or (
+            (spec / ".done.txt").read_text().splitlines() != done):
+        raise AssertionError("the resumed spectrogram sweep differs")
+    print(f"spectrogram resume: {len(again)} label files rewritten byte for "
+          f"byte, .done.txt equal")
 
 
 def matcher_cli_run(config, device, rows):
@@ -1267,6 +1568,25 @@ def matcher_cli_run(config, device, rows):
               f"{PLANT_TOL} sample; launches {launches} (one a slab, {slabs} "
               f"slabs); {CARD['line']}")
 
+        # config #4 on the same files: --mode spectrogram, no kernel
+        ns = parser.parse_args(argv + ["--mode", "spectrogram", "-o",
+                                       str(root / "episode.spec.txt")])
+        t0 = time.perf_counter()
+        rc, launches = counted(lambda: matcher_cli.run(ns), ())
+        t_run = time.perf_counter() - t0
+        hop = SpectrogramConfig().hop
+        labels = read_labels(root / "episode.spec.txt")
+        got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
+        if rc != 0 or any(launches.values()) or len(got) != 1 or any(
+                abs(g - w) > hop + 0.5 for g, w in zip(got[0], want)):
+            raise AssertionError(f"matcher CLI --mode spectrogram: rc {rc}, "
+                                 f"labels {got}, plants {want}, {launches}")
+        print(f"matcher CLI --mode spectrogram, config #4 single pair "
+              f"({SINGLE_EPISODE_SECS} s episode, decode + log-mel + NCC + "
+              f"labels): {t_run:.3f} s; label {labels[0].to_line()!r} holds "
+              f"both plants within one hop; no kernel launched; "
+              f"{CARD['line']}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1294,7 +1614,8 @@ def main() -> int:
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
-                  jnp_scan, single_query_jnp, large_fft, archive_sweep,
+                  jnp_scan, single_query_jnp, large_fft, spectrogram_batch,
+                  spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run):
         t0 = time.perf_counter()
         phase(config, dev, rows)

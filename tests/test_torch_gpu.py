@@ -647,3 +647,97 @@ def test_sweep_archive_on_cuda_matches_cpu(dev, tmp_path):
     for p in paths:
         if p.name != "ep9.wav":
             assert outs["cuda"][str(p)][0] or outs["cuda"][str(p)][1]
+
+
+def _noise_fps(seed, t_e, t_ss, m=64):
+    """Log-mel-like fingerprints: mean -6, spread 3, like noisy audio."""
+    rng = np.random.default_rng(seed)
+    ep = (rng.standard_normal((t_e, m)) * 3 - 6).astype(np.float32)
+    snips = np.zeros((len(t_ss), max(t_ss), m), np.float32)
+    for q, t_s in enumerate(t_ss):
+        snips[q, :t_s] = ep[1000 + 37 * q : 1000 + 37 * q + t_s]
+    return ep, snips
+
+
+def test_spectrogram_scores_on_cuda_match_cpu(dev):
+    """The frame NCC over full 65536-frame tiles (the f32 box-filter
+    cancellation the float64 statistics avoid) and a spectrogram scan on
+    the card: scores within 2e-4 of the CPU path, peaks at the same
+    frames."""
+    from audio_matcher_tpu_torch.models.spectrogram import SpectrogramConfig
+    from audio_matcher_tpu_torch.ops.stft import ncc_frames_multi_core
+    from audio_matcher_tpu_torch.parallel.sweep import (
+        ShardedSpectrogramScanner)
+
+    t_ss = (1719, 2322, 1900)
+    ep, snips = _noise_fps(3, 150000, t_ss)
+    want = ncc_frames_multi_core(torch.from_numpy(ep), torch.from_numpy(snips),
+                                 t_ss)
+    got = ncc_frames_multi_core(torch.from_numpy(ep).to(dev),
+                                torch.from_numpy(snips).to(dev), t_ss).cpu()
+    for q, t_s in enumerate(t_ss):
+        v = ep.shape[0] - t_s + 1
+        assert (got[q, :v] - want[q, :v]).abs().max().item() < 2e-4
+    sr = 44100
+    rng = np.random.default_rng(4)
+    snippet = (rng.standard_normal(10 * sr) * 0.15).astype(np.float32)
+    episodes = []
+    for at in (30.0, 200.0):
+        x = (rng.standard_normal(300 * sr) * 0.05).astype(np.float32)
+        x[int(at * sr) : int(at * sr) + len(snippet)] += snippet
+        episodes.append(x)
+    cfg = SpectrogramConfig(distance_secs=60.0, transfer_dtype="int16")
+    peaks = {name: ShardedSpectrogramScanner([snippet], sr, cfg, device=d)
+             .scan_resident(episodes) for name, d in (("cuda", dev),
+                                                      ("cpu", "cpu"))}
+    for g, w in zip(peaks["cuda"], peaks["cpu"]):
+        assert [p.position for p in g[0]] == [p.position for p in w[0]]
+        assert all(abs(a.height - b.height) < 2e-4 for a, b in zip(g[0], w[0]))
+    for e, at in zip(peaks["cuda"], (30.0, 200.0)):  # within one hop
+        assert abs(max(e[0], key=lambda p: p.height).position
+                   - int(at * sr)) <= cfg.hop
+
+
+def test_device_resample_on_cuda_matches_scipy(dev):
+    """600 s of 48 kHz noise to 44.1 kHz on the card: within 2e-6 of
+    scipy's float64 resample_poly, the int16 wire within 1."""
+    import scipy.signal
+
+    from audio_matcher_tpu_torch.ops.resample import resample_poly_device
+
+    x = (np.random.default_rng(5).standard_normal(600 * 48000) * 0.1).astype(
+        np.float32)
+    want = scipy.signal.resample_poly(x.astype(np.float64), 147, 160).astype(
+        np.float32)
+    got = resample_poly_device(x, 48000, 44100, device=dev)
+    assert got.is_cuda and tuple(got.shape) == want.shape
+    assert np.abs(got.cpu().numpy() - want).max() < 2e-6
+    w = resample_poly_device(x, 48000, 44100, wire_int16=True, device=dev)
+    q = np.clip(np.round(want * 65535.0), -32768, 32767).astype(np.int32)
+    assert np.abs(w.cpu().numpy().astype(np.int32) - q).max() <= 1
+
+
+def test_device_resample_ignores_the_callers_tf32(dev):
+    """With the caller's TF32 on (matmul and cuDNN), the resample gives the
+    same bits as with it off, and the caller's settings survive."""
+    from audio_matcher_tpu_torch.ops.resample import resample_poly_device
+
+    x = (np.random.default_rng(6).standard_normal(30 * 22050) * 0.1).astype(
+        np.float32)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        off = resample_poly_device(x, 22050, 44100, device=dev)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        on = resample_poly_device(x, 22050, 44100, device=dev)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.equal(on, off)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+        torch.set_float32_matmul_precision(prev[2])

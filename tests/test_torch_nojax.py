@@ -72,6 +72,27 @@ _SCAN_WITHOUT_JAX = textwrap.dedent(
             got = [(lb.start, lb.end) for lb in read_labels(d / f"ep{e}.txt")]
             assert got == [(4.0, 4.0)], got  # plants 3 s apart: clamped
         assert (d / ".done.txt").read_text().count("Done") == 3
+
+        # spectrogram mode over the same files, one resampled on the CPU
+        # device by the torch polyphase path
+        from audio_matcher_tpu_torch.hostio.decode import resample
+        from audio_matcher_tpu_torch.models.spectrogram import (
+            SpectrogramConfig)
+        from audio_matcher_tpu_torch.parallel.sweep import sweep_archive
+        x = (rng.standard_normal(12 * sr) * 0.05).astype(np.float32)
+        x[5 * sr : 5 * sr + 4000] += snippets[0]
+        write_wav(d / "ep_16k.wav", 2 * sr, resample(
+            x, sr, 2 * sr, impl="device", device="cpu"))
+        got = sweep_archive(
+            sorted(d.glob("ep*.wav")), snippets[:1], sr, device="cpu",
+            mode="spectrogram", resample_mismatched=True,
+            spectrogram_config=SpectrogramConfig(
+                distance_secs=2.0, resample_impl="device", min_score=0.5))
+        assert len(got) == 4, got
+        for path, per_query in got.items():
+            want = [5 * sr] if "16k" in path else [sr, 4 * sr]
+            assert [p.position // 256 for p in per_query[0]] == [
+                w // 256 for w in want], (path, per_query)
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules if sys.modules[m] is not None)
     assert "audio_matcher_tpu" not in sys.modules

@@ -225,15 +225,21 @@ def test_sweep_on_the_fused_path_matches_jax(tmp_path):
 
 
 def test_sweep_refuses_what_is_not_ported(tmp_path):
+    """Several devices are ROADMAP P7; an unknown mode raises. Spectrogram
+    mode and the device resampler are ported: the 500 Hz file resamples
+    on the CPU device by the torch polyphase path."""
     snippets, paths = _archive(tmp_path)
-    with pytest.raises(NotImplementedError, match="P5"):
-        sweep_archive(paths, snippets, SR, device="cpu", mode="spectrogram")
     with pytest.raises(NotImplementedError, match="P7"):
         sweep_archive(paths, snippets, SR, device=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="P7"):
+        sweep_archive(paths, snippets, SR, device=["cpu", "cpu"],
+                      mode="spectrogram")
+    with pytest.raises(ValueError, match="mode"):
+        sweep_archive(paths, snippets, SR, device="cpu", mode="cqt")
     cfg = MatchConfig(**KW, resample_impl="device")
-    with pytest.raises(NotImplementedError, match="P6"):
-        sweep_archive(paths[-1:], snippets, SR, cfg, device="cpu",
-                      resample_mismatched=True)
+    got = sweep_archive(paths[-1:], snippets, SR, cfg, device="cpu",
+                        resample_mismatched=True)
+    assert [p.position for p in got[str(paths[-1])][0]] == [2 * SR]
 
 
 def _stage_inputs(wire):
