@@ -13,14 +13,19 @@ query snippet, BASELINE config #2), and
 :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedScanner` (a batch
 of episodes against one or more snippets, configs #2 and #3), and
 :func:`~audio_matcher_tpu_torch.parallel.sweep.sweep_archive` over files on
-disk (config #5 on one device); the spectrogram mode (config #4),
+disk (config #5); the spectrogram mode (config #4),
 :class:`~audio_matcher_tpu_torch.models.spectrogram.SpectrogramMatcher`
 and :class:`~audio_matcher_tpu_torch.parallel.sweep.ShardedSpectrogramScanner`,
-and the device resampler ``ops.resample.resample_poly_device``. The CLIs ``cli.matcher_cli``
+and the device resampler ``ops.resample.resample_poly_device``. The
+scanners and the sweep run on one device or on a mesh of them
+(:func:`make_mesh`, :func:`make_local_mesh`), and the sweep over the
+processes of a cluster (:func:`init_distributed`). The CLIs ``cli.matcher_cli``
 (``audio-matcher-torch``) and ``cli.sweep_cli`` (``audio-sweep-torch``)
 drive them from files, with the host modules ``hostio`` (decode, labels,
 prefetch), ``meta`` (the resume store and tags) and ``utils``.
 """
+
+from .parallel.mesh import init_distributed, make_local_mesh, make_mesh
 
 APP_NAME = "audio-matcher"  # config dir name, as the JAX package's
 

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -59,6 +60,8 @@ class _Loaded:
     lib: ctypes.CDLL | None = None
     log: str = ""
     seconds: float = 0.0
+    # the scan of a mesh issues its shards from one host thread each
+    lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -139,15 +142,25 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (once, whatever the number
+    of threads asking)."""
     if _Loaded.lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _Loaded.lib = lib
+        with _Loaded.lock:
+            if _Loaded.lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _Loaded.lib = lib
     return _Loaded.lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches
+    (under a lock: the shards of a mesh launch from several threads)."""
+    with _Loaded.lock:
+        wrapper.launches += 1
 
 
 def build_log() -> str:

@@ -5,9 +5,16 @@ against one or more query snippets in groups, with prefetched decode and a
 resumable ``.done.txt`` store, writing one Audacity label file per
 (recording, query): ``<file>.txt`` for one snippet, ``<file>.q{i}.txt``
 for several. ``--device`` (default ``cuda``) names the torch device that
-scans; ``--mode spectrogram`` scans log-mel fingerprints (torch ops on the
-device); ``--resample-impl auto`` resamples on a CUDA device and with scipy
-on the CPU; ``--devices`` above 1 is ROADMAP P7.
+scans and ``--devices N`` a mesh of N of its kind (N cards, or N shards of
+the CPU); ``--mode spectrogram`` scans log-mel fingerprints (torch ops on
+the device); ``--resample-impl auto`` resamples on a CUDA device and with
+scipy on the CPU.
+
+Several processes sweep one archive together when each is started with
+``AM_COORDINATOR`` (``host:port`` of process 0), ``AM_NUM_PROCESSES`` and
+its own ``AM_PROCESS_ID``: each scans every N-th file on its own devices
+(all it sees, unless ``--devices`` says how many) and writes its own
+labels; give each its own ``--progress-file``, or one shared by all.
 
     python -m audio_matcher_tpu_torch.cli.sweep_cli 'archive/**/*.mp3' \\
         --snippet intro.mp3 --progress-file .done.txt --device cpu
@@ -33,6 +40,11 @@ from ..models.matcher import (
     MatchConfig,
 )
 from ..models.spectrogram import SpectrogramConfig
+from ..parallel.mesh import (
+    init_distributed,
+    make_mesh,
+    shutdown_distributed,
+)
 from ..parallel.sweep import sweep_archive
 from ..utils.durations import parse_duration
 from . import common
@@ -74,11 +86,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--devices", type=int, metavar="N",
-        help="devices to scan on (default 1; more is ROADMAP P7)",
+        help="the first N devices of --device's kind to scan on, as a mesh "
+        "(default 1; in a cluster, all of this process's)",
     )
     p.add_argument(
         "--group-size", type=int, metavar="N",
-        help="episodes per device dispatch (default 8). Host memory scales "
+        help="episodes per dispatch (default 8 on one device, the mesh's size "
+        "on several; rounded up to a multiple of it). Host memory scales "
         "with group size x episode length — pass 1 for very long episodes "
         "on small hosts",
     )
@@ -136,8 +150,6 @@ def run(args: argparse.Namespace) -> int:
     if not paths:
         log.error("no input files")
         return 1
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError("sweeping over several devices is ROADMAP P7")
     device = common.resolve_device(args.device)
 
     snippets = []
@@ -181,20 +193,34 @@ def run(args: argparse.Namespace) -> int:
             transfer_dtype=args.transfer,
             resample_impl=args.resample_impl,
         )
-    results = sweep_archive(
-        paths,
-        snippets,
-        sr,
-        config,
-        device=device,
-        progress_path=args.progress_file,
-        write_labels_for=write_result,
-        resample_mismatched=args.resample,
-        mode=args.mode,
-        spectrogram_config=spectrogram_config,
-        group_size=args.group_size,
-    )
-    log.info("scanned %d file(s) on %s", len(results), device)
+    # join a configured cluster (from AM_*; a no-op otherwise), then the
+    # devices: the first N of --device's kind, or in a cluster all of this
+    # process's own
+    joined = init_distributed()
+    try:
+        scan_on = device
+        if args.devices is not None or joined:
+            mesh = make_mesh(args.devices, device)
+            if mesh.size > 1:
+                scan_on = mesh
+        results = sweep_archive(
+            paths,
+            snippets,
+            sr,
+            config,
+            device=scan_on,
+            progress_path=args.progress_file,
+            write_labels_for=write_result,
+            resample_mismatched=args.resample,
+            mode=args.mode,
+            spectrogram_config=spectrogram_config,
+            group_size=args.group_size,
+        )
+    finally:
+        if joined:
+            shutdown_distributed()
+    where = scan_on.describe() if scan_on is not device else str(device)
+    log.info("scanned %d file(s) on %s", len(results), where)
     return 0
 
 

@@ -145,17 +145,19 @@ def is_fused(fft_impl: str, peaks_impl: str) -> bool:
 
 
 def describe_path(device: torch.device, fft_impl: str, peaks_impl: str,
-                  plain: bool) -> str:
-    """Which path a scan runs, for the log: the device, the correlation
-    and peak paths, and whether the kernels or their plain versions run
-    (CPU tensors always take the plain versions)."""
+                  plain: bool, where: str | None = None) -> str:
+    """Which path a scan runs, for the log: the device (``where``, e.g. a
+    mesh, in its place), the correlation and peak paths, and whether the
+    kernels or their plain versions run (CPU tensors always take the plain
+    versions)."""
     if plain or device.type != "cuda":
         kernels = "the kernels' plain PyTorch versions"
     elif fft_impl == "vpu" or peaks_impl == "pallas":
         kernels = "the hand-written CUDA kernels"
     else:
         kernels = "torch ops (no hand-written kernel on this path)"
-    return (f"device {device}, fft_impl {fft_impl}, peaks_impl {peaks_impl}, "
+    where = where or f"device {device}"
+    return (f"{where}, fft_impl {fft_impl}, peaks_impl {peaks_impl}, "
             f"{kernels}")
 
 

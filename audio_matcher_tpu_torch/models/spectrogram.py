@@ -41,10 +41,12 @@ class SpectrogramConfig:
         return max(int(self.distance_secs * sr / self.hop), 1)
 
 
-def describe_spectrogram_path(device: torch.device) -> str:
-    """Which path a spectrogram scan runs, for the log."""
-    return (f"device {device}, spectrogram mode (log-mel NCC), torch ops "
-            "(no hand-written kernel on this path)")
+def describe_spectrogram_path(device: torch.device,
+                              where: str | None = None) -> str:
+    """Which path a spectrogram scan runs, for the log (``where``, e.g. a
+    mesh, in place of the device)."""
+    return (f"{where or f'device {device}'}, spectrogram mode (log-mel "
+            "NCC), torch ops (no hand-written kernel on this path)")
 
 
 class SpectrogramMatcher:

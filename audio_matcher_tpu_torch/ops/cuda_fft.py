@@ -293,7 +293,7 @@ def fft_major_fwd_wire(xw, A: int, n: int, w_len: int, out=None):
             eff, _stream(xw),
         )
     _build.check(rc, "am_major_fwd_wire")
-    fft_major_fwd_wire.launches += 1
+    _build.count_launch(fft_major_fwd_wire)
     return yr, yi
 
 
@@ -347,7 +347,7 @@ def fft_major_fwd_wire2(x0, x1, A: int, n: int, w_len: int, out=None):
             _twiddles(A, x0), P, log2A, log2M, eff, _stream(x0),
         )
     _build.check(rc, "am_major_fwd_wire2")
-    fft_major_fwd_wire2.launches += 1
+    _build.count_launch(fft_major_fwd_wire2)
     return yr, yi
 
 
@@ -396,7 +396,7 @@ def fft_minor(xr, xi, M: int, out=None):
     if not on_cuda(xr, xi):
         return fft_minor_plain(xr, xi, M, out)
     got = _minor_launch("am_minor_forward", xr, xi, M, out)
-    fft_minor.launches += 1
+    _build.count_launch(fft_minor)
     return got
 
 
@@ -410,7 +410,7 @@ def ifft_minor(xr, xi, M: int, out=None):
     if not on_cuda(xr, xi):
         return ifft_minor_plain(xr, xi, M, out)
     got = _minor_launch("am_minor_inverse", xr, xi, M, out)
-    ifft_minor.launches += 1
+    _build.count_launch(ifft_minor)
     return got
 
 
@@ -459,7 +459,7 @@ def ifft_minor_product(xr, xi, tr, ti, M: int, out=None):
             _stream(xr),
         )
     _build.check(rc, "am_minor_product")
-    ifft_minor_product.launches += 1
+    _build.count_launch(ifft_minor_product)
     return yr, yi
 
 
@@ -517,7 +517,7 @@ def fft_major(xr, xi, A: int, n: int, a_crop: int, out=None):
             _twiddles(A, xr), P, log2A, log2M, a_crop, _stream(xr),
         )
     _build.check(rc, "am_major_inverse")
-    fft_major.launches += 1
+    _build.count_launch(fft_major)
     return yr, yi
 
 
@@ -548,7 +548,7 @@ def fft_major_forward(xr, xi, A: int, n: int, out=None):
             _twiddles(A, xr), P, log2A, log2M, _stream(xr),
         )
     _build.check(rc, "am_major_forward")
-    fft_major_forward.launches += 1
+    _build.count_launch(fft_major_forward)
     return yr, yi
 
 

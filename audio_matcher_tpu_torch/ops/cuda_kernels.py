@@ -210,7 +210,7 @@ def local_max_block_reduce_packed(yr, yi, scale, valid_len, block: int = 512):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "am_block_reduce_packed")
-    local_max_block_reduce_packed.launches += 1
+    _build.count_launch(local_max_block_reduce_packed)
     return bv, bp, bmin, bmax
 
 
@@ -241,7 +241,7 @@ def local_max_block_reduce(x, valid_len, block: int = 512):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "am_block_reduce")
-    local_max_block_reduce.launches += 1
+    _build.count_launch(local_max_block_reduce)
     return bv, bp, bmin, bmax
 
 

@@ -28,15 +28,27 @@ spectrogram domain (BASELINE config #4: log-mel fingerprints, frame NCC,
 the multi-pass picker; torch ops). :func:`sweep_archive` runs either
 scanner over an archive of files, group by group, with prefetched
 decode, pinned staging uploaded on a side stream and a resumable progress
-store. More than one device raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it.
+store.
+
+On several devices (a :class:`~.mesh.Mesh`, or a list of devices) a staged
+group's rows shard over the flattened mesh in contiguous blocks of
+⌈E/n⌉ rows, block i on device i; each block is uploaded on its device's
+side stream, scanned there by the same step (a host thread a device
+issues its shards) and read back after its own event, and the blocks
+concatenate in row order on the host. The scan is
+collective-free, as the JAX package's ``shard_map`` is. The legacy windows
+path :meth:`ShardedScanner.scan` shards an [E, C, W] window tensor over
+the mesh's (data, seq) grid, and :func:`sweep_archive` splits its files
+over the processes of a cluster (``mesh.init_distributed``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -47,6 +59,7 @@ from ..models.matcher import (
     check_fft_len,
     correlation_crop,
     describe_path,
+    fill_wire_rows,
     is_fused,
     overshadow_filter,
     pad_wire_on_device,
@@ -56,6 +69,7 @@ from ..models.matcher import (
     single_query_slab,
     stage_rows_host,
     staged_width,
+    upload,
     window_rows,
     windows_from_episode,
 )
@@ -87,6 +101,7 @@ from ..ops.stft import (
     stft_log_mel_core,
 )
 from ..ops.wire import dequant_to_f32
+from .mesh import Mesh, make_local_mesh, process_count, process_index
 
 log = logging.getLogger("audio_matcher_torch.sweep")
 
@@ -111,6 +126,11 @@ class QueryState:
     t_i: torch.Tensor
     inv_ac: torch.Tensor
     m: torch.Tensor
+
+    def to(self, device) -> "QueryState":
+        """The state on ``device`` (the same tensors if they are there)."""
+        return QueryState(self.t_r.to(device), self.t_i.to(device),
+                          self.inv_ac.to(device), self.m.to(device))
 
 
 def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
@@ -247,53 +267,151 @@ def resident_match_step(
     return step
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedRows:
+    """A group's wire rows staged over several devices: ``blocks[i]`` is
+    (first row, rows [r, Npad]) on its device, in row order (a device the
+    rows do not reach holds no block), and ``host`` the pinned buffer they
+    were copied from, held until the scan that reads them is collected."""
+
+    blocks: tuple[tuple[int, torch.Tensor], ...]
+    host: torch.Tensor
+
+
+def _on(device: torch.device):
+    """``device`` as the current CUDA device (nothing on the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _issue_stream(device: torch.device):
+    """The calling thread's current stream of ``device`` (None on the
+    CPU): a shard's thread issues its scan there, behind the upload."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def _on_stream(stream):
+    """``stream`` (and its device) current in this thread; nothing for
+    None."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
+def _ready_event(device: torch.device):
+    """A CUDA event behind the work queued so far on ``device``'s current
+    stream (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return ready
+
+
 class _Scanner:
-    """What the two scanners share: the device, the staging of a group's
+    """What the two scanners share: the devices, the staging of a group's
     wire rows, the event behind a dispatched scan and the stage → scan →
     collect chain. A scanner gives the staged width of its rows
-    (:meth:`_width`), runs the scan of a staged group on the device
-    (:meth:`_scan`) and turns the arrays read back into peaks
-    (:meth:`_peaks`)."""
+    (:meth:`_width`), builds its per-device state (:meth:`_prepare`), runs
+    the scan of staged rows on their device (:meth:`_scan`) and turns the
+    arrays read back into peaks (:meth:`_peaks`).
+
+    ``device``: one device, a list of devices or a :class:`~.mesh.Mesh`.
+    On one device a group stages as one tensor and scans in one call; on
+    several, its rows shard over ``mesh.flat`` (:class:`ShardedRows`)."""
 
     def __init__(self, device):
-        if isinstance(device, (list, tuple)):
-            if len(device) != 1:
-                raise NotImplementedError(
-                    "scanning over several devices is ROADMAP P7"
-                )
-            device = device[0]
-        self.device = torch.device(device)
+        if isinstance(device, Mesh):
+            self.mesh = device
+        elif isinstance(device, (list, tuple)):
+            self.mesh = Mesh.of(device)
+        else:
+            self.mesh = Mesh.of([device])
+        self.devices = self.mesh.flat
+        self.device = self.devices[0]
+
+    def _where(self) -> str:
+        """The device or the mesh, for the log."""
+        if len(self.devices) == 1:
+            return f"device {self.device}"
+        return self.mesh.describe()
+
+    def _row_blocks(self, e_pad: int):
+        """(device, first row, end row) of each shard that holds rows:
+        ⌈e_pad / n⌉ rows a device in mesh order, the last block shorter."""
+        per = -(-e_pad // len(self.devices))
+        return [(d, i * per, min((i + 1) * per, e_pad))
+                for i, d in enumerate(self.devices) if i * per < e_pad]
 
     def stage_resident(self, episodes: Sequence[np.ndarray], pad_to=None):
         """Pack the batch into one fresh [E, Npad] wire-dtype host buffer
-        (pinned for a CUDA device) and upload it with one copy (on a side
-        stream for a CUDA device, see :func:`upload`). ``pad_to``: minimum
-        episode count (silence rows)."""
+        (pinned for a CUDA device) and upload it (on a side stream for a
+        CUDA device, see :func:`upload`): with one copy on one device, or
+        one copy a shard on a mesh. ``pad_to``: minimum episode count
+        (silence rows)."""
         ns = np.array([len(e) for e in episodes], np.int32)
         n_max = int(ns.max()) if len(ns) else 0
         e_pad = max(len(episodes), int(pad_to or 0))
-        return stage_rows_host(
-            episodes, ns, self._width(n_max), self.config.transfer_dtype,
-            e_pad, self.device,
-        )
+        width = self._width(n_max)
+        transfer = self.config.transfer_dtype
+        if len(self.devices) == 1:
+            return stage_rows_host(episodes, ns, width, transfer, e_pad,
+                                   self.device)
+        ns_pad = np.zeros(e_pad, np.int32)
+        ns_pad[: len(ns)] = ns
+        host = fill_wire_rows(episodes, width, transfer, e_pad,
+                              pinned=self.device.type == "cuda")
+        blocks = tuple((a, upload(host[a:b], d))
+                       for d, a, b in self._row_blocks(e_pad))
+        return ShardedRows(blocks, host), ns_pad, len(episodes)
 
     def scan_dispatch(self, staged, scale: bool = True):
         """Run the scan of a :meth:`stage_resident` upload → ((pos, h,
         prom), ns, n_real, ready): the device tensors may still be in
-        flight; ``ready`` is a CUDA event behind them (None on the CPU)."""
-        episodes_dev, ns, n_real = staged
-        outs = self._scan(episodes_dev, ns, scale)
-        ready = None
-        if episodes_dev.is_cuda:  # lets scan_collect skip later groups' work
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(episodes_dev.device))
-        return outs, ns, n_real, ready
+        flight; ``ready`` is a CUDA event behind them (None on the CPU).
+        On a mesh, (pos, h, prom) and ``ready`` are lists with one entry a
+        shard, each shard scanned on its own device. Each device's shards
+        are issued by a host thread of its own: issuing a card's launches
+        blocks while its launch queue is full, so one thread would start
+        each card only when the card before it had nearly finished."""
+        rows, ns, n_real = staged
+        n_max = int(ns.max()) if len(ns) else 0
+        if not isinstance(rows, ShardedRows):
+            outs = self._scan(rows, ns, scale, n_max)
+            return outs, ns, n_real, _ready_event(rows.device)
+
+        def issue(shards, stream):
+            with _on_stream(stream):
+                return [(self._scan(block, ns[a : a + block.shape[0]],
+                                    scale, n_max),
+                         _ready_event(block.device)) for a, block in shards]
+
+        by_device: dict = {}
+        for i, (_, block) in enumerate(rows.blocks):
+            self._prepare(block.device)
+            by_device.setdefault(block.device, []).append(i)
+        done = [None] * len(rows.blocks)
+        with ThreadPoolExecutor(len(by_device)) as pool:
+            futures = [
+                (idx, pool.submit(issue, [rows.blocks[i] for i in idx],
+                                  _issue_stream(device)))
+                for device, idx in by_device.items()]
+            for idx, future in futures:
+                for i, out in zip(idx, future.result()):
+                    done[i] = out
+        return [o for o, _ in done], ns, n_real, [r for _, r in done]
 
     def scan_collect(self, dispatched) -> list[list[list[Peak]]]:
         """Read back a :meth:`scan_dispatch` result → peaks[episode][query].
-        Waits for that scan only, not for scans dispatched after it."""
+        Waits for that scan only, not for scans dispatched after it; on a
+        mesh, each shard after its own event."""
         outs, ns, n_real, ready = dispatched
-        return self._peaks(read_back(outs, ready), ns, n_real)
+        if not isinstance(ready, list):
+            return self._peaks(read_back(outs, ready), ns, n_real)
+        shards = [read_back(o, r) for o, r in zip(outs, ready)]
+        arrays = [np.concatenate(parts) for parts in zip(*shards)]
+        return self._peaks(arrays, ns, n_real)
 
     def scan_staged(
         self, staged, scale: bool = True
@@ -310,18 +428,20 @@ class _Scanner:
 
 class ShardedScanner(_Scanner):
     """Scan groups of episodes against one or more query snippets on one
-    device: the batch scan of BASELINE config #3 at Q ≥ 2, and config #2
-    (one episode × one snippet) at Q = 1. Snippets are zero-padded to a
-    common length; per-query valid ranges are masked on the device.
-    ``scan_dispatch(staged, scale=False)`` leaves the correlations (and
-    prominences) unscaled by the inverse autocorrelations.
+    device or a mesh of them: the batch scan of BASELINE config #3 at
+    Q ≥ 2, and config #2 (one episode × one snippet) at Q = 1. Snippets are
+    zero-padded to a common length; per-query valid ranges are masked on
+    the device. ``scan_dispatch(staged, scale=False)`` leaves the
+    correlations (and prominences) unscaled by the inverse
+    autocorrelations.
 
     ``device``: the torch device that stages and scans (default the
-    current CUDA device; ``"cpu"`` runs every kernel's plain version);
-    construction allocates nothing on it. ``query_state``: a prepared
-    :class:`QueryState` to scan with instead of computing the spectra from
-    ``snippets``. ``plain``: run every kernel's plain PyTorch version
-    instead of the CUDA kernels (the reference path).
+    current CUDA device; ``"cpu"`` runs every kernel's plain version), a
+    list of devices or a :class:`~.mesh.Mesh`; construction allocates
+    nothing on them. ``query_state``: a prepared :class:`QueryState` to
+    scan with instead of computing the spectra from ``snippets`` (copied
+    to each device of a mesh). ``plain``: run every kernel's plain PyTorch
+    version instead of the CUDA kernels (the reference path).
     """
 
     def __init__(
@@ -349,7 +469,8 @@ class ShardedScanner(_Scanner):
         self.valid = self.window - self.m_min + 1
         self.fft_len = fft_length(self.window + self.m_max - 1)
         self.fft_impl = resolve_fft_impl(cfg, self.fft_len)
-        check_fft_len(self.fft_impl, self.fft_len, self.device)
+        for d in self.devices:
+            check_fft_len(self.fft_impl, self.fft_len, d)
         self.distance_samples = int(cfg.distance_secs) * self.sr
         self.n_peaks = min(
             self.valid // max(self.distance_samples, 1) + 2,
@@ -360,11 +481,14 @@ class ShardedScanner(_Scanner):
             padded[i, : p.m] = p.data
         self._sample_padded = padded
         self._state = query_state
+        self._states: dict = {}  # the query state copied to each device
+        self._rfft_states: dict = {}  # the windows path's, the same
 
     def describe(self) -> str:
         """Which path the scan runs, for the log."""
         return describe_path(self.device, self.fft_impl,
-                             self.config.peaks_impl, self.plain)
+                             self.config.peaks_impl, self.plain,
+                             where=self._where())
 
     @property
     def query_state(self) -> QueryState:
@@ -382,27 +506,35 @@ class ShardedScanner(_Scanner):
                      if self.fft_impl == "xla_packed"
                      else torch.fft.rfft(padded, n=n))
                 t_r, t_i = T.real.contiguous(), T.imag.contiguous()
-            self._state = QueryState(
-                t_r=t_r,
-                t_i=t_i,
-                inv_ac=torch.tensor(
-                    [q.inv_autocorr for q in self.queries],
-                    dtype=torch.float32, device=self.device,
-                ),
-                m=torch.tensor(
-                    [q.m for q in self.queries], dtype=torch.int64,
-                    device=self.device,
-                ),
-            )
+            self._state = QueryState(t_r, t_i, *self._constants())
         return self._state
+
+    def _constants(self):
+        """The inverse autocorrelations [Q] f32 and the snippet lengths
+        [Q] on the scan's (first) device."""
+        return (
+            torch.tensor([q.inv_autocorr for q in self.queries],
+                         dtype=torch.float32, device=self.device),
+            torch.tensor([q.m for q in self.queries], dtype=torch.int64,
+                         device=self.device),
+        )
+
+    def _query_state_on(self, device: torch.device) -> QueryState:
+        """:attr:`query_state`, computed once and copied to ``device``."""
+        if device not in self._states:
+            self._states[device] = self.query_state.to(device)
+        return self._states[device]
+
+    _prepare = _query_state_on
 
     def _width(self, n_max: int) -> int:
         return staged_width(self.config, self.chunk, self.overlap, n_max)
 
-    def _scan(self, episodes_dev, ns, scale: bool):
+    def _scan(self, episodes_dev, ns, scale: bool, n_max: int):
+        """Scan staged rows on their device; ``n_max``: the longest
+        episode of the whole group, which sets the slab on every shard."""
         cfg = self.config
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
-        n_max = int(ns.max()) if len(ns) else 0
         slab = scan_slab(cfg, self.chunk, n_max, n_windows_pad)
         step = resident_match_step(
             self.chunk, self.window, self.fft_len, self.valid,
@@ -410,7 +542,7 @@ class ShardedScanner(_Scanner):
             n_windows_pad // slab, self.fft_impl, cfg.peaks_impl,
             plain=self.plain,
         )
-        st = self.query_state
+        st = self._query_state_on(episodes_dev.device)
         inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
         return step(episodes_dev, ns, st.t_r, st.t_i, inv_ac, st.m)
 
@@ -443,6 +575,106 @@ class ShardedScanner(_Scanner):
             out.append(per_query)
         return out
 
+    # -- the legacy windows path (the JAX package's ``sharded_match_step``)
+
+    def _rfft_state_on(self, device: torch.device) -> QueryState:
+        """The queries' rfft spectra [Q, fft_len/2+1] (real and imaginary
+        parts) and constants, computed once and copied to ``device``."""
+        if not self._rfft_states:
+            padded = torch.from_numpy(self._sample_padded).to(self.device)
+            T = torch.fft.rfft(padded, n=self.fft_len)
+            self._rfft_states[self.device] = QueryState(
+                T.real.contiguous(), T.imag.contiguous(), *self._constants())
+        if device not in self._rfft_states:
+            self._rfft_states[device] = self._rfft_states[self.device].to(
+                device)
+        return self._rfft_states[device]
+
+    def _windows(self, episodes: Sequence[np.ndarray], c_windows: int):
+        """[E, c_windows, window] f32 overlap-save windows on the host and
+        their raw lengths [E, c_windows] (the per-query crop is made on
+        the device)."""
+        E = len(episodes)
+        buf = np.zeros((E, c_windows, self.window), np.float32)
+        valid = np.zeros((E, c_windows), np.int32)
+        for e, ep in enumerate(episodes):
+            ep = np.asarray(ep, np.float32)
+            for k in range(c_windows):
+                win = ep[k * self.chunk : k * self.chunk + self.window]
+                if len(win) == 0:
+                    break
+                buf[e, k, : len(win)] = win
+                valid[e, k] = len(win)
+        return buf, valid
+
+    def _windows_step(self, windows, valid, scale: bool):
+        """One block of windows [e, c, W] and lengths [e, c] on its
+        device → (pos, h, prom), each [e, Q, c, S]: rfft, the product with
+        the conjugate query spectra, irfft cropped to the valid range, the
+        scale, then the multi-pass picker per (episode, query, window)."""
+        st = self._rfft_state_on(windows.device)
+        inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
+        x = torch.fft.rfft(windows, n=self.fft_len)  # [e, c, F]
+        spec = x[:, :, None, :] * torch.complex(st.t_r, -st.t_i)[None, None]
+        c = torch.fft.irfft(spec, n=self.fft_len)[..., : self.valid]
+        c = (c * inv_ac[None, None, :, None]).transpose(1, 2)  # [e, Q, c, V]
+        vq = (valid[:, None, :] - st.m[None, :, None] + 1).clamp(min=0)
+        picked = pick_peaks_core(
+            c.reshape(-1, c.shape[-1]), vq.reshape(-1),
+            self.distance_samples, self.n_peaks, self.config.block,
+        )
+        return [a.reshape(*c.shape[:3], -1) for a in picked]
+
+    def scan(
+        self, episodes: Sequence[np.ndarray], scale: bool = True
+    ) -> list[list[list[Peak]]]:
+        """→ peaks[episode][query], deduped and sorted: the legacy windows
+        path, the JAX package's equivalence reference. Materializes the
+        [E, C, W] f32 window tensor on the host (a warning above 1 GB;
+        use :meth:`scan_resident` for batches that size), pads E to the
+        mesh's ``data`` extent and C to its ``seq`` extent with silence,
+        scans block (i, j) on ``mesh.devices[i][j]`` (torch ops, no
+        kernel) and gathers the blocks on the host."""
+        n_max = max(len(e) for e in episodes)
+        C = max(-(-n_max // self.chunk), 1)
+        host_bytes = len(episodes) * C * self.window * 4
+        if host_bytes > 1 << 30:
+            log.warning(
+                "ShardedScanner.scan() materializes %.1f GB of host windows"
+                " — use scan_resident() for batches this size",
+                host_bytes / 2**30,
+            )
+        data, seq = self.mesh.shape
+        E = len(episodes)
+        E_pad = -(-E // data) * data
+        eps = list(episodes) + [np.zeros(1, np.float32)] * (E_pad - E)
+        C_pad = -(-C // seq) * seq
+        windows, valid = self._windows(eps, C_pad)
+        e_blk, c_blk = E_pad // data, C_pad // seq
+        blocks = []
+        for i, row in enumerate(self.mesh.devices):
+            es = slice(i * e_blk, (i + 1) * e_blk)
+            blocks.append([])
+            for j, d in enumerate(row):
+                cs = slice(j * c_blk, (j + 1) * c_blk)
+                with _on(d):
+                    blocks[-1].append(self._windows_step(
+                        torch.from_numpy(
+                            np.ascontiguousarray(windows[es, cs])).to(d),
+                        torch.from_numpy(
+                            np.ascontiguousarray(valid[es, cs])).to(d),
+                        scale,
+                    ))
+        arrays = [
+            np.concatenate([
+                np.concatenate([blk[k].cpu().numpy() for blk in row], axis=2)
+                for row in blocks
+            ])
+            for k in range(3)
+        ]
+        ns = np.array([len(e) for e in episodes], np.int64)
+        return self._peaks(arrays, ns, E)
+
 
 def spectrogram_pad_width(
     n_max: int, n_fft: int, max_waste: float = 0.25
@@ -462,7 +694,8 @@ def spectrogram_pad_width(
 
 class ShardedSpectrogramScanner(_Scanner):
     """Scan groups of episodes against query snippets in the spectrogram
-    domain on one device (BASELINE config #4 at archive scale): each
+    domain on one device or a mesh (BASELINE config #4 at archive scale;
+    ``device`` as :class:`ShardedScanner`'s): each
     staged wire row is decoded on the device, reduced to its block-fused
     log-mel fingerprint, scored against every query by the overlap-save
     ZNCC that shares the episode's tile spectra, and its peaks are picked
@@ -492,15 +725,16 @@ class ShardedSpectrogramScanner(_Scanner):
         if query_fps is not None:
             self._fps = torch.from_numpy(
                 np.asarray(query_fps, np.float32)).to(self.device)
+        self._on_device: dict = {}  # (fb, fps) copied to each device
 
     def describe(self) -> str:
         """Which path the scan runs, for the log."""
-        return describe_spectrogram_path(self.device)
+        return describe_spectrogram_path(self.device, where=self._where())
 
     @property
     def query_fps(self) -> torch.Tensor:
         """The padded [Q, t_max, n_mels] query fingerprints on the scan's
-        device, computed on first use."""
+        (first) device, computed on first use."""
         if self._fps is None:
             cfg = self.config
             fps = torch.zeros((len(self.t_ss), max(self.t_ss), cfg.n_mels),
@@ -512,6 +746,16 @@ class ShardedSpectrogramScanner(_Scanner):
             self._fps = fps
         return self._fps
 
+    def _queries_on(self, device: torch.device):
+        """The mel filterbank and :attr:`query_fps`, built once and copied
+        to ``device``."""
+        if device not in self._on_device:
+            self._on_device[device] = (self._fb.to(device),
+                                       self.query_fps.to(device))
+        return self._on_device[device]
+
+    _prepare = _queries_on
+
     def _width(self, n_max: int) -> int:
         return spectrogram_pad_width(n_max, self.config.n_fft)
 
@@ -520,20 +764,21 @@ class ShardedSpectrogramScanner(_Scanner):
         queries, V = frames of the row − min(t_ss) + 1 (lags past a
         query's own valid range are not meaningful)."""
         cfg = self.config
+        fb, fps = self._queries_on(row.device)
         n_frames_pad = 1 + (row.shape[0] - cfg.n_fft) // cfg.hop
-        fp = stft_log_mel_core(dequant_to_f32(row), self._fb, cfg.n_fft,
-                               cfg.hop, n_frames_pad)
-        return ncc_frames_multi_core(fp, self.query_fps, self.t_ss)
+        fp = stft_log_mel_core(dequant_to_f32(row), fb, cfg.n_fft, cfg.hop,
+                               n_frames_pad)
+        return ncc_frames_multi_core(fp, fps, self.t_ss)
 
-    def _scan(self, episodes_dev, ns, scale: bool):
-        del scale  # NCC scores are scale-invariant
+    def _scan(self, episodes_dev, ns, scale: bool, n_max: int):
+        del scale, n_max  # NCC scores are scale-invariant; no slab
         cfg = self.config
         n_frames_pad = 1 + (episodes_dev.shape[1] - cfg.n_fft) // cfg.hop
         n_peaks = min(
             (n_frames_pad - min(self.t_ss) + 1) // self.distance_frames + 2,
             64,
         )
-        t_ss = torch.tensor(self.t_ss, device=self.device)
+        t_ss = torch.tensor(self.t_ss, device=episodes_dev.device)
         per = []
         for e in range(episodes_dev.shape[0]):
             scores = self.scores(episodes_dev[e])
@@ -568,7 +813,7 @@ def sweep_archive(
     snippets: Sequence[np.ndarray],
     sr: int,
     config: MatchConfig | None = None,
-    device="cuda",
+    device=None,
     progress_path=None,
     write_labels_for=None,
     prefetch_depth: int | None = None,
@@ -578,11 +823,20 @@ def sweep_archive(
     group_size: int | None = None,
 ):
     """Scan an archive of files against query snippets, with resume
-    (BASELINE config #5 on one device).
+    (BASELINE config #5).
+
+    ``device``: one device, a list or a :class:`~.mesh.Mesh` (default the
+    current CUDA device; in a cluster joined by ``mesh.init_distributed``,
+    this process's :func:`~.mesh.make_local_mesh`). In a cluster every
+    process takes every ``process_count()``-th file of ``paths`` from its
+    ``process_index()``, then skips those already Done: it returns,
+    labels and marks Done only its own share.
 
     Files decode ahead of the scan on worker threads, straight to the
     staging wire (``hostio.prefetch``); groups of ``group_size`` episodes
-    (default 8) stage exactly their decoded rows and scan on ``device``.
+    (default the mesh's size, or 8 on one device; an explicit size is
+    rounded up to a multiple of the mesh's) stage exactly their decoded
+    rows and scan on the device or over the mesh.
     Group N is collected only after group N+1 has been staged and its scan
     queued, so on a CUDA device the next group's decode, packing and
     upload overlap the current group's scan. A file is marked
@@ -597,14 +851,16 @@ def sweep_archive(
     (:class:`ShardedSpectrogramScanner` under ``spectrogram_config``, whose
     transfer dtype and resampler then apply) on the same machinery.
     Files at another rate resample by the config's ``resample_impl``,
-    ``"auto"`` resolving from ``device`` (on the card for a CUDA device).
-    Several devices (a list) are ROADMAP P7. Returns {path: [peaks per
-    query]}.
+    ``"auto"`` resolving from the device (on the card for a CUDA device),
+    on the mesh's first device. Returns {path: [peaks per query]}.
     """
     from ..hostio.decode import resample, resolve_resample_impl
     from ..hostio.prefetch import decode_prefetched
     from ..meta.progress import Progress, State
 
+    n_proc = process_count()
+    if device is None:
+        device = make_local_mesh() if n_proc > 1 else "cuda"
     if mode == "spectrogram":
         scanner = ShardedSpectrogramScanner(snippets, sr, spectrogram_config,
                                             device=device)
@@ -619,9 +875,15 @@ def sweep_archive(
         log.info("sweep: files at another rate resample by %s",
                  resample_impl)
     progress = Progress(progress_path) if progress_path is not None else None
-    todo = [p for p in paths
+    # the share is fixed by the path list alone, before the resume filter,
+    # so each process resumes exactly the files it owns
+    todo = [p for p in list(paths)[process_index()::n_proc]
             if progress is None or progress.get(str(p)) != State.DONE]
-    group_size = 8 if group_size is None else max(int(group_size), 1)
+    n_dev = len(scanner.devices)
+    if group_size is None:
+        group_size = n_dev if n_dev > 1 else 8
+    else:
+        group_size = max(-(-int(group_size) // n_dev) * n_dev, n_dev)
     if prefetch_depth is None:
         prefetch_depth = max(group_size, 3)  # the next group, decoded
     transfer = scanner.config.transfer_dtype

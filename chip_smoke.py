@@ -103,6 +103,21 @@ holds every kernel against its plain PyTorch version:
    22.05 kHz file: every plant of the 44.1 kHz files within one hop in the
    labels, the 22.05 kHz file's peaks equal to the CPU path's, a resume
    byte for byte.
+12. Several devices and several processes, on the one card (one mesh of
+   it twice, ``Mesh.of(["cuda:0", "cuda:0"])``): config #3 at full width
+   (the bench shape of 2) sharded over that mesh, whose peaks must equal
+   the one-device scan's exactly, with kernels 1-5 launched 16 times each
+   (4 episodes x 4 slabs, however the rows shard), stage and scan seconds
+   beside the one-device ones; a Q = 1 sharded scan of two copies of
+   config #2's episode, equal to the one-device scan, kernel 6 launched.
+   The archive sweep (8) again by two ``audio-sweep-torch`` processes of
+   one cluster (``AM_COORDINATOR`` on loopback, ``AM_NUM_PROCESSES=2``,
+   each with its own progress file) over the same 25 files: exit code 0
+   for both, the one-process sweep's label files byte for byte, each file
+   Done in exactly one store, both workers' wall times. Then the port's
+   dry run (``parallel.dryrun``) on that mesh: the resident scan
+   (``xla_packed`` + kernel 7), the windows path and the spectrogram
+   scanner, every plant found.
 
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -128,8 +143,10 @@ import json
 import logging
 import os
 import re
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import wave
@@ -175,6 +192,10 @@ from audio_matcher_tpu_torch.ops.resample import (  # noqa: E402
     resample_poly_device,
 )
 from audio_matcher_tpu_torch.ops.wire import dequant_to_f32  # noqa: E402
+from audio_matcher_tpu_torch.parallel.dryrun import (  # noqa: E402
+    dryrun_multichip,
+)
+from audio_matcher_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
     ShardedScanner,
     ShardedSpectrogramScanner,
@@ -233,6 +254,7 @@ SPEC_NOISE = 0.05  # noise added over each episode, plants included
 TOL_SPEC = 2e-4  # the JAX package's NCC tolerance (tests/test_spectrogram.py)
 TOL_RESAMPLE = 2e-6  # against scipy's float64 resample_poly (tests/test_resample.py)
 RESAMPLE_SECS = 600
+WORKER_TIMEOUT = 600  # seconds for each process of the two-process sweep
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -1331,19 +1353,13 @@ def archive_sweep(config, device, rows):
                 "zz_random" in line for line in done):
             raise AssertionError(f".done.txt: {done}")
         check_sweep_labels(root, plants)
-        n = SWEEP_EPISODE_SECS * SR
-        n_windows = -(-n // int(config.chunk_secs * SR))
-        slab = effective_slab(config, n_windows)
         # every file, the resampled one too, is 600 s at 44.1 kHz: each
         # staged row is one decoded file, scanned in the same slabs
-        want = len(plants) * -(-n_windows // slab)
+        slabs = n_slabs(config, SWEEP_EPISODE_SECS)
+        want = len(plants) * slabs
         print(f"sweep launches: {launches}; {len(plants)} staged rows x "
-              f"{-(-n_windows // slab)} slabs of {slab} windows = {want} "
-              f"for each of kernels 1-5")
-        if any(launches[k.__name__] != want for k in BATCH_PATH) or any(
-                v for k, v in launches.items()
-                if k not in {f.__name__ for f in BATCH_PATH}):
-            raise AssertionError(f"sweep launches {launches}, want {want}")
+              f"{slabs} slabs = {want} for each of kernels 1-5")
+        check_launches("sweep", launches, BATCH_PATH, want)
         pair_h = len(plants) * SWEEP_QUERIES * SWEEP_EPISODE_SECS / 3600.0
         print(f"sweep end to end (decode + stage + scan + labels): "
               f"{len(plants)} files in {t_sweep:.3f} s, "
@@ -1406,6 +1422,7 @@ def archive_sweep(config, device, rows):
         print(f"resume: {len(again)} label files rewritten byte for byte, "
               f"the first group's {len(skip)} left out, .done.txt equal; "
               f"{len(plants) - SWEEP_GROUP} files in {t_resume:.3f} s")
+        two_process_sweep(root, first, device)
 
         # staging: the sweep's group, then a group of mixed durations
         # (120-600 s, one staged width for every row)
@@ -1548,14 +1565,9 @@ def matcher_cli_run(config, device, rows):
         t_run = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"matcher_cli.run returned {rc}")
-        chunk = int(round(float(ns.chunk_size) * SR))
-        n_windows = -(-SINGLE_EPISODE_SECS * SR // chunk)
-        slabs = -(-n_windows // effective_slab(MatchConfig(), n_windows))
-        if any(launches[k.__name__] != slabs for k in SINGLE_PATH) or any(
-                v for k, v in launches.items()
-                if k not in {f.__name__ for f in SINGLE_PATH}):
-            raise AssertionError(f"matcher CLI launches {launches}, want "
-                                 f"{slabs} of each of kernels 6, 2, 3, 4, 5")
+        cli_config = MatchConfig(chunk_secs=float(ns.chunk_size))
+        slabs = n_slabs(cli_config, SINGLE_EPISODE_SECS)
+        check_launches("matcher CLI", launches, SINGLE_PATH, slabs)
         labels = read_labels(root / "episode.txt")
         want = [int(o * SR) for o in offsets]
         got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
@@ -1588,6 +1600,171 @@ def matcher_cli_run(config, device, rows):
               f"{CARD['line']}")
 
 
+def scan_times(scanner, batch, kernels):
+    """Stage ``batch`` and scan it once to warm, then the measured scan
+    with the launch counts reset just before it → (peaks, launches, stage
+    s, scan s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = scanner.stage_resident(batch)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    scanner.scan_staged(staged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    peaks, launches = counted(lambda: scanner.scan_staged(staged), kernels)
+    return peaks, launches, t_stage, time.perf_counter() - t0
+
+
+def n_slabs(config, episode_secs):
+    """Slabs a staged row of ``episode_secs`` s is scanned in."""
+    n_windows = -(-episode_secs * SR // int(config.chunk_secs * SR))
+    return -(-n_windows // effective_slab(config, n_windows))
+
+
+def check_launches(label, launches, kernels, want):
+    """Each kernel of ``kernels`` launched ``want`` times, no other."""
+    names = {k.__name__ for k in kernels}
+    if any(launches[k] != want for k in names) or any(
+            v for k, v in launches.items() if k not in names):
+        raise AssertionError(f"{label}: launches {launches}, want {want} of "
+                             f"each of {sorted(names)}")
+
+
+def sharded_scan(config, device, rows):
+    """Path 12, several devices in one process: config #3 at full width
+    and config #2's single-query scan over a mesh of the one card twice,
+    each against the one-device scan of the same batch."""
+    mesh = Mesh.of([device, device])
+    snippets, offsets, episode = make_bench_inputs()
+    batch = [quantize_wire(episode, config.transfer_dtype)] * N_EPISODES
+    one = ShardedScanner(snippets, SR, config, device=device)
+    sharded = ShardedScanner(snippets, SR, config, device=mesh,
+                             query_state=one.query_state)
+    print(f"sharded config #3: {sharded.describe()}")
+    runs = {}
+    slabs = N_EPISODES * n_slabs(config, EPISODE_SECS)  # 4 x 4 = 16
+    for label, scanner in (("one device", one), (mesh.describe(), sharded)):
+        peaks, launches, t_stage, t_scan = scan_times(scanner, batch,
+                                                      BATCH_PATH)
+        check_launches(f"config #3 on {label}", launches, BATCH_PATH, slabs)
+        check_plants([per_query[0] for per_query in peaks], offsets,
+                     config.distance_secs)
+        runs[label] = peaks
+        print(f"config #3 on {label}: stage {t_stage:.3f} s, scan "
+              f"{t_scan:.3f} s ({N_EPISODES * N_QUERIES * EPISODE_SECS / 3600 / t_scan:.3f} "
+              f"pair-h/s device-resident); launches {launches}; "
+              f"{CARD['line']}")
+        torch.cuda.empty_cache()
+    if runs["one device"] != runs[mesh.describe()]:
+        raise AssertionError("the sharded config #3 scan differs from the "
+                             "one-device scan")
+    print(f"config #3 sharded over {mesh.describe()}: every peak of the "
+          f"{N_EPISODES} x {N_QUERIES} pairs equal to the one-device scan")
+
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    batch = [quantize_wire(episode, config.transfer_dtype)] * 2
+    one = ShardedScanner(snippets, SR, config, device=device)
+    sharded = ShardedScanner(snippets, SR, config, device=mesh,
+                             query_state=one.query_state)
+    runs = []
+    for scanner in (one, sharded):
+        peaks, launches, t_stage, t_scan = scan_times(scanner, batch,
+                                                      SINGLE_PATH)
+        check_launches(f"config #2 x 2 on {scanner.describe()}", launches,
+                       SINGLE_PATH, 2 * n_slabs(config, SINGLE_EPISODE_SECS))
+        check_plants([per_query[0] for per_query in peaks], offsets,
+                     config.distance_secs)
+        runs.append(peaks)
+        print(f"config #2 x 2 episodes (Q = 1) on {scanner.describe()}: "
+              f"stage {t_stage:.3f} s, scan {t_scan:.3f} s; launches "
+              f"{launches}")
+    if runs[0] != runs[1]:
+        raise AssertionError("the sharded Q = 1 scan differs from the "
+                             "one-device scan")
+    print("config #2 x 2 sharded: every peak equal to the one-device scan")
+
+
+def mesh_dryrun(config, device, rows):
+    """Path 12, the port's dry run on a mesh of the one card twice: the
+    resident scan (kernel 7), the windows path and the spectrogram
+    scanner, every plant found."""
+    mesh = Mesh.of([device, device])
+    line, launches = counted(lambda: dryrun_multichip(mesh), XLA_PATH)
+    check_launches("the dry run", launches, XLA_PATH,
+                   launches["local_max_block_reduce"])
+    print(f"dry run launches: {launches}; {CARD['line']}")
+
+
+def two_process_sweep(root, labels, device):
+    """Path 12, several processes: the archive sweep by two
+    ``audio-sweep-torch`` processes of one cluster on the card, over
+    symlinks to the archive's files. Both exit 0, the label files equal
+    ``labels`` (the one-process sweep's) byte for byte, each file is Done
+    in exactly one of the two stores."""
+    cluster = root / "cluster"
+    cluster.mkdir()
+    for f in sorted(root.glob("ep*.wav")) + [root / "zz_random.wav"]:
+        (cluster / f.name).symlink_to(f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, "-m", "audio_matcher_tpu_torch.cli.sweep_cli",
+            str(cluster / "ep*.wav"), str(cluster / "zz_random.wav"),
+            "--resample", "--device", str(device.type)]
+    for q in range(SWEEP_QUERIES):
+        argv += ["--snippet", str(root / f"snippet{q}.wav")]
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for pid in (0, 1):
+            env = dict(os.environ, AM_COORDINATOR=f"127.0.0.1:{port}",
+                       AM_NUM_PROCESSES="2", AM_PROCESS_ID=str(pid))
+            logs.append(open(cluster / f"proc{pid}.log", "w"))
+            procs.append(subprocess.Popen(
+                argv + ["--progress-file", str(cluster / f"proc{pid}.done")],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        walls = [None, None]
+        while None in walls:
+            for pid, proc in enumerate(procs):
+                if walls[pid] is None and proc.poll() is not None:
+                    walls[pid] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > WORKER_TIMEOUT:
+                raise AssertionError("a sweep process did not finish in "
+                                     f"{WORKER_TIMEOUT} s")
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for f in logs:
+            f.close()
+    outs = [(cluster / f"proc{pid}.log").read_text() for pid in (0, 1)]
+    for pid, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"sweep process {pid} returned "
+                                 f"{proc.returncode}:\n{out[-4000:]}")
+    got = {f.name: f.read_bytes() for f in sorted(cluster.glob("*.q*.txt"))}
+    if got != labels:
+        raise AssertionError(f"two-process labels differ: {len(got)} files, "
+                             f"{len(labels)} from one process")
+    done = [(cluster / f"proc{pid}.done").read_text().splitlines()
+            for pid in (0, 1)]
+    names = sorted(Path(line.rsplit(" ", 1)[0]).name for d in done
+                   for line in d if line.endswith(" Done"))
+    if names != sorted(n for n in (f.name for f in cluster.glob("ep*.wav"))):
+        raise AssertionError(f"two-process .done stores: {done}")
+    scanned = [next(line for line in out.splitlines() if "scanned" in line)
+               for out in outs]
+    print(f"two-process sweep (two audio-sweep-torch processes, one "
+          f"cluster, one card): wall {walls[0]:.3f} s and {walls[1]:.3f} s "
+          f"from both starts (import, cluster join, decode, stage, scan, "
+          f"labels); {len(got)} label files equal to the one-process "
+          f"sweep's byte for byte; {len(names)} files Done, "
+          f"{[len(d) for d in done]} a store, none twice; logs: {scanned}; "
+          f"{CARD['line']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1616,7 +1793,7 @@ def main() -> int:
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
                   jnp_scan, single_query_jnp, large_fft, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
-                  matcher_cli_run):
+                  matcher_cli_run, sharded_scan, mesh_dryrun):
         t0 = time.perf_counter()
         phase(config, dev, rows)
         torch.cuda.empty_cache()

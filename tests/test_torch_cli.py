@@ -207,32 +207,36 @@ def test_matcher_cli_overlap_survives_whole_second_tag(tmp_path, caplog):
 
 
 def test_cli_boundaries(fixtures, monkeypatch, caplog, capsys):
-    """What is not ported (several devices) fails through the error
-    boundary naming its ROADMAP item; a CUDA device that is not there is refused (nothing falls
-    back to the CPU); both CLIs log the path that ran; --version."""
+    """``--devices 2`` sweeps on a mesh of two CPU shards and logs it, in
+    both modes; a CUDA device that is not there is refused through the
+    error boundary (nothing falls back to the CPU); both CLIs log the path
+    that ran; --version."""
     monkeypatch.setattr(common, "init_logger", lambda args: None)
     d = fixtures / "port"
     base = [str(d / "episode.wav"), "--snippet", str(d / "intro.wav"),
             "--distance", "10", "--chunk-size", "10"]
+    mesh = "mesh 2 x 1 (cpu, cpu)"
     cases = [
-        (sweep_cli, base + ["--device", "cpu", "--devices", "2"], "P7"),
+        (sweep_cli, base + ["--device", "cpu", "--devices", "2", "--no-out"],
+         0, "scanned 1 file(s) on " + mesh),
         (sweep_cli, base + ["--device", "cpu", "--devices", "2", "--mode",
-                            "spectrogram"], "P7"),
+                            "spectrogram", "--no-out"],
+         0, f"sweep: {mesh}, spectrogram mode"),
+        # same rate: the resampler is never asked
         (matcher_cli, base + ["--device", "cpu", "--resample-impl",
-                              "device", "--resample", "--no-out"], None),
+                              "device", "--resample", "--no-out"], 0, None),
     ]
     if not torch.cuda.is_available():
-        cases += [(matcher_cli, base, "no CUDA device"),
-                  (sweep_cli, base, "no CUDA device")]
-    for mod, argv, needle in cases:
+        cases += [(matcher_cli, base, 1, "no CUDA device"),
+                  (sweep_cli, base, 1, "no CUDA device")]
+    for mod, argv, want_rc, needle in cases:
         caplog.clear()
         with caplog.at_level(logging.INFO):
             rc = mod.main(argv)
-        if needle is None:  # same rate: the resampler is never asked
-            assert rc == 0
-            continue
-        assert rc == 1, argv
-        assert any(needle in r.getMessage() for r in caplog.records), needle
+        assert rc == want_rc, argv
+        if needle is not None:
+            assert any(needle in r.getMessage() for r in caplog.records), (
+                needle, [r.getMessage() for r in caplog.records])
     caplog.clear()
     with caplog.at_level(logging.INFO):
         assert sweep_cli.main(base + ["--device", "cpu", "--no-out"]) == 0

@@ -304,6 +304,84 @@ def test_scan_kernel_path_matches_plain_path(dev):
     assert [p.position for p in peaks[1][2]] == [int(21.5 * sr)]
 
 
+@pytest.mark.parametrize("n_queries", [3, 1])
+@pytest.mark.parametrize("cards", [1, 2])
+def test_sharded_scan_equals_one_device_scan(dev, cards, n_queries):
+    """Three episodes over one card twice (2 rows, then 1), or over two
+    cards taken twice in turn (a row each on cuda:0, cuda:1, cuda:0: each
+    card's shards issued by its own thread, read back in row order):
+    exactly the one-device scan, with the same launches of the path's
+    kernels, and the plain twin's peaks within 1.2e-5."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    from audio_matcher_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh.of([dev, dev] if cards == 1
+                   else ["cuda:0", "cuda:1", "cuda:0", "cuda:1"])
+    sr = 8000
+    rng = np.random.default_rng(17)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (4000, 3600, 3800)][:n_queries]
+    episodes = []
+    for e, secs in enumerate((12.0, 7.5, 10.0)):
+        ep = (rng.standard_normal(int(secs * sr)) * 0.05).astype(np.float32)
+        q = e % n_queries
+        ep[int(2.5 * sr) : int(2.5 * sr) + len(snippets[q])] = snippets[q]
+        episodes.append(quantize_wire(ep, "mulaw8"))
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="mulaw8")
+    first = F.fft_major_fwd_wire if n_queries > 1 else F.fft_major_fwd_wire2
+    path = (first, F.fft_minor, F.ifft_minor_product, F.fft_major,
+            K.local_max_block_reduce_packed)
+    counts = []
+    runs = []
+    for device in (dev, mesh):
+        before = [k.launches for k in path]
+        runs.append(ShardedScanner(snippets, sr, cfg, device=device)
+                    .scan_resident(episodes))
+        counts.append([k.launches - b for k, b in zip(path, before)])
+    assert counts[0] == counts[1] and all(counts[0]), counts
+    assert runs[1] == runs[0]
+    plain = ShardedScanner(snippets, sr, cfg, device=mesh, plain=True)
+    want = plain.scan_resident(episodes)
+    for got_e, want_e in zip(runs[1], want):
+        for got_q, want_q in zip(got_e, want_e):
+            assert [p.position for p in got_q] == [p.position for p in want_q]
+            for a, b in zip(got_q, want_q):
+                assert abs(a.height - b.height) <= 1.2e-5
+                assert abs(a.prominence - b.prominence) <= 1.2e-5
+    for e in range(3):
+        assert int(2.5 * sr) in [p.position for p in runs[1][e][e % n_queries]]
+
+
+def test_sharded_sweep_and_dryrun_on_one_card_twice(dev, tmp_path):
+    """``sweep_archive`` on a mesh of one card twice gives the one-device
+    sweep's peaks exactly; the dry run passes on that mesh."""
+    from audio_matcher_tpu_torch.hostio.decode import write_wav
+    from audio_matcher_tpu_torch.parallel.dryrun import dryrun_multichip
+    from audio_matcher_tpu_torch.parallel.mesh import Mesh
+    from audio_matcher_tpu_torch.parallel.sweep import sweep_archive
+
+    sr = 8000
+    rng = np.random.default_rng(19)
+    snippets = [(rng.standard_normal(4000) * 0.2).astype(np.float32)]
+    paths = []
+    for e in range(5):
+        ep = (rng.standard_normal((6 + e) * sr) * 0.05).astype(np.float32)
+        ep[(1 + e) * sr : (1 + e) * sr + 4000] = snippets[0]
+        paths.append(tmp_path / f"ep{e}.wav")
+        write_wav(paths[-1], sr, ep)
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="int16")
+    mesh = Mesh.of([dev, dev])
+    one, two = (sweep_archive(paths, snippets, sr, cfg, device=d,
+                              group_size=2) for d in (dev, mesh))
+    assert two == one and len(one) == 5
+    for e, p in enumerate(paths):
+        assert [pk.position for pk in one[str(p)][0]] == [(1 + e) * sr]
+    assert dryrun_multichip(mesh).startswith("dryrun_multichip OK")
+
+
 def _wire_episode(dev, g, dtype, length):
     if dtype == torch.uint8:
         return torch.randint(0, 256, (length,), device=dev, generator=g,

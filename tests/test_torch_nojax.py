@@ -93,6 +93,9 @@ _SCAN_WITHOUT_JAX = textwrap.dedent(
             want = [5 * sr] if "16k" in path else [sr, 4 * sr]
             assert [p.position // 256 for p in per_query[0]] == [
                 w // 256 for w in want], (path, per_query)
+    # the sharded paths on a mesh of CPU shards
+    from audio_matcher_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(4, "cpu")
     assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
                    for m in sys.modules if sys.modules[m] is not None)
     assert "audio_matcher_tpu" not in sys.modules

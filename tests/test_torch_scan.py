@@ -143,12 +143,12 @@ def test_pad_rows_match_jax(jax_run):
 
 
 def test_refuses_off_slice_configurations():
-    """What the port lacks raises, naming its ROADMAP item (several
-    devices, P7); every ``fft_impl`` × ``peaks_impl`` is scanned, one
-    snippet and ``fft_len`` < 2^14 too (the tests below); above 2^24 a
-    ``"vpu"`` scanner on a CUDA device is refused at construction, which
+    """Every ``fft_impl`` × ``peaks_impl`` is scanned, one snippet and
+    ``fft_len`` < 2^14 too (the tests below), and several devices: two
+    shards of the CPU scan exactly as one; above 2^24 a ``"vpu"`` scanner
+    on a CUDA device (or a mesh of them) is refused at construction, which
     allocates nothing."""
-    snippets, _ = _inputs()
+    snippets, episodes = _inputs()
     for fft_impl in ("vpu", "xla_packed", "xla", "mxu"):
         for peaks_impl in ("pallas", "jnp"):
             cfg = MatchConfig(chunk_secs=1.0, fft_impl=fft_impl,
@@ -164,12 +164,16 @@ def test_refuses_off_slice_configurations():
         [s[:1000] for s in snippets], SR, MatchConfig(chunk_secs=0.25)
     )
     assert small.fft_len < 1 << 14 and small.fft_impl == "xla_packed"
-    with pytest.raises(NotImplementedError, match="P7"):
-        ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
-                       device=["cpu", "cpu"])
+    two = ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
+                         device=["cpu", "cpu"])
+    assert two.mesh.shape == (2, 1) and two.fft_impl == "vpu"
+    one = ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
+                         device="cpu")
+    assert two.scan_resident(episodes) == one.scan_resident(episodes)
     huge = MatchConfig(chunk_secs=2200.0)  # fft_len 2^25
-    with pytest.raises(ValueError, match="2\\^24"):
-        ShardedScanner(snippets, SR, huge, device="cuda")
+    for device in ("cuda", ["cuda:0", "cuda:1"]):
+        with pytest.raises(ValueError, match="2\\^24"):
+            ShardedScanner(snippets, SR, huge, device=device)
     assert ShardedScanner(snippets, SR, huge, device="cpu").fft_len == 1 << 25
     for cfg in (dataclasses.replace(huge, fft_impl="xla"),
                 MatchConfig(chunk_secs=2000.0)):  # fft_len 2^24 runs

@@ -225,15 +225,18 @@ def test_sweep_on_the_fused_path_matches_jax(tmp_path):
 
 
 def test_sweep_refuses_what_is_not_ported(tmp_path):
-    """Several devices are ROADMAP P7; an unknown mode raises. Spectrogram
-    mode and the device resampler are ported: the 500 Hz file resamples
-    on the CPU device by the torch polyphase path."""
+    """Several devices sweep as one, in both modes: two shards of the CPU
+    give the one-device sweep's peaks exactly; an unknown mode raises.
+    Spectrogram mode and the device resampler are ported: the 500 Hz file
+    resamples on the CPU device by the torch polyphase path."""
     snippets, paths = _archive(tmp_path)
-    with pytest.raises(NotImplementedError, match="P7"):
-        sweep_archive(paths, snippets, SR, device=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="P7"):
-        sweep_archive(paths, snippets, SR, device=["cpu", "cpu"],
-                      mode="spectrogram")
+    for mode in ("pcm", "spectrogram"):
+        want, got = (
+            sweep_archive(paths, snippets, SR, MatchConfig(**KW),
+                          device=device, mode=mode, group_size=2)
+            for device in ("cpu", ["cpu", "cpu"]))
+        assert list(got) == list(want) and len(got) == 5, mode
+        assert got == want, mode
     with pytest.raises(ValueError, match="mode"):
         sweep_archive(paths, snippets, SR, device="cpu", mode="cqt")
     cfg = MatchConfig(**KW, resample_impl="device")
