@@ -22,7 +22,15 @@ scanners and the sweep run on one device or on a mesh of them
 processes of a cluster (:func:`init_distributed`). The CLIs ``cli.matcher_cli``
 (``audio-matcher-torch``) and ``cli.sweep_cli`` (``audio-sweep-torch``)
 drive them from files, with the host modules ``hostio`` (decode, labels,
-prefetch), ``meta`` (the resume store and tags) and ``utils``.
+prefetch), ``meta`` (the resume store, tags and series indexes) and
+``utils``. The worker and archive tools are host code around the matcher
+and touch no device: ``worker`` (the Audacity scripting-pipe client, its
+fake server, the renaming flows and the episode pipeline) behind
+``cli.worker_cli`` (``audio-worker-torch``), which cuts, names, tags and
+files the episodes whose label files the matcher CLI wrote, and
+``archive`` (the label-name grammar, the archive model and its REPL)
+behind ``cli.archive_cli`` (``archive-scroller-torch``), which browses
+the result.
 """
 
 from .parallel.mesh import init_distributed, make_local_mesh, make_mesh

@@ -1,15 +1,18 @@
-"""The duration cache in mp3 (ID3v2) and opus (VorbisComment) tags.
+"""Unified mp3(ID3v2) / opus(VorbisComment) tag layer, the port's copy of
+the JAX package's ``meta.tagger``: the same API and the same bytes on disk.
 
-The part of the JAX package's ``meta.tagger`` that ``audio_duration``
-runs: a ``TaggedFile`` over either format that reads and writes the
-``Length`` field and saves only when it changed. Reading keeps every other
-frame or comment, and writing renders the tag as the JAX package does
-(ID3v2.4 with chapters re-rendered and a CTOC; the OpusTags packet
-re-paginated with fresh page CRCs), so a file gets the same bytes from
-either package.
+Parity: reference src/worker/tagger.rs — a format-erased ``TaggedFile`` with
+typed field markers (Title/Artist/Album/Genre/Year/Track/TotalTracks/Disk/
+TotalDisks/Length), dirty tracking, ``save_changes``/``reload_empty``/
+``fill_all_from``, chapter comments for opus (``CHAPTERxxx`` +
+``CHAPTERxxxNAME``, hh:mm:ss.mmm), and Vorbis multi-key aliases
+(ARTIST/AUTHOR etc., tagger.rs:262-338). Both codecs are implemented here
+natively (no mutagen in the image): an ID3v2.3/2.4 reader + v2.4 writer,
+and an Ogg re-paginator that rewrites the OpusTags packet with correct page
+CRCs and sequence renumbering.
 
-Reference quirk preserved for file-format interop: ``Length`` is stored
-in WHOLE SECONDS in the mp3 TLEN frame (the reference writes
+Reference quirk preserved for file-format interop: the ``Length`` field is
+stored in WHOLE SECONDS in the mp3 TLEN frame (the reference writes
 ``duration.as_secs()`` into the id3 duration field, tagger.rs:193) and in
 the opus DURATIONHINT comment.
 """
@@ -18,8 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import re
 import struct
 from pathlib import Path
+
+from ..utils.durations import fmt_hmsm
 
 log = logging.getLogger("audio_matcher_torch.tagger")
 
@@ -40,7 +46,21 @@ class Field:
     pytype: type
 
 
+Title = Field("title", str)
+Artist = Field("artist", str)
+Album = Field("album", str)
+Genre = Field("genre", str)
+Year = Field("year", int)
+Track = Field("track", int)
+TotalTracks = Field("total_tracks", int)
+Disk = Field("disk", int)
+TotalDisks = Field("total_disks", int)
 Length = Field("length", float)  # seconds
+
+ALL_FIELDS = [
+    Title, Artist, Album, Genre, Year, Track,
+    TotalTracks, Disk, TotalDisks, Length,
+]
 
 
 # ---------------------------------------------------------------- ID3v2
@@ -118,6 +138,13 @@ class Id3Tag:
     kept as raw bytes and re-emitted on render, so a tag edit never destroys
     album art or comments (parity: the reference's id3 crate mutates frames
     on a fully-parsed Tag, tagger.rs:148-229)."""
+
+    FRAME_BY_FIELD = {
+        "title": "TIT2",
+        "artist": "TPE1",
+        "album": "TALB",
+        "genre": "TCON",
+    }
 
     def __init__(self):
         self.frames: dict[str, str] = {}
@@ -240,7 +267,7 @@ class Id3Tag:
                     size = _unsyncsafe(raw)
                 else:
                     # v2.3 CHAP, or a legacy tag written with plain 32-bit
-                    # sub-frame sizes (this module < r2)
+                    # sub-frame sizes (by this module's earlier versions)
                     size = struct.unpack(">I", raw)[0]
                 title = _decode_text(sub[10 : 10 + size])
             idx = int("".join(c for c in element_id if c.isdigit()) or 0)
@@ -310,27 +337,103 @@ class Id3Tag:
         return b"ID3\x04\x00\x00" + _syncsafe(len(frames)) + frames
 
     # -- field access ----------------------------------------------------
-    def get_field(self, field: Field):
-        if field.key != "length":
-            raise KeyError(field.key)
-        raw = self.frames.get("TLEN")
+    def _pair(self, frame: str) -> tuple[int | None, int | None]:
+        raw = self.frames.get(frame, "")
+        if not raw:
+            return None, None
+        head, _, tail = raw.partition("/")
         try:
-            return float(int(raw)) if raw else None
+            first = int(head) if head else None
         except ValueError:
+            first = None
+        try:
+            second = int(tail) if tail else None
+        except ValueError:
+            second = None
+        return first, second
+
+    def _set_pair(self, frame: str, first, second) -> None:
+        if first is None and second is None:
+            self.frames.pop(frame, None)
+        elif second is None:
+            self.frames[frame] = str(first)
+        else:
+            self.frames[frame] = f"{first if first is not None else ''}/{second}"
+
+    def get_field(self, field: Field):
+        k = field.key
+        if k in self.FRAME_BY_FIELD:
+            return self.frames.get(self.FRAME_BY_FIELD[k]) or None
+        if k == "year":
+            raw = self.frames.get("TDRC") or self.frames.get("TYER")
+            if raw:
+                m = re.match(r"-?\d+", raw)
+                return int(m.group()) if m else None
             return None
+        if k == "track":
+            return self._pair("TRCK")[0]
+        if k == "total_tracks":
+            return self._pair("TRCK")[1]
+        if k == "disk":
+            return self._pair("TPOS")[0]
+        if k == "total_disks":
+            return self._pair("TPOS")[1]
+        if k == "length":
+            raw = self.frames.get("TLEN")
+            try:
+                return float(int(raw)) if raw else None
+            except ValueError:
+                return None
+        raise KeyError(k)
 
     def set_field(self, field: Field, value) -> None:
-        if field.key != "length":
-            raise KeyError(field.key)
-        if value is None:
-            self.frames.pop("TLEN", None)
+        k = field.key
+        if k in self.FRAME_BY_FIELD:
+            frame = self.FRAME_BY_FIELD[k]
+            if value is None:
+                self.frames.pop(frame, None)
+            else:
+                self.frames[frame] = str(value)
+        elif k == "year":
+            if value is None:
+                self.frames.pop("TDRC", None)
+                self.frames.pop("TYER", None)
+            else:
+                self.frames["TDRC"] = str(int(value))
+                self.frames["TYER"] = str(int(value))
+        elif k == "track":
+            self._set_pair("TRCK", value, self._pair("TRCK")[1])
+        elif k == "total_tracks":
+            self._set_pair("TRCK", self._pair("TRCK")[0], value)
+        elif k == "disk":
+            self._set_pair("TPOS", value, self._pair("TPOS")[1])
+        elif k == "total_disks":
+            self._set_pair("TPOS", self._pair("TPOS")[0], value)
+        elif k == "length":
+            if value is None:
+                self.frames.pop("TLEN", None)
+            else:
+                # reference interop: whole seconds (tagger.rs:193)
+                self.frames["TLEN"] = str(int(value))
         else:
-            # reference interop: whole seconds (tagger.rs:193)
-            self.frames["TLEN"] = str(int(value))
+            raise KeyError(k)
+
+    def set_chapter(self, index: int, time_secs: float, name=None) -> None:
+        # capability the reference lacks (it panics here, tagger.rs:207-209):
+        # ID3 CHAP frames with an embedded TIT2 title
+        self.chapters[int(index)] = (int(round(time_secs * 1000.0)), name)
+
+    def get_chapters(self) -> list[tuple[int, str, str | None]]:
+        return [
+            (idx, fmt_hmsm(start_ms / 1000.0), title)
+            for idx, (start_ms, title) in sorted(self.chapters.items())
+        ]
 
     def write(self, path: Path) -> None:
         audio = Id3Tag.strip_tag(path.read_bytes())
         path.write_bytes(self.render() + audio)
+
+    ext = "mp3"
 
 
 # ----------------------------------------------------------- Ogg / opus
@@ -452,12 +555,26 @@ def _make_pages_for_packet(
 class OpusTag:
     """VorbisComment access over an Ogg/Opus file.
 
-    ``Length`` reads the first of its aliases (tagger.rs:262-277); a write
-    replaces the only existing alias occurrence or adds under the primary
-    key; a removal drops all aliases.
+    Key aliases follow the reference's table (tagger.rs:262-277): reads try
+    each alias in order; writes replace the first existing alias occurrence
+    or add under the primary key; removes drop all aliases.
     """
 
-    KEYS = {"length": ["DURATIONHINT", "DURATION"]}
+    KEYS = {
+        "title": ["TITLE"],
+        "artist": ["ARTIST", "AUTHOR"],
+        "album": ["ALBUM"],
+        "genre": ["GENRE"],
+        # DISCNUMBER appended as a READ alias beyond the reference's
+        # table (tagger.rs:271 lists DISKNUMBER only, but the de-facto
+        # Vorbis spelling is DISC-; writes keep the reference's primary)
+        "disk": ["DISKNUMBER", "DISCNUMBER"],
+        "track": ["TRACKNUMBER"],
+        "year": ["YEAR"],
+        "total_disks": ["TOTALDISCS", "DISCTOTAL"],
+        "total_tracks": ["TOTALTRACKS", "TRACKTOTAL"],
+        "length": ["DURATIONHINT", "DURATION"],
+    }
 
     def __init__(self, vendor: str = "audio_matcher_tpu"):
         self.vendor = vendor
@@ -525,19 +642,82 @@ class OpusTag:
 
     # -- field layer -----------------------------------------------------
     def get_field(self, field: Field):
-        raw = self.get_first(field.key)
+        k = field.key
+        raw = self.get_first(k)
         if raw is None:
             return None
-        try:
-            return float(int(raw))
-        except ValueError:
-            return None
+        if k == "track":
+            head = raw.split("/")[0]
+            try:
+                return int(head)
+            except ValueError:
+                return None
+        if k == "total_tracks":
+            try:
+                return int(raw)
+            except ValueError:
+                return None
+        if k in ("year", "disk", "total_disks"):
+            try:
+                return int(raw)
+            except ValueError:
+                return None
+        if k == "length":
+            try:
+                return float(int(raw))
+            except ValueError:
+                return None
+        return raw
+
+    def get_field_fallback(self, field: Field):
+        # TRACKNUMBER "n/total" fallback for total_tracks (tagger.rs:367-375)
+        if field.key == "total_tracks":
+            raw = self.get_first("track")
+            if raw and "/" in raw:
+                try:
+                    return int(raw.split("/")[1])
+                except ValueError:
+                    return None
+        return None
 
     def set_field(self, field: Field, value) -> None:
+        k = field.key
         if value is None:
-            self.remove_all(field.key)
+            self.remove_all(k)
             return
-        self.set_first(field.key, str(int(value)))  # whole seconds
+        if k == "length":
+            value = int(value)  # whole seconds, reference interop
+        self.set_first(k, str(value))
+
+    def set_chapter(self, index: int, time_secs: float, name: str | None) -> None:
+        if not 0 <= index <= 999:
+            # the Vorbis chapter extension is CHAPTER000..CHAPTER999 —
+            # a 4-digit comment would be written but never read back
+            log.warning("opus chapter index %d out of 0..999; skipped", index)
+            return
+        # idempotent like the ID3 path: replace an existing entry for the
+        # same index instead of appending duplicates on every re-tag
+        keys = {f"CHAPTER{index:03}", f"CHAPTER{index:03}NAME"}
+        self.comments = [
+            (k, v) for k, v in self.comments if k.upper() not in keys
+        ]
+        self.comments.append((f"CHAPTER{index:03}", fmt_hmsm(time_secs)))
+        if name is not None:
+            self.comments.append((f"CHAPTER{index:03}NAME", name))
+
+    def get_chapters(self) -> list[tuple[int, str, str | None]]:
+        chapters = []
+        names = {}
+        for k, v in self.comments:
+            m = re.fullmatch(r"CHAPTER(\d{3})NAME", k.upper())
+            if m:
+                names[int(m.group(1))] = v
+        for k, v in self.comments:
+            m = re.fullmatch(r"CHAPTER(\d{3})", k.upper())
+            if m:
+                idx = int(m.group(1))
+                chapters.append((idx, v, names.get(idx)))
+        return chapters
 
     # -- file io ---------------------------------------------------------
     @classmethod
@@ -581,6 +761,8 @@ class OpusTag:
                 seq += 1
         path.write_bytes(bytes(out))
 
+    ext = "opus"
+
 
 # ------------------------------------------------------------ TaggedFile
 def _format_for(path: Path):
@@ -596,7 +778,9 @@ class TaggedFile:
     """Format-erased tag handle with dirty tracking.
 
     Parity: tagger.rs:505-673 (``TaggedFile``). ``save_changes`` persists
-    only when dirty (or forced).
+    only when dirty (or forced); ``reload_empty`` re-reads the file and
+    fills currently-empty fields; ``fill_all_from`` copies missing fields
+    from another handle.
     """
 
     def __init__(self, inner, path: Path):
@@ -626,9 +810,17 @@ class TaggedFile:
             inner = fmt()
         return cls(inner, path)
 
+    @classmethod
+    def new_empty(cls, path) -> "TaggedFile":
+        path = Path(path)
+        return cls(_format_for(path)(), path)
+
     # -- accessors -------------------------------------------------------
     def get(self, field: Field):
-        return self._inner.get_field(field)
+        value = self._inner.get_field(field)
+        if value is None and hasattr(self._inner, "get_field_fallback"):
+            value = self._inner.get_field_fallback(field)
+        return value
 
     def set(self, field: Field, value) -> None:
         current = self.get(field)
@@ -647,6 +839,25 @@ class TaggedFile:
         self._inner.set_field(field, value)
         self.was_changed = True
 
+    def set_chapter(self, index: int, time_secs: float, name=None) -> None:
+        self._inner.set_chapter(index, time_secs, name)
+        self.was_changed = True
+
+    def fill_from(self, field: Field, other: "TaggedFile") -> None:
+        if self.get(field) is not None:
+            return
+        val = other.get(field)
+        if val is not None:
+            self.set(field, val)
+
+    def fill_all_from(self, other: "TaggedFile") -> None:
+        for field in ALL_FIELDS:
+            self.fill_from(field, other)
+
+    @property
+    def ext(self) -> str:
+        return self._inner.ext
+
     # -- persistence -----------------------------------------------------
     def save_changes(self, force_save: bool = False) -> bool:
         if not (force_save or self.was_changed):
@@ -654,3 +865,23 @@ class TaggedFile:
         self._inner.write(self.path)
         self.was_changed = False
         return True
+
+    def reload(self, default_empty: bool = False) -> None:
+        self.was_changed = False
+        self._inner = TaggedFile.from_path(self.path, default_empty)._inner
+
+    def reload_empty(self) -> None:
+        self.fill_all_from(TaggedFile.from_path(self.path, default_empty=True))
+
+    def drop_changes(self) -> None:
+        self.was_changed = False
+
+    def file_moved(self, new_path) -> None:
+        self.path = Path(new_path)
+
+    def __del__(self):  # save-on-drop parity (tagger.rs:675-683)
+        try:
+            if self.save_changes(False):
+                log.debug("saved tags for %s", self.path)
+        except Exception as exc:  # noqa: BLE001
+            log.error("failed to save %s with %s", self.path, exc)

@@ -118,6 +118,19 @@ holds every kernel against its plain PyTorch version:
    dry run (``parallel.dryrun``) on that mesh: the resident scan
    (``xla_packed`` + kernel 7), the windows path and the spectrogram
    scanner, every plant found.
+13. The workflow's three tools in turn (``worker_archive``): config #2's
+   3600 s episode from seed 42 with the snippet planted five times, 600 s
+   apart, through ``matcher_cli.run`` on the card (mulaw8): four
+   "Segment #k" labels, each within 1 sample of its plants, kernels 6 and
+   2-5 launched once a slab. Then ``audio-worker-torch``
+   (``worker_cli.main``, its answers on stdin) against the port's
+   ``FakeAudacity`` with an index folder of one two-chapter series: the
+   labels renamed, merged into two chapters, the "exported" chapter files
+   (mp3 stubs: a frame header and a zero payload) tagged and moved into
+   the archive, ``.done.txt`` Done, a second run skipping the file. Then
+   ``archive-scroller-torch`` (``archive_cli.main``) and a scripted REPL
+   (``list -c``, ``exit``) over the archive: the series and both
+   chapters listed. The seconds of each tool are printed.
 
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -138,11 +151,14 @@ second-to-last line is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -159,13 +175,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from audio_matcher_tpu_torch import _build, match  # noqa: E402
-from audio_matcher_tpu_torch.cli import matcher_cli, sweep_cli  # noqa: E402
+from audio_matcher_tpu_torch.archive.repl import Holder  # noqa: E402
+from audio_matcher_tpu_torch.cli import (  # noqa: E402
+    archive_cli,
+    matcher_cli,
+    sweep_cli,
+    worker_cli,
+)
 from audio_matcher_tpu_torch.hostio.decode import (  # noqa: E402
     read_audio,
     read_audio_int16,
     resample,
 )
 from audio_matcher_tpu_torch.hostio.labels import read_labels  # noqa: E402
+from audio_matcher_tpu_torch.meta import tagger  # noqa: E402
+from audio_matcher_tpu_torch.meta.progress import Progress, State  # noqa: E402
 from audio_matcher_tpu_torch.models.spectrogram import (  # noqa: E402
     SpectrogramConfig,
     SpectrogramMatcher,
@@ -200,6 +224,9 @@ from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
     ShardedScanner,
     ShardedSpectrogramScanner,
     sweep_archive,
+)
+from audio_matcher_tpu_torch.worker.fake_audacity import (  # noqa: E402
+    FakeAudacity,
 )
 
 SR = 44100
@@ -255,6 +282,12 @@ TOL_SPEC = 2e-4  # the JAX package's NCC tolerance (tests/test_spectrogram.py)
 TOL_RESAMPLE = 2e-6  # against scipy's float64 resample_poly (tests/test_resample.py)
 RESAMPLE_SECS = 600
 WORKER_TIMEOUT = 600  # seconds for each process of the two-process sweep
+WORKFLOW_PLANTS = (21.0, 621.0, 1221.0, 1821.0, 2421.0)  # s, > 480 s apart
+# the worker's answers (tests/test_worker.py): ready, labels 1-2 "Serie 1",
+# labels 3-4 "Serie 2", ready for the next step, exported
+WORKFLOW_ANSWERS = ["", "Serie 1", "Serie 1", "Serie 2", "Serie 2", "", ""]
+WORKFLOW_CHAPTERS = ("Kapitel Eins", "Kapitel Zwei")
+MP3_STUB = b"\xff\xfb\x90\x00" + bytes(413)  # frame header, zero payload
 
 CSRC = "audio_matcher_tpu_torch/csrc/"
 KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
@@ -294,10 +327,12 @@ ROUND_TRIP_PATH = (F.fft_major_forward, F.fft_minor, F.ifft_minor,
 ALL_KERNELS = F.KERNELS + K.KERNELS
 
 
-def make_bench_inputs(n_queries=N_QUERIES, episode_secs=EPISODE_SECS):
+def make_bench_inputs(n_queries=N_QUERIES, episode_secs=EPISODE_SECS,
+                      offsets=None):
     """Seed-42 snippets, plant offsets and episode, built in the order the
     JAX package's bench.py builds them (make_bench_inputs, make_audio)
-    for BENCH_QUERIES=n_queries BENCH_EPISODE_SECS=episode_secs."""
+    for BENCH_QUERIES=n_queries BENCH_EPISODE_SECS=episode_secs; the
+    snippet is planted at ``offsets`` (seconds) where given instead."""
     rng = np.random.default_rng(42)
     snippets = [
         np.clip(
@@ -306,8 +341,9 @@ def make_bench_inputs(n_queries=N_QUERIES, episode_secs=EPISODE_SECS):
         ).astype(np.float32)
         for q in range(n_queries)
     ]
-    offsets = [o for o in (21.0, episode_secs * 0.55)
-               if (o + SNIPPET_SECS + 0.5) < episode_secs] or [0.0]
+    if offsets is None:
+        offsets = [o for o in (21.0, episode_secs * 0.55)
+                   if (o + SNIPPET_SECS + 0.5) < episode_secs] or [0.0]
     episode = (rng.standard_normal(int(episode_secs * SR)) * 0.05).astype(
         np.float32)
     for off in offsets:
@@ -1696,6 +1732,141 @@ def mesh_dryrun(config, device, rows):
     print(f"dry run launches: {launches}; {CARD['line']}")
 
 
+def console(run, stdin=""):
+    """``run()`` with ``stdin`` as its standard input → (its result, what
+    it printed)."""
+    out = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            result = run()
+    finally:
+        sys.stdin = saved
+    return result, out.getvalue()
+
+
+def worker_session(root, argv, stdin):
+    """``audio-worker-torch`` with ``argv`` and ``stdin`` against a fresh
+    ``FakeAudacity`` in ``root/pipes`` → (exit code, its command log)."""
+    os.environ["AUDACITY_PIPE_DIR"] = str(root / "pipes")
+    server = FakeAudacity(root / "pipes")
+    try:
+        rc, _ = console(lambda: worker_cli.main(argv), stdin)
+        log = list(server.command_log)  # before stop(), which may add one
+    finally:
+        server.stop()
+        del os.environ["AUDACITY_PIPE_DIR"]
+    return rc, log
+
+
+def check_listing(label, text):
+    """The archive's listing: the series and both chapters, from the
+    renamed episode."""
+    want = ["Serie"] + [f"\t{nr} - {name} [radio - 2024-01-06]"
+                        for nr, name in enumerate(WORKFLOW_CHAPTERS, 1)]
+    if [ln for ln in text.replace("$> ", "").splitlines() if ln] != want:
+        raise AssertionError(f"{label} listed {text!r}, want {want}")
+
+
+def worker_archive(config, device, rows):
+    """Path 13, the workflow's three tools in turn: the matcher CLI on the
+    card writes the episode's label file, ``audio-worker-torch`` names,
+    merges, tags and files the chapters against the fake Audacity, and
+    ``archive-scroller-torch`` lists the archive."""
+    offsets = [int(o * SR) for o in WORKFLOW_PLANTS]
+    snippets, _, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS,
+                                             WORKFLOW_PLANTS)
+    with tempfile.TemporaryDirectory(prefix="am_workflow_") as tmp:
+        root = Path(tmp)
+        work, archive = root / "work", root / "archive"
+        (archive / "Serie").mkdir(parents=True)
+        work.mkdir()
+        (archive / "Serie" / "index.txt").write_text(
+            "".join(f"{name}\n" for name in WORKFLOW_CHAPTERS))
+        episode_path = work / "radio-2024_01_06.wav"
+        write_mono_wav(root / "intro.wav", SR, snippets[0])
+        write_mono_wav(episode_path, SR, episode)
+        del episode
+
+        # 1. the matcher CLI on the card
+        ns = matcher_cli.build_parser().parse_args(
+            [str(episode_path), "--snippet", str(root / "intro.wav"),
+             "--transfer", "mulaw8", "--device", str(device)])
+        t0 = time.perf_counter()
+        rc, launches = counted(lambda: matcher_cli.run(ns), SINGLE_PATH)
+        t_match = time.perf_counter() - t0
+        slabs = n_slabs(MatchConfig(chunk_secs=float(ns.chunk_size)),
+                        SINGLE_EPISODE_SECS)
+        check_launches("the workflow's matcher CLI", launches, SINGLE_PATH,
+                       slabs)
+        found = read_labels(episode_path.with_suffix(".txt"))
+        if rc != 0 or [lb.name for lb in found] != [
+                f"Segment {k}" for k in range(1, len(offsets))] or any(
+                abs(lb.start * SR - 7 * SR - offsets[k]) > PLANT_TOL + 0.5
+                or abs(lb.end * SR - offsets[k + 1]) > PLANT_TOL + 0.5
+                for k, lb in enumerate(found)):
+            raise AssertionError(f"matcher CLI: rc {rc}, labels "
+                                 f"{[lb.to_line() for lb in found]}, plants "
+                                 f"{offsets}")
+
+        # 2. the worker against the fake Audacity; the user's exports
+        for nr, name in enumerate(WORKFLOW_CHAPTERS, 1):
+            (work / f"Serie {nr} {name}.mp3").write_bytes(MP3_STUB)
+        argv = [str(episode_path), "--index-folder", str(archive),
+                "--config", str(root / "worker.toml"), "-n", "--silent",
+                "--timeout", "30s"]
+        t0 = time.perf_counter()
+        rc, _ = worker_session(root, argv, "\n".join(WORKFLOW_ANSWERS) + "\n")
+        t_worker = time.perf_counter() - t0
+        renamed = [lb.name for lb in read_labels(episode_path.with_suffix(
+            ".txt"))]
+        want = [f"Serie {nr}.{part} {name}"
+                for nr, name in enumerate(WORKFLOW_CHAPTERS, 1)
+                for part in (1, 2)]
+        if rc != 0 or renamed != want:
+            raise AssertionError(f"worker: rc {rc}, labels {renamed}")
+        for nr, name in enumerate(WORKFLOW_CHAPTERS, 1):
+            moved = archive / "Serie" / f"Serie {nr} {name}.mp3"
+            tag = tagger.TaggedFile.from_path(moved)
+            got = [tag.get(f) for f in (tagger.Title, tagger.Album,
+                                        tagger.Genre, tagger.Track,
+                                        tagger.TotalTracks)]
+            if got != [name, "Serie", "Hörbuch", nr, 2] or (
+                    1, "00:00:00.000", "Part 1") not in (
+                    tag._inner.get_chapters()) or (work / moved.name).exists():
+                raise AssertionError(f"{moved}: tags {got}, chapters "
+                                     f"{tag._inner.get_chapters()}")
+            del tag
+        done = (work / ".done.txt").read_text()
+        if Progress(work / ".done.txt").get(episode_path.name) != State.DONE:
+            raise AssertionError(f".done.txt holds {done!r}")
+        rc, log = worker_session(root, argv, "")
+        if rc != 0 or log != ["Exit:"]:
+            raise AssertionError(f"the second worker run: rc {rc}, {log}")
+
+        # 3. the archive: the episode's renamed label file filed in it
+        shutil.copy(episode_path.with_suffix(".txt"), archive)
+        t0 = time.perf_counter()
+        rc, listing = console(lambda: archive_cli.main(
+            [str(archive), "--config", str(root / "archive.toml"), "-y",
+             "--silent"]))
+        t_archive = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"archive CLI returned {rc}")
+        check_listing("archive-scroller-torch", listing)
+        _, repl = console(lambda: Holder(archive).repl(), "list -c\nexit\n")
+        check_listing("the archive REPL", repl)
+    print(f"workflow on config #2's episode ({SINGLE_EPISODE_SECS} s, "
+          f"{len(offsets)} plants): matcher CLI {t_match:.3f} s (launches "
+          f"{launches}, one a slab, {slabs} slabs; {len(found)} Segment "
+          f"labels within {PLANT_TOL} sample of their plants), "
+          f"audio-worker-torch {t_worker:.3f} s (4 labels renamed, 2 "
+          f"chapters tagged and moved, Done; a second run skipped it), "
+          f"archive-scroller-torch {t_archive:.3f} s (the series and both "
+          f"chapters, CLI and REPL); {CARD['line']}")
+
+
 def two_process_sweep(root, labels, device):
     """Path 12, several processes: the archive sweep by two
     ``audio-sweep-torch`` processes of one cluster on the card, over
@@ -1793,7 +1964,8 @@ def main() -> int:
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
                   jnp_scan, single_query_jnp, large_fft, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
-                  matcher_cli_run, sharded_scan, mesh_dryrun):
+                  matcher_cli_run, sharded_scan, mesh_dryrun,
+                  worker_archive):
         t0 = time.perf_counter()
         phase(config, dev, rows)
         torch.cuda.empty_cache()

@@ -819,3 +819,59 @@ def test_device_resample_ignores_the_callers_tf32(dev):
         torch.backends.cuda.matmul.allow_tf32 = prev[0]
         torch.backends.cudnn.allow_tf32 = prev[1]
         torch.set_float32_matmul_precision(prev[2])
+
+
+def test_matcher_cli_on_cuda_then_worker_equals_cpu_chain(dev, tmp_path,
+                                                          monkeypatch):
+    """The workflow's first two tools: the matcher CLI on the card writes
+    the label file that the port's worker names, merges, tags and files
+    against the fake Audacity. The final tree equals the same chain's
+    with ``--device cpu``, byte for byte."""
+    import io
+
+    from audio_matcher_tpu_torch.cli import matcher_cli, worker_cli
+    from audio_matcher_tpu_torch.hostio.decode import write_wav
+    from audio_matcher_tpu_torch.hostio.labels import read_labels
+    from audio_matcher_tpu_torch.worker.fake_audacity import FakeAudacity
+
+    sr = 8000
+    rng = np.random.default_rng(21)
+    snippet = (rng.standard_normal(2 * sr) * 0.2).astype(np.float32)
+    episode = (rng.standard_normal(70 * sr) * 0.02).astype(np.float32)
+    for at in (5, 25, 45):
+        episode[at * sr : at * sr + len(snippet)] = snippet
+    trees = {}
+    for side in ("cuda", "cpu"):
+        root = tmp_path / side
+        (root / "archive" / "Serie").mkdir(parents=True)
+        (root / "archive" / "Serie" / "index.txt").write_text("Eins\n")
+        work = root / "work"
+        work.mkdir()
+        write_wav(root / "intro.wav", sr, snippet)
+        write_wav(work / "radio-2024_01_06.wav", sr, episode)
+        (work / "Serie 1 Eins.mp3").write_bytes(
+            b"\xff\xfb\x90\x00" + bytes(413))
+        assert matcher_cli.main([
+            str(work / "radio-2024_01_06.wav"), "--snippet",
+            str(root / "intro.wav"), "--distance", "10", "--chunk-size",
+            "10", "--device", str(dev) if side == "cuda" else "cpu",
+            "--silent"]) == 0
+        assert len(read_labels(work / "radio-2024_01_06.txt")) == 2
+        monkeypatch.chdir(root)
+        monkeypatch.setenv("AUDACITY_PIPE_DIR", str(root / "pipes"))
+        monkeypatch.setattr("sys.stdin", io.StringIO("\nSerie 1\nSerie 1\n\n\n"))
+        server = FakeAudacity(root / "pipes")
+        try:
+            assert worker_cli.main([
+                "work/radio-2024_01_06.wav", "--index-folder", "archive",
+                "--config", "w.toml", "-n", "--silent",
+                "--timeout", "10"]) == 0
+        finally:
+            server.stop()
+        trees[side] = {
+            str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*"))
+            if p.is_file() and p.suffix != ".wav"}
+    assert trees["cuda"] == trees["cpu"]
+    assert "archive/Serie/Serie 1 Eins.mp3" in trees["cuda"]
+    assert b"Serie 1.2 Eins" in trees["cuda"]["work/radio-2024_01_06.txt"]

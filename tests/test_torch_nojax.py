@@ -93,6 +93,47 @@ _SCAN_WITHOUT_JAX = textwrap.dedent(
             want = [5 * sr] if "16k" in path else [sr, 4 * sr]
             assert [p.position // 256 for p in per_query[0]] == [
                 w // 256 for w in want], (path, per_query)
+    # the worker against the port's fake Audacity on those labels' format,
+    # then the archive CLI over what it filed
+    import contextlib, io, os, shutil
+    from audio_matcher_tpu_torch.cli import archive_cli
+    from audio_matcher_tpu_torch.cli.common import Inputs
+    from audio_matcher_tpu_torch.hostio.labels import TimeLabel, write_labels
+    from audio_matcher_tpu_torch.meta.tagger import TaggedFile, Title
+    from audio_matcher_tpu_torch.worker.fake_audacity import FakeAudacity
+    from audio_matcher_tpu_torch.worker.pipeline import WorkerArgs, run_worker
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        os.environ["AUDACITY_PIPE_DIR"] = str(d / "pipes")
+        work, archive = d / "work", d / "archive"
+        (archive / "Serie").mkdir(parents=True)
+        (archive / "Serie" / "index.txt").write_text("Eins\\nZwei\\n")
+        work.mkdir()
+        audio = work / "radio-2024_01_06.wav"
+        write_wav(audio, sr, ep)
+        write_labels([TimeLabel(10.0 * i + 1, 10.0 * i + 9, f"Segment {i}")
+                      for i in range(1, 5)], audio.with_suffix(".txt"))
+        for name in ("Serie 1 Eins", "Serie 2 Zwei"):
+            (work / f"{name}.mp3").write_bytes(b"\\xff\\xfb\\x90\\x00" + bytes(413))
+        server = FakeAudacity(d / "pipes")
+        try:
+            run_worker(WorkerArgs(audio_paths=[audio], index_folder=archive,
+                                  timeout=5),
+                       inputs=Inputs(script=["", "Serie 1", "Serie 1",
+                                             "Serie 2", "Serie 2", "", ""]))
+        finally:
+            server.stop()
+        moved = archive / "Serie" / "Serie 2 Zwei.mp3"
+        assert TaggedFile.from_path(moved).get(Title) == "Zwei"
+        shutil.copy(audio.with_suffix(".txt"), archive)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert archive_cli.main([str(archive), "--config",
+                                     str(d / "a.toml"), "-y",
+                                     "--silent"]) == 0
+        assert out.getvalue().splitlines() == [
+            "Serie", "\\t1 - Eins [radio - 2024-01-06]",
+            "\\t2 - Zwei [radio - 2024-01-06]"], out.getvalue()
     # the sharded paths on a mesh of CPU shards
     from audio_matcher_tpu_torch.parallel.dryrun import dryrun_multichip
     dryrun_multichip(4, "cpu")
