@@ -2,13 +2,15 @@
 // fft_passes.cuh.
 //
 // Replaces the Pallas TPU kernels of audio_matcher_tpu/ops/pallas_fft.py:
-//   major_pass<In, false, false, false, B> <- fft_major_fwd_wire
-//   major_pass<In, false, true, false, B>  <- fft_major_fwd_wire2
-//   major_pass<float, false, true, true, B>
+//   major_pass<In, false, false, false, B, W> <- fft_major_fwd_wire
+//   major_pass<In, false, true, false, B, W>  <- fft_major_fwd_wire2
+//   major_pass<float, false, true, true, B, W>
 //                               <- fft_major(inverse=False, cross=True)
-//   major_pass<float, true, false, true, B>
+//   major_pass<float, true, false, true, B, W>
 //                               <- fft_major(inverse=True, cross=True, a_crop)
-// one instantiation per A = 2^B, 2^7 .. 2^12.
+// one instantiation per A = 2^B, 2^7 .. 2^14, and per cross twiddle W
+// (root<W>): the one-call form up to fft_len 2^24 (A <= 4096), the split
+// exponent above (A >= 2048).
 //
 // What is computed. The radix-2 DIF over the strided A axis of every column
 // c of [P, A, M] (natural input, bit-reversed output), then physical row r
@@ -24,8 +26,13 @@
 // the inverse reads 2 x 4.3 GB of product planes and writes 2 x 2.8 GB. A
 // column's 16 points a thread are 16 rows apart, so a block works on a
 // strip of C = 2^LOG2C columns (2^14 points: C = 32 columns, 128 bytes of a
-// row, up to A = 512; 16 at 1024; 8 at 2048; 4 at 4096), 1024 threads of 64
-// registers, one block per SM; the strip's tile holds the exchanges.
+// row, up to A = 512; 16 at 1024; 8 at 2048; 4 at 4096; 2 at 8192 and 1 at
+// 16384, fft_len 2^25 - 2^28), 1024 threads of 64 registers, one block per
+// SM; the strip's tile holds the exchanges. The strips of 1 and 2 columns,
+// the only ones whose tiles fit at A = 16384 and 8192, read and write 4 or
+// 8 bytes of each 32-byte sector; only L2 merges them with the pieces of
+// the neighbouring blocks, which walk the neighbouring columns at about the
+// same time, and it merges them poorly (7-32x the byte bound: PERF.md).
 //
 // What the design does about it.
 //  * Stage groups in registers, two exchanges at A = 2048 (fft_passes.cuh).
@@ -56,7 +63,8 @@
 //    on with the next strip.
 //  * The cross twiddle keeps its exact integer exponent brev_A(r)*c: one
 //    sincospif per thread and 16 per column of a strip (build_cross,
-//    apply_cross), one complex product per point.
+//    apply_cross), one complex product per point; above fft_len 2^24 two
+//    sincospif of the exponent's exact halves and a product (root).
 //  * Offsets into the planes are 64-bit: one plane of the product output
 //    holds 2^30 elements. The planes run along gridDim.x with the strips.
 //
@@ -71,11 +79,15 @@ namespace {
 
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
-// log2 of the strip width: 2^14 points a block, 4 to 32 columns
-// (ops/fft_plan.py's major_strip_log2). Narrower strips would write 16
-// bytes of each 32-byte sector at A = 2048.
+// log2 of the strip width: 2^14 points a block, 4 to 32 columns up to A =
+// 4096 (ops/fft_plan.py's major_strip_log2; narrower strips would write 16
+// bytes of each 32-byte sector at A = 2048), 2 and 1 at A = 8192 and 16384,
+// where 4 columns would not fit.
 __host__ __device__ constexpr int strip_log2(int log2A) {
-    return 14 - log2A > 5 ? 5 : 14 - log2A < 2 ? 2 : 14 - log2A;
+    return log2A > 12       ? 14 - log2A
+           : 14 - log2A > 5 ? 5
+           : 14 - log2A < 2 ? 2
+                            : 14 - log2A;
 }
 // threads a block: C * A / 16 (1024 from A = 512 up)
 __host__ __device__ constexpr int threads_of(int log2A) {
@@ -100,13 +112,13 @@ __device__ __forceinline__ float dequant(float v) { return v; }
 // The cross twiddles W_n^{sign * e * D} of the strip's columns c0 + col,
 // D = c * A/16, e < 16, at ct[col * 17 + e]: one sincospif of an exact
 // integer exponent each (e * D < c * A < n).
-template <int LOG2A, int LOG2C>
+template <int LOG2A, int LOG2C, bool WIDE>
 __device__ __forceinline__ void build_cross(float2* ct, int c0, int log2n,
                                             float sign) {
     for (int k = threadIdx.x; k < (PTS << LOG2C); k += blockDim.x) {
         const int col = k >> LOG2_PTS, e = k & (PTS - 1);
-        ct[col * (PTS + 1) + e] =
-            root(e * ((c0 + col) << (LOG2A - LOG2_PTS)), log2n, sign);
+        ct[col * (PTS + 1) + e] = root<WIDE>(
+            e * ((c0 + col) << (LOG2A - LOG2_PTS)), log2n, sign);
     }
 }
 
@@ -116,10 +128,10 @@ __device__ __forceinline__ void build_cross(float2* ct, int c0, int log2n,
 // brev_A(u << 4) * c it is base * ct[col][brev_4(r)] with base = W^{K0}
 // (cross_base): one sincospif per thread and one product per point, not a
 // sincospif per point.
-template <int LOG2A>
+template <int LOG2A, bool WIDE>
 __device__ __forceinline__ float2 cross_base(int u, int c, int log2n,
                                              float sign) {
-    return root(brev_bits(u << LOG2_PTS, LOG2A) * c, log2n, sign);
+    return root<WIDE>(brev_bits(u << LOG2_PTS, LOG2A) * c, log2n, sign);
 }
 __device__ __forceinline__ void apply_cross(float (&xr)[PTS],
                                             float (&xi)[PTS], float2 base,
@@ -148,24 +160,34 @@ __device__ __forceinline__ void store_forward(const float (&vr)[PTS],
     }
 }
 
-// cp.async of 16 bytes, global -> shared, past L1; L2 fetches the whole
-// 128-byte line.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// cp.async of g bytes, global -> shared, with a 128-byte L2 prefetch (16
+// bytes past L1).
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
-                 :: "r"(d), "l"(src) : "memory");
+    if (g == 16)
+        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else if (g == 8)
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src) : "memory");
 }
 
 // Start the copy of strip s of the f32 planes (plane s / strips, columns
 // c0 .. c0 + C) into raw: both planes, in the exchange tile's layout, so a
 // thread reads its first group's points as from a tile. One commit group.
+// Copies are 16 bytes, or the whole row piece where it is shorter (4 or 8
+// bytes: strips of 1 or 2 columns, A >= 8192).
 template <int LOG2A, int LOG2C>
 __device__ __forceinline__ void fetch_strip(float* raw,
                                             const float* __restrict__ xr,
                                             const float* __restrict__ xi,
                                             int s, int log2M) {
     constexpr int PLANE = ((1 << LOG2A) + (1 << LOG2A) / 16) << LOG2C;
-    constexpr int LOG2Q = LOG2C - 2;  // float4s per row of the strip
+    constexpr int LOG2G = LOG2C < 2 ? LOG2C : 2;  // floats a copy
+    constexpr int LOG2Q = LOG2C - LOG2G;  // copies a row of the strip
     constexpr int PER_PLANE = 1 << (LOG2A + LOG2Q);
     const int log2strips = log2M - LOG2C;
     const long long at = ((long long)(s >> log2strips) << (LOG2A + log2M)) +
@@ -174,9 +196,10 @@ __device__ __forceinline__ void fetch_strip(float* raw,
     for (int k = threadIdx.x; k < 2 * PER_PLANE; k += blockDim.x) {
         const int im = k >= PER_PLANE;
         const int kk = k - (im ? PER_PLANE : 0);
-        const int a = kk >> LOG2Q, q = (kk & ((1 << LOG2Q) - 1)) << 2;
-        cp_async16(raw + (im ? PLANE : 0) + ((a + (a >> 4)) << LOG2C) + q,
-                   (im ? xi : xr) + at + ((long long)a << log2M) + q);
+        const int a = kk >> LOG2Q, q = (kk & ((1 << LOG2Q) - 1)) << LOG2G;
+        cp_async(raw + (im ? PLANE : 0) + ((a + (a >> 4)) << LOG2C) + q,
+                 (im ? xi : xr) + at + ((long long)a << log2M) + q,
+                 4 << LOG2G);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -185,7 +208,7 @@ __device__ __forceinline__ void fetch_strip(float* raw,
 // + gridDim.x, ... of the P * M / C strips. The copy of the next strip into
 // raw is in flight while the block runs the current strip's stages and
 // stores; the exchanges go one plane at a time through the tile xt.
-template <bool INVERSE, int LOG2A>
+template <bool INVERSE, int LOG2A, bool WIDE>
 __device__ __forceinline__ void walk_strips(
     const float* __restrict__ xr, const float* __restrict__ xi,
     float* __restrict__ yr, float* __restrict__ yi,
@@ -219,8 +242,9 @@ __device__ __forceinline__ void walk_strips(
         };
         asm volatile("cp.async.wait_all;\n" ::: "memory");
         __syncthreads();  // the strip is in raw; the last one's reads are done
-        build_cross<LOG2A, LOG2C>(ct, column(s) - col, log2n, sign);
-        bases[threadIdx.x] = cross_base<LOG2A>(u, column(s), log2n, sign);
+        build_cross<LOG2A, LOG2C, WIDE>(ct, column(s) - col, log2n, sign);
+        bases[threadIdx.x] =
+            cross_base<LOG2A, WIDE>(u, column(s), log2n, sign);
 #pragma unroll
         for (int r = 0; r < PTS; ++r) {
             vr[r] = raw[tile.word(u, W0, r)];
@@ -267,10 +291,12 @@ __host__ __device__ constexpr int box_rows(int log2A) {
 // wire bytes (A rows of STRIDE bytes a plane, two planes for PAIR); for
 // mu-law the 256 decoded codes 16 times (lane l reads code v at v * 16 + l
 // mod 16: at most two lanes a bank); the cross twiddles and a float2 a
-// thread. The TMA stores the output where a strip's row piece is shorter
-// than a 32-byte sector (A = 4096, C = 4) and the staging plane fits (not
-// for int16 and f32 pairs); elsewhere the threads store it themselves,
-// which is faster where the pieces are whole sectors.
+// thread. The TMA stores the output where a strip's row piece is half a
+// 32-byte sector (A = 4096, C = 4: a box row must be a multiple of 16
+// bytes) and the staging plane fits (not for int16 and f32 pairs);
+// elsewhere the threads store it themselves, which is faster where the
+// pieces are whole sectors, and the only way for the 4- and 8-byte pieces
+// of A = 8192 and 16384.
 template <typename In, bool PAIR, int LOG2A>
 struct WireLayout {
     static constexpr int LOG2C = strip_log2(LOG2A);
@@ -278,17 +304,21 @@ struct WireLayout {
     static constexpr int TILE = (A + A / 16) << LOG2C;  // floats a plane
     static constexpr int PIECE = (int)sizeof(In) << LOG2C;  // bytes a row
     // u8 and int16 rows: up to 4 bytes more a row (the lead of a 4-byte
-    // word copy), rounded up to the widest copy, 16 bytes or the piece
+    // word copy), rounded up to the widest copy, 16 bytes or the piece;
+    // pieces under 4 bytes (A >= 8192) the words that the piece and its
+    // largest lead, 4 - sizeof(In) bytes, touch
     static constexpr int WIDE = PIECE < 16 ? PIECE : 16;
     static constexpr int STRIDE =
-        sizeof(In) == 4 ? PIECE : (PIECE + 4 + WIDE - 1) / WIDE * WIDE;
+        sizeof(In) == 4 ? PIECE
+        : PIECE < 4     ? (PIECE + 4 - (int)sizeof(In) + 3) / 4 * 4
+                        : (PIECE + 4 + WIDE - 1) / WIDE * WIDE;
     static constexpr int RAW = (PAIR ? 2 : 1) * A * STRIDE;  // bytes
     static constexpr int LUT_COPIES = 16;
     static constexpr int LUT = sizeof(In) == 1 ? 256 * LUT_COPIES : 0;
     static constexpr int REST = RAW + 4 * LUT + 8 * ((PTS + 1) << LOG2C) +
                                 8 * threads_of(LOG2A);
     static constexpr bool TMA =
-        (4 << LOG2C) < 32 && 4 * (TILE + (A << LOG2C)) + REST <= MAX_SMEM;
+        (4 << LOG2C) == 16 && 4 * (TILE + (A << LOG2C)) + REST <= MAX_SMEM;
     static constexpr int STAGE = TMA ? A << LOG2C : 0;  // floats
     static constexpr int SMEM = 4 * (TILE + STAGE) + REST;
     static constexpr int BOX = box_rows(LOG2A);
@@ -297,7 +327,7 @@ struct WireLayout {
 
 // How one row piece of a strip (PIECE bytes from byte address `start`)
 // is copied: f32 rows exactly, in chunks of g = 16, 8 or 4 bytes (the
-// largest that divides the start). u8 and int16 rows the same way in 16 or
+// largest that divides the start, and at most the piece). u8 and int16 rows the same way in 16 or
 // 8 bytes where the start and the piece allow it (one copy a row at config
 // #3's 8-byte pieces); else in 4-byte words from the word that holds the
 // first byte, so `lead` = start mod 4 bytes of the previous element ride
@@ -310,27 +340,14 @@ template <typename In, int PIECE>
 __device__ __forceinline__ WireCopy wire_copy(const In* start) {
     const unsigned a = (unsigned)(uintptr_t)start & 15u;
     if (sizeof(In) == 4) {
-        const int g = a == 0 ? 16 : (a & 7) == 0 ? 8 : 4;
+        const int g0 = a == 0 ? 16 : (a & 7) == 0 ? 8 : 4;
+        const int g = g0 < PIECE ? g0 : PIECE;
         return {g, 0, PIECE / g};
     }
     if (PIECE >= 16 && a == 0) return {16, 0, PIECE / 16};
     if (PIECE >= 8 && (a & 7) == 0) return {8, 0, PIECE / 8};
     const int lead = (int)(a & 3u);
     return {4, lead, (lead + PIECE + 3) >> 2};
-}
-
-// cp.async of g bytes, global -> shared, with a 128-byte L2 prefetch.
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    if (g == 16)
-        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else if (g == 8)
-        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
-                     :: "r"(d), "l"(src) : "memory");
 }
 
 // Start the copy of one plane's piece of strip columns c0 .. c0 + C into
@@ -484,7 +501,7 @@ __device__ __forceinline__ void stage_and_store(
 // x1_rows; rows p >= x1_rows pair with wire silence (the pad window of an
 // odd slab), decoded like any sample. Decoding is in-register (the mu-law
 // table is built once a block).
-template <typename In, bool PAIR, int LOG2A>
+template <typename In, bool PAIR, int LOG2A, bool WIDE>
 __device__ __forceinline__ void walk_wire_strips(
     const In* __restrict__ x, long long in_stride, const In* __restrict__ x1,
     long long x1_stride, int x1_rows, float* __restrict__ yr,
@@ -521,8 +538,9 @@ __device__ __forceinline__ void walk_wire_strips(
         const int c0 = (s & ((1 << log2strips) - 1)) << LOG2C;
         asm volatile("cp.async.wait_all;\n" ::: "memory");
         __syncthreads();  // the strip is in raw; the last one's reads are done
-        build_cross<LOG2A, LOG2C>(ct, c0, log2n, -1.0f);
-        bases[threadIdx.x] = cross_base<LOG2A>(u, c0 + col, log2n, -1.0f);
+        build_cross<LOG2A, LOG2C, WIDE>(ct, c0, log2n, -1.0f);
+        bases[threadIdx.x] =
+            cross_base<LOG2A, WIDE>(u, c0 + col, log2n, -1.0f);
         {
             const float* lane_lut = lut + (threadIdx.x & (L::LUT_COPIES - 1));
             auto decode = [lane_lut](In v) {
@@ -599,7 +617,8 @@ __device__ __forceinline__ void walk_wire_strips(
 // per SM, so all of the SM's registers; the inverse, PLANES only, writes
 // [P, a_crop, M]). Otherwise the wire passes (walk_wire_strips), 64
 // registers a thread, as many blocks per SM as fit.
-template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A>
+template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A,
+          bool WIDE>
 __global__ void __launch_bounds__(threads_of(LOG2A),
                                   PLANES ? 1 : 1024 / threads_of(LOG2A))
 major_pass(const In* __restrict__ x, long long in_stride,
@@ -610,11 +629,11 @@ major_pass(const In* __restrict__ x, long long in_stride,
            const __grid_constant__ CUtensorMap out_i) {
     extern __shared__ __align__(128) float smem[];
     if constexpr (PLANES)
-        walk_strips<INVERSE, LOG2A>(reinterpret_cast<const float*>(x),
+        walk_strips<INVERSE, LOG2A, WIDE>(reinterpret_cast<const float*>(x),
                                     reinterpret_cast<const float*>(x1), yr,
                                     yi, tw, log2M, a_crop, strips, smem);
     else
-        walk_wire_strips<In, PAIR, LOG2A>(x, in_stride, x1, x1_stride,
+        walk_wire_strips<In, PAIR, LOG2A, WIDE>(x, in_stride, x1, x1_stride,
                                           x1_rows, yr, yi, &out_r, &out_i, tw,
                                           log2M, w_len, strips, smem);
 }
@@ -664,12 +683,58 @@ bool output_map(CUtensorMap* map, float* plane, int P, int log2A, int log2M,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Shared memory: the planes' passes 3 * (A + A/16) * C floats (raw and the
-// one-plane tile), the cross twiddles and a float2 a thread; the wire
-// passes WireLayout, with the tensor maps of their output planes where
-// they store by TMA. The grid is the card's SMs times the blocks an SM
-// holds, or the strips where there are fewer. The strips must number at
-// least one and below 2^31.
+// One instantiation's launch. Shared memory: the planes' passes 3 * (A +
+// A/16) * C floats (raw and the one-plane tile), the cross twiddles and a
+// float2 a thread; the wire passes WireLayout, with the tensor maps of their
+// output planes where they store by TMA. The grid is the card's SMs times
+// the blocks an SM holds, or the strips where there are fewer. The strips
+// must number at least one and below 2^31.
+template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A,
+          bool WIDE>
+int launch_major_as(const In* x, long long in_stride, const In* x1,
+                    long long x1_stride, int x1_rows, float* yr, float* yi,
+                    const float2* tw, int P, int log2M, long long w_len,
+                    int a_crop, cudaStream_t stream) {
+    constexpr int LOG2C = strip_log2(LOG2A);
+    using Wire = WireLayout<In, PAIR, LOG2A>;
+    const long long strips = (long long)P << (log2M - LOG2C);
+    if (strips > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    CUtensorMap out_r{}, out_i{};
+    constexpr int C = 1 << LOG2C, BOX = Wire::BOX;
+    if (!PLANES && Wire::TMA &&
+        !(output_map(&out_r, yr, P, LOG2A, log2M, C, BOX) &&
+          output_map(&out_i, yi, P, LOG2A, log2M, C, BOX)))
+        return (int)cudaErrorInvalidValue;
+    auto kern = major_pass<In, INVERSE, PAIR, PLANES, LOG2A, WIDE>;
+    const size_t tile = ((1 << LOG2A) + (1 << LOG2A) / 16) << LOG2C;
+    const size_t threads = threads_of(LOG2A);
+    const size_t smem =
+        PLANES ? (3 * tile + 2 * threads + (2 * (PTS + 1) << LOG2C)) *
+                     sizeof(float)
+               : (size_t)Wire::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int dev = 0, sms = 0, per_sm = 1;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess && !PLANES)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kern, (int)threads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const long long blocks = strips < fit ? strips : fit;
+    kern<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(
+        x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, log2M, w_len,
+        a_crop, (int)strips, out_r, out_i);
+    return (int)cudaGetLastError();
+}
+
+// The instantiation for A = 2^log2A and the cross twiddle's form: root<true>
+// above fft_len 2^24, and at A >= 8192 whatever the fft_len (one
+// instantiation fewer); root<false> up to 2^24 at A <= 4096. A <= 1024 never
+// passes 2^24 (M is at most 16384), so it has root<false> alone.
 template <typename In, bool INVERSE, bool PAIR, bool PLANES>
 int launch_major(const In* x, long long in_stride, const In* x1,
                  long long x1_stride, int x1_rows, float* yr, float* yi,
@@ -679,40 +744,19 @@ int launch_major(const In* x, long long in_stride, const In* x1,
         return (int)cudaErrorInvalidValue;
     return with_factor(log2A, [&](auto L) {
         constexpr int LOG2A = decltype(L)::value;
-        constexpr int LOG2C = strip_log2(LOG2A);
-        using Wire = WireLayout<In, PAIR, LOG2A>;
-        const long long strips = (long long)P << (log2M - LOG2C);
-        if (strips > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-        CUtensorMap out_r{}, out_i{};
-        constexpr int C = 1 << LOG2C, BOX = Wire::BOX;
-        if (!PLANES && Wire::TMA &&
-            !(output_map(&out_r, yr, P, LOG2A, log2M, C, BOX) &&
-              output_map(&out_i, yi, P, LOG2A, log2M, C, BOX)))
-            return (int)cudaErrorInvalidValue;
-        auto kern = major_pass<In, INVERSE, PAIR, PLANES, LOG2A>;
-        const size_t tile = ((1 << LOG2A) + (1 << LOG2A) / 16) << LOG2C;
-        const size_t threads = threads_of(LOG2A);
-        const size_t smem =
-            PLANES ? (3 * tile + 2 * threads + (2 * (PTS + 1) << LOG2C)) *
-                         sizeof(float)
-                   : (size_t)Wire::SMEM;
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        int dev = 0, sms = 0, per_sm = 1;
-        if (err == cudaSuccess) err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         dev);
-        if (err == cudaSuccess && !PLANES)
-            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kern, (int)threads, smem);
-        if (err != cudaSuccess) return (int)err;
-        const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
-        const long long blocks = strips < fit ? strips : fit;
-        kern<<<(unsigned)blocks, (unsigned)threads, smem, stream>>>(
-            x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, log2M, w_len,
-            a_crop, (int)strips, out_r, out_i);
-        return (int)cudaGetLastError();
+        auto go = [&](auto wide) {
+            return launch_major_as<In, INVERSE, PAIR, PLANES, LOG2A,
+                                   decltype(wide)::value>(
+                x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, P, log2M,
+                w_len, a_crop, stream);
+        };
+        if constexpr (LOG2A + MAX_LOG2_FACTOR <= 24)
+            return go(std::false_type{});
+        else if constexpr (LOG2A > 12)
+            return go(std::true_type{});
+        else
+            return LOG2A + log2M > 24 ? go(std::true_type{})
+                                      : go(std::false_type{});
     });
 }
 

@@ -5,7 +5,7 @@
 //   minor_pass<MINOR_FORWARD, B> <- fft_minor (forward)
 //   minor_pass<MINOR_INVERSE, B> <- fft_minor (inverse)
 //   minor_pass<MINOR_PRODUCT, B> <- ifft_minor_product (_minor_product_kernel)
-// one instantiation per M = 2^B, 2^7 .. 2^12; and builds the per-L twiddle
+// one instantiation per M = 2^B, 2^7 .. 2^14; and builds the per-L twiddle
 // table of both passes (twiddle_table).
 //
 // What is computed. The radix-2 DIF along each contiguous row of M points
@@ -29,9 +29,17 @@
 // quad's stores are 64 contiguous bytes. The strided end is scalar, a
 // warp's 32 lanes on consecutive words. A block is 256 threads, M/16 a row
 // (4096/M rows a block), and several blocks share an SM, so every thread
-// has its 16 loads per plane in flight while other blocks run stages. The
-// product mode keeps the window row X in registers across the Qh query
-// pairs and multiplies X*T straight into the first inverse group.
+// has its 16 loads per plane in flight while other blocks run stages. At
+// M = 8192 and 16384 (fft_len 2^25 - 2^28) a row needs more than 256
+// threads of 16 points: a block is then one row of M/16 threads (512,
+// 1024), its tiles 32 or 68 KB a plane; at 16384 a thread has 64 registers
+// for its 32 points, so the tile is MajorTile<0>'s padded line, whose steps
+// are immediates (fft_passes.cuh), not the XOR-swizzled MinorTile. The
+// product mode keeps the window row X in shared memory across the Qh query
+// pairs and multiplies X*T straight into the first inverse group; at M =
+// 16384 it reads X again for each pair (product_row_wide: its 128 KB row
+// stays in L2), since X and two tiles would pass 227 KB and a thread's 64
+// registers leave nothing to hold across the pairs.
 //
 // Each C entry point returns cudaGetLastError() of its launch, or
 // cudaErrorInvalidValue for a factor it has no instantiation for.
@@ -41,8 +49,49 @@
 namespace {
 
 constexpr int MINOR_THREADS = 256;
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
 enum MinorMode { MINOR_FORWARD, MINOR_INVERSE, MINOR_PRODUCT };
+
+// Threads of a block: MINOR_THREADS (4096/M rows) up to M = 4096, one row
+// of M/16 above (ops/fft_plan.py's minor_threads).
+__host__ __device__ constexpr int minor_threads(int log2M) {
+    return log2M - LOG2_PTS > 8 ? 1 << (log2M - LOG2_PTS) : MINOR_THREADS;
+}
+// The exchange tile of a plane: the XOR-swizzled MinorTile (conflict-free)
+// up to M = 8192; MajorTile<0>'s padded line at 16384 (ops/fft_plan.py's
+// minor_address), one float more each 16.
+template <int LOG2M>
+using MinorTileOf =
+    std::conditional_t<(LOG2M > 13), MajorTile<0>, MinorTile>;
+__host__ __device__ constexpr int minor_tile_floats(int log2M) {
+    return minor_threads(log2M) * PTS +
+           (log2M > 13 ? minor_threads(log2M) : 0);
+}
+// Whether the product mode keeps its window row X in shared memory: up to
+// M = 8192 (ops/fft_plan.py's minor_smem_bytes).
+__host__ __device__ constexpr bool minor_x_in_smem(int log2M) {
+    return log2M <= 13;
+}
+// Floats of shared memory: the two planes' exchange tiles, and the
+// product's X planes where they are kept.
+template <int MODE, int LOG2M>
+__host__ __device__ constexpr int minor_smem_floats() {
+    return 2 * minor_tile_floats(LOG2M) +
+           (MODE == MINOR_PRODUCT && minor_x_in_smem(LOG2M)
+                ? 2 * minor_threads(LOG2M) * PTS
+                : 0);
+}
+// Blocks an SM must hold (so registers a thread): 3 (85 registers) for the
+// forward and inverse, 2 for the product at M = 2048 (128), no bound for
+// the product at the other M <= 4096, where ptxas spills within 128; one
+// row a block above: 1 (128 registers at M = 8192's 512 threads, 64 at
+// 16384's 1024).
+template <int MODE, int LOG2M>
+__host__ __device__ constexpr int minor_min_blocks() {
+    if (minor_threads(LOG2M) > MINOR_THREADS) return 1;
+    return MODE != MINOR_PRODUCT ? 3 : LOG2M == 11 ? 2 : 1;
+}
 
 // tw[m + j] = exp(-2*pi*i*j/(2m)) for m = 2^p < L, j < m; tw[0] = 1.
 __global__ void twiddle_table(float2* __restrict__ tw, int L) {
@@ -105,35 +154,97 @@ __device__ __forceinline__ void store_runs(float* __restrict__ row,
             make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
 }
 
-// MINOR_THREADS threads, M/16 per row, so 4096/M rows per block (row index
-// blockIdx.x * rows_per_block + line; rows past `rows` only take part in
-// the exchanges and shuffles); at least 3 blocks per SM (85 registers a
-// thread). The product mode: 2 blocks at M = 2048 (128 registers), no
-// bound at the other M, where ptxas spills within 128.
+// The product mode at M = 16384: row w = a*B + b is the block's one row
+// (w = blockIdx.x < rows = A*B). For each query pair q: V = X*T[q, a], X
+// read from device memory each time (L2 holds the row across the pairs),
+// the inverse DIF, out row (b*Qh + q, a). The block's place and the
+// thread's are computed anew for each pair where they are needed (opaque),
+// so that nothing derived from them is held across the stages.
+template <int LOG2M>
+__device__ __forceinline__ void product_row_wide(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    const float* __restrict__ tr, const float* __restrict__ ti,
+    float* __restrict__ yr, float* __restrict__ yi,
+    const float2* __restrict__ tw, int A, int B, int Qh, float* smem) {
+    constexpr int LOG2T = LOG2M - LOG2_PTS;
+    const MinorTileOf<LOG2M> tile{0};
+    float vr[PTS], vi[PTS];
+#pragma unroll 1
+    for (int q = 0; q < Qh; ++q) {
+        {
+            const int w = opaque((int)blockIdx.x), a = w / B, b = w - a * B;
+            const long long at = ((long long)a << LOG2M) +
+                                 (opaque((int)threadIdx.x) << LOG2_PTS);
+            const float4* x_r = reinterpret_cast<const float4*>(
+                xr + ((long long)b * A << LOG2M) + at);
+            const float4* x_i = reinterpret_cast<const float4*>(
+                xi + ((long long)b * A << LOG2M) + at);
+            const float4* t_r = reinterpret_cast<const float4*>(
+                tr + ((long long)q * A << LOG2M) + at);
+            const float4* t_i = reinterpret_cast<const float4*>(
+                ti + ((long long)q * A << LOG2M) + at);
+#pragma unroll
+            for (int k = 0; k < PTS / 4; ++k) {  // V = X * T, a float4 a time
+                const float4 p = __ldg(x_r + k), pi = __ldg(x_i + k);
+                const float4 t = __ldg(t_r + k), tj = __ldg(t_i + k);
+                const float xa[4] = {p.x, p.y, p.z, p.w};
+                const float xb[4] = {pi.x, pi.y, pi.z, pi.w};
+                const float ta[4] = {t.x, t.y, t.z, t.w};
+                const float tb[4] = {tj.x, tj.y, tj.z, tj.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    vr[4 * k + e] = xa[e] * ta[e] - xb[e] * tb[e];
+                    vi[4 * k + e] = xa[e] * tb[e] + xb[e] * ta[e];
+                }
+            }
+        }
+        transform<false, true, LOG2M>(vr, vi, smem,
+                                      smem + minor_tile_floats(LOG2M), tile,
+                                      opaque((int)threadIdx.x), tw);
+        const int w = opaque((int)blockIdx.x), a = w / B, b = w - a * B;
+        const long long orow =
+            ((((long long)b * Qh + q) * A + a) << LOG2M) +
+            opaque((int)threadIdx.x);
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+            yr[orow + (r << LOG2T)] = vr[r];
+            yi[orow + (r << LOG2T)] = vi[r];
+        }
+    }
+}
+
+// minor_threads(LOG2M) threads, M/16 per row, so 4096/M rows per block up
+// to M = 4096 and one above (row index blockIdx.x * rows_per_block + line;
+// rows past `rows` only take part in the exchanges and shuffles); at least
+// minor_min_blocks blocks per SM.
 // FORWARD / INVERSE: row `row` of [rows, M] planes, the DIF over the row
 // (inverse: bit-reversed in, natural out, unscaled).
 // PRODUCT: row w = a*B + b for w < rows = A*B; the window row X[b, a] stays
-// in registers while the block loops over the Qh query pairs:
+// in shared memory while the block loops over the Qh query pairs (up to M =
+// 8192; product_row_wide above):
 // V = X*T[q, a] -> inverse DIF -> out row (b*Qh + q, a) of [B*Qh, A, M].
 template <int MODE, int LOG2M>
-__global__ void __launch_bounds__(MINOR_THREADS,
-                                  MODE != MINOR_PRODUCT ? 3
-                                  : LOG2M == 11        ? 2
-                                                       : 1)
+__global__ void __launch_bounds__(minor_threads(LOG2M),
+                                  minor_min_blocks<MODE, LOG2M>())
 minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ tr, const float* __restrict__ ti,
            float* __restrict__ yr, float* __restrict__ yi,
            const float2* __restrict__ tw, long long rows, int A, int B,
            int Qh) {
     extern __shared__ float smem[];
-    constexpr int TILE = MINOR_THREADS * PTS;  // floats of one plane
+    constexpr int THREADS = minor_threads(LOG2M);
+    constexpr int TILE = minor_tile_floats(LOG2M);  // floats of one plane
     constexpr int LOG2T = LOG2M - LOG2_PTS;  // threads per row, log2
+    if constexpr (MODE == MINOR_PRODUCT && !minor_x_in_smem(LOG2M)) {
+        product_row_wide<LOG2M>(xr, xi, tr, ti, yr, yi, tw, A, B, Qh, smem);
+        return;
+    }
     const int line = threadIdx.x >> LOG2T;
     const int u = threadIdx.x & ((1 << LOG2T) - 1);
     const long long row =
-        (long long)blockIdx.x * (MINOR_THREADS >> LOG2T) + line;
+        (long long)blockIdx.x * (THREADS >> LOG2T) + line;
     const bool live = row < rows;
-    const MinorTile tile{line << LOG2M};
+    const MinorTileOf<LOG2M> tile{line << LOG2M};  // line 0 past 4096
     float* sr = smem;
     float* si = smem + TILE;
     float vr[PTS], vi[PTS];
@@ -174,16 +285,16 @@ minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
     const int a = live ? int(row / B) : 0;
     const int b = live ? int(row - (long long)a * B) : 0;
     // The window row stays in shared memory (its own 4 float4 per plane a
-    // thread, float4 k of thread t at xs[k * MINOR_THREADS + t]: a warp's
-    // reads are consecutive) while the block loops over the query pairs.
-    // Each thread reads back only what it wrote: no barrier.
+    // thread, float4 k of thread t at xs[k * THREADS + t]: a warp's reads
+    // are consecutive) while the block loops over the query pairs. Each
+    // thread reads back only what it wrote: no barrier.
     float4* xs = reinterpret_cast<float4*>(smem + 2 * TILE);
     const long long xrow = (((long long)b * A + a) << LOG2M) + (u << LOG2_PTS);
 #pragma unroll
     for (int k = 0; k < PTS / 4; ++k) {
-        xs[k * MINOR_THREADS + threadIdx.x] =
+        xs[k * THREADS + threadIdx.x] =
             __ldg(reinterpret_cast<const float4*>(xr + xrow) + k);
-        xs[(k + PTS / 4) * MINOR_THREADS + threadIdx.x] =
+        xs[(k + PTS / 4) * THREADS + threadIdx.x] =
             __ldg(reinterpret_cast<const float4*>(xi + xrow) + k);
     }
 #pragma unroll 1
@@ -194,8 +305,8 @@ minor_pass(const float* __restrict__ xr, const float* __restrict__ xi,
             ti + (((long long)q * A + a) << LOG2M) + (u << LOG2_PTS));
 #pragma unroll
         for (int k = 0; k < PTS / 4; ++k) {  // V = X * T, a float4 at a time
-            const float4 x_r = xs[k * MINOR_THREADS + threadIdx.x];
-            const float4 x_i = xs[(k + PTS / 4) * MINOR_THREADS + threadIdx.x];
+            const float4 x_r = xs[k * THREADS + threadIdx.x];
+            const float4 x_i = xs[(k + PTS / 4) * THREADS + threadIdx.x];
             const float4 t_r = __ldg(trq + k), t_i = __ldg(tiq + k);
             const float xa[4] = {x_r.x, x_r.y, x_r.z, x_r.w};
             const float xb[4] = {x_i.x, x_i.y, x_i.z, x_i.w};
@@ -226,18 +337,21 @@ int launch_minor(long long rows, const float* xr, const float* xi,
                  const float2* tw, int log2M, int A, int B, int Qh,
                  cudaStream_t stream) {
     if (!factor_fits(log2M) || rows < 1) return (int)cudaErrorInvalidValue;
-    const long long per_block = MINOR_THREADS >> (log2M - LOG2_PTS);
-    const long long blocks = (rows + per_block - 1) / per_block;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    // the two planes' exchange tiles; the product's window rows beside them
-    const size_t smem =
-        (MODE == MINOR_PRODUCT ? 4 : 2) * MINOR_THREADS * PTS * sizeof(float);
     return with_factor(log2M, [&](auto L) {
-        auto kern = minor_pass<MODE, decltype(L)::value>;
+        constexpr int LOG2M = decltype(L)::value;
+        constexpr int THREADS = minor_threads(LOG2M);
+        const long long per_block = THREADS >> (LOG2M - LOG2_PTS);
+        const long long blocks = (rows + per_block - 1) / per_block;
+        if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+        // the exchange tiles; the product's window rows beside them
+        constexpr size_t smem =
+            minor_smem_floats<MODE, LOG2M>() * sizeof(float);
+        static_assert(smem <= MAX_SMEM, "the minor pass's shared memory");
+        auto kern = minor_pass<MODE, LOG2M>;
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
-        kern<<<(unsigned)blocks, MINOR_THREADS, smem, stream>>>(
+        kern<<<(unsigned)blocks, THREADS, smem, stream>>>(
             xr, xi, tr, ti, yr, yi, tw, rows, A, B, Qh);
         return (int)cudaGetLastError();
     });

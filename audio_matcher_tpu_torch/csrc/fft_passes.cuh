@@ -45,7 +45,7 @@ namespace {
 constexpr int PTS = 16;  // points a thread holds
 constexpr int LOG2_PTS = 4;
 constexpr int MIN_LOG2_FACTOR = 7;
-constexpr int MAX_LOG2_FACTOR = 12;  // A, M <= 4096: n <= 2^24
+constexpr int MAX_LOG2_FACTOR = 14;  // A, M <= 16384: n <= 2^28
 
 bool factor_fits(int log2L) {
     return log2L >= MIN_LOG2_FACTOR && log2L <= MAX_LOG2_FACTOR;
@@ -61,6 +61,8 @@ int with_factor(int log2L, F&& f) {
         case 10: return f(std::integral_constant<int, 10>{});
         case 11: return f(std::integral_constant<int, 11>{});
         case 12: return f(std::integral_constant<int, 12>{});
+        case 13: return f(std::integral_constant<int, 13>{});
+        case 14: return f(std::integral_constant<int, 14>{});
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -69,14 +71,27 @@ __device__ __forceinline__ int brev_bits(int x, int bits) {
     return (int)(__brev((unsigned)x) >> (32 - bits));
 }
 
-// exp(sign * 2*pi*i*k/n); k < n <= 2^24 is exact in f32.
-__device__ __forceinline__ float2 root(int k, int log2n, float sign) {
-    float s, c;
-    sincospif(sign * ldexpf((float)k, 1 - log2n), &s, &c);
-    return make_float2(c, s);
-}
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
     return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// exp(sign * 2*pi*i*k/n) for an integer k < n. Up to n = 2^24 (WIDE
+// false) every k is exact in f32: one sincospif. Above (WIDE, n <= 2^28),
+// k = hi * 2^12 + lo with hi < 2^16 and lo < 2^12, each exact in f32 and
+// exact again after its power-of-two scale: two sincospif and one complex
+// product (ops/fft_plan.py's cross_root_plain). WIDE is a compile-time
+// choice, so that the kernels of n <= 2^24 keep their one call.
+template <bool WIDE>
+__device__ __forceinline__ float2 root(int k, int log2n, float sign) {
+    float s, c;
+    if constexpr (!WIDE) {
+        sincospif(sign * ldexpf((float)k, 1 - log2n), &s, &c);
+        return make_float2(c, s);
+    }
+    float s0, c0;
+    sincospif(sign * ldexpf((float)(k >> 12), 13 - log2n), &s, &c);
+    sincospif(sign * ldexpf((float)(k & 4095), 1 - log2n), &s0, &c0);
+    return cmul(make_float2(c, s), make_float2(c0, s0));
 }
 
 // An opaque copy of x: what is computed from it is computed again where it
@@ -220,6 +235,13 @@ struct MinorTile {
     }
 };
 // The major pass's tile: rows of C = 2^LOG2C words, one padding row per 16.
+// Its steps are additions of immediates, so a window's 16 words cost one
+// base register. At C = 1 (one line: A = 16384, and the minor pass's one
+// row of 16384) the two halves of a warp's 32 consecutive points meet in
+// one bank once (words 0 and 32): a 2-way conflict where a window holds
+// the low five index bits, the price of immediates (the minor tile's XOR
+// swizzle, conflict-free, takes a register a word, and a thread of 1024
+// has 64).
 template <int LOG2C>
 struct MajorTile {
     int col;

@@ -128,13 +128,17 @@ def resolve_fft_impl(cfg: MatchConfig, fft_len: int) -> str:
 
 
 def check_fft_len(fft_impl: str, fft_len: int, device: torch.device):
-    """Refuse an ``fft_len`` the CUDA FFT passes cannot run exactly (the
-    cross twiddle's integer exponent leaves f32's exact range above
-    ``MAX_FFT_LEN`` = 2^24) for a ``"vpu"`` matcher on a CUDA device."""
+    """Refuse an ``fft_len`` the CUDA FFT passes cannot run for a ``"vpu"``
+    matcher on a CUDA device: above ``MAX_FFT_LEN`` = 2^28 a factor of the
+    two-factor split passes 16384, and a line of 32768 points would need
+    2048 threads of 16 points where a block holds 1024 (one padded slab's
+    planes would pass 34 GB besides)."""
     if fft_impl == "vpu" and device.type == "cuda" and fft_len > MAX_FFT_LEN:
         raise ValueError(
-            f"fft_len {fft_len} exceeds {MAX_FFT_LEN} (2^24), the largest "
-            "the CUDA FFT passes run; shorten chunk_secs or the snippet"
+            f"fft_len {fft_len} exceeds {MAX_FFT_LEN} (2^28), the largest "
+            "the CUDA FFT passes run (factors up to 16384: a line of 16 "
+            "points a thread in a block of at most 1024 threads); shorten "
+            "chunk_secs or the snippet"
         )
 
 

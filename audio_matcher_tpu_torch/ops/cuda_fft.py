@@ -6,7 +6,7 @@ single-query slab with window pairs packed into each transform), the same
 two slabs from f32 windows (``corr_slab_vpu*``,
 ``corr_single_query_vpu*``, which the ``"vpu"`` correlation runs beside
 ``"jnp"`` peaks) and :func:`fft2_scrambled`, the transform each way. A
-transform of length n = A·M (n ≤ 2^24), viewed [A, M] a-major, runs as a
+transform of length n = A·M (n ≤ 2^28), viewed [A, M] a-major, runs as a
 DIF pass over the strided A axis with the cross twiddle folded in, then a
 DIF pass over each contiguous M row. The spectrum stays in the scrambled
 layout
@@ -41,9 +41,8 @@ from .wire import dequant_to_f32, silence_code
 
 MIN_N = 1 << 14  # two 128-wide factors
 MIN_FACTOR = 1 << fft_plan.MIN_LOG2  # 16 points a thread, 8+ threads a line
-MAX_FACTOR = 1 << fft_plan.MAX_LOG2  # shared-memory tiles (see csrc)
-# above 2^24 the cross twiddle's integer exponent is no longer exact in f32
-MAX_FFT_LEN = MAX_FACTOR * MAX_FACTOR
+MAX_FACTOR = 1 << fft_plan.MAX_LOG2  # a line's 16 points a thread, 1024 threads
+MAX_FFT_LEN = MAX_FACTOR * MAX_FACTOR  # 2^28
 MAX_BLOCKS = (1 << 31) - 1  # a major pass counts its strips in an int
 _F32 = torch.float32
 _WIRE_CODES = {torch.uint8: 0, torch.int16: 1, torch.float32: 2}

@@ -20,21 +20,31 @@ test counts bank conflicts; the wire passes' copy of a strip's rows into
 shared memory (``wire_copy``, ``wire_layout``), their output's staging
 for the TMA stores (``stage_word``, ``wire_box``) and the strips each
 persistent block walks (``block_strips``); and the plain per-stage
-twiddle table.
+twiddle table; and the cross twiddle's split exponent above n = 2^24
+(``cross_root_plain``).
+
+Factors run from 2^7 to 2^14 (fft_len up to 2^28). Up to 4096 a minor
+block is MINOR_THREADS threads holding 4096/M rows, and a major strip is
+C = 4 to 32 columns; at 8192 and 16384 a minor block is one row of M/16
+threads, and a major strip the 2^14 points of C = 2 or 1 columns.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 PTS = 16  # points a thread holds
 LOG2_PTS = 4
-MIN_LOG2, MAX_LOG2 = 7, 12  # factors 128 .. 4096
+MIN_LOG2, MAX_LOG2 = 7, 14  # factors 128 .. 16384
 MINOR_THREADS = 256
 MAJOR_TILE_LOG2 = 14  # points of a major-pass strip: C·A = 2^14 ...
-MAJOR_MIN_LOG2C = 2  # ... and at least 4 columns (16 bytes of a row)
+MAJOR_MIN_LOG2C = 2  # ... and at least 4 columns (16 bytes of a row) ...
+WIDE_LOG2 = 12  # ... up to A = 4096; wider factors take C = 2^14 / A
+EXACT_LOG2N = 24  # f32 holds every integer exponent k < n up to here
+PADDED_MINOR_LOG2 = 13  # minor tiles above this are padded, not swizzled
 MAX_SMEM = 232448  # bytes a Hopper block may use (227 KB)
 BANKS = 32
 LUT_COPIES = 16  # copies of the wire passes' mu-law table
@@ -75,7 +85,11 @@ def major_strip_log2(log2A: int) -> int:
     """log2 of the major pass's strip width C: 2^14 points per block (at
     most 1024 threads, 16 points each), at most 32 columns (128 bytes of a
     row per plane): C = 32 up to A = 512, 16 at 1024, 8 at 2048, 4 at
-    4096, where 8 columns would need 278 KB of tile."""
+    4096, where 8 columns would need 278 KB of tile; 2 at 8192 and 1 at
+    16384, the block's 2^14 points (narrow rows, but the only strips whose
+    tiles fit)."""
+    if log2A > WIDE_LOG2:
+        return MAJOR_TILE_LOG2 - log2A
     return max(MAJOR_MIN_LOG2C, min(5, MAJOR_TILE_LOG2 - log2A))
 
 
@@ -103,10 +117,14 @@ def wire_stride(elem_size: int, log2C: int) -> int:
     """Bytes of shared memory a row piece of a strip takes in the wire
     passes: f32 pieces exactly; u8 and int16 pieces up to 4 bytes more (the
     lead of a 4-byte word copy), rounded up to their widest copy (16 bytes,
-    or the piece where it is shorter)."""
+    or the piece where it is shorter); pieces under 4 bytes (A >= 8192)
+    the 4-byte words that the piece and its largest lead (4 - elem_size
+    bytes) touch."""
     piece = elem_size << log2C
     if elem_size == 4:
         return piece
+    if piece < 4:
+        return -(-(piece + 4 - elem_size) // 4) * 4
     wide = min(16, piece)
     return -(-(piece + 4) // wide) * wide
 
@@ -124,6 +142,7 @@ def wire_copy(elem_size: int, log2C: int, start: int) -> tuple[int, int, int]:
     piece = elem_size << log2C
     if elem_size == 4:
         g = 16 if start % 16 == 0 else 8 if start % 8 == 0 else 4
+        g = min(g, piece)
         return g, 0, piece // g
     for g in (16, 8):
         if g <= piece and start % g == 0:
@@ -136,10 +155,11 @@ def wire_layout(log2A: int, elem_size: int, pair: bool) -> dict[str, int]:
     """The wire passes' shared memory (``WireLayout`` in fft_major.cu), in
     bytes: the exchange tile, one plane; ``tma``: a dense [A, C] plane
     beside it that stages the real output plane for the TMA stores, where a
-    strip's output row piece is shorter than a 32-byte sector (A = 4096)
-    and it fits; the strip's wire rows (``stride`` bytes each, A rows a
-    plane, one plane or two for ``pair``); for mu-law the 256 decoded codes
-    LUT_COPIES times; the cross twiddles and a float2 a thread."""
+    strip's output row piece is half a 32-byte sector (A = 4096: a TMA box
+    row is a multiple of 16 bytes) and it fits; the strip's wire rows
+    (``stride`` bytes each, A rows a plane, one plane or two for ``pair``);
+    for mu-law the 256 decoded codes LUT_COPIES times; the cross twiddles
+    and a float2 a thread."""
     A = 1 << log2A
     log2C = major_strip_log2(log2A)
     tile = 4 * (A + A // 16 << log2C)
@@ -147,7 +167,7 @@ def wire_layout(log2A: int, elem_size: int, pair: bool) -> dict[str, int]:
     raw = (2 if pair else 1) * A * stride
     lut = 4 * 256 * LUT_COPIES if elem_size == 1 else 0
     rest = raw + lut + 8 * (PTS + 1 << log2C) + 8 * major_threads(log2A)
-    tma = 4 << log2C < 32 and tile + 4 * (A << log2C) + rest <= MAX_SMEM
+    tma = 4 << log2C == 16 and tile + 4 * (A << log2C) + rest <= MAX_SMEM
     stage = 4 * (A << log2C) if tma else 0
     return {"tile": tile, "stage": stage, "piece": elem_size << log2C,
             "stride": stride, "raw": raw, "tma": int(tma),
@@ -181,17 +201,38 @@ def block_strips(P: int, log2A: int, log2M: int, blocks: int) -> list[range]:
     return [range(b, strips, blocks) for b in range(min(blocks, strips))]
 
 
-def minor_smem_bytes(product: bool = False) -> int:
-    """Two f32 planes of MINOR_THREADS·PTS points, whatever M; the product
-    mode keeps its window rows in as much again."""
-    return (4 if product else 2) * 4 * MINOR_THREADS * PTS
+def minor_threads(log2M: int) -> int:
+    """Threads of a minor block: MINOR_THREADS (4096/M rows) up to M =
+    4096; one row of M/16 threads above."""
+    return max(MINOR_THREADS, 1 << (log2M - LOG2_PTS))
+
+
+def minor_tile_words(log2M: int) -> int:
+    """Words of a plane of the minor exchange tile: minor_threads·PTS,
+    and a padding word each 16 at M = 16384 (``minor_address``)."""
+    points = minor_threads(log2M) * PTS
+    return points + points // 16 if log2M > PADDED_MINOR_LOG2 else points
+
+
+def minor_smem_bytes(log2M: int, product: bool = False) -> int:
+    """The exchange tiles, two f32 planes of ``minor_tile_words``; the
+    product mode keeps its window rows in two planes of
+    minor_threads·PTS more up to M = 8192 (at 16384 the rows and two
+    tiles would pass MAX_SMEM: it reads them again for each query pair)."""
+    keep = product and log2M <= PADDED_MINOR_LOG2
+    rows = 2 * minor_threads(log2M) * PTS if keep else 0
+    return 4 * (2 * minor_tile_words(log2M) + rows)
 
 
 def minor_address(line: int, i: int, log2M: int) -> int:
     """Word of point i of block line ``line`` in a plane of the minor
     exchange tile: index g = line·M + i with bits 5-8 of g XORed into its
     low five bits (as ``MinorTile::at``), which keeps every exchange of
-    every M free of bank conflicts."""
+    every M up to 8192 free of bank conflicts; at M = 16384 (one line of
+    1024 threads with 64 registers each) the padded line of
+    ``major_address`` at one column, whose steps are immediates."""
+    if log2M > PADDED_MINOR_LOG2:
+        return major_address(0, i, 0)
     g = (line << log2M) + i
     return g ^ ((g >> 5 & 1) | (g >> 6 & 1) << 1 | (g >> 7 & 1) << 3
                 | (g >> 8 & 1) * 20)
@@ -200,17 +241,22 @@ def minor_address(line: int, i: int, log2M: int) -> int:
 def major_address(col: int, i: int, log2C: int) -> int:
     """Word of point i of strip column ``col`` in a plane of the major
     exchange tile: rows of C words, one padding row per 16 (as
-    ``MajorTile::at``)."""
+    ``MajorTile::at``). At C = 1 (A = 16384) a warp's 32 consecutive
+    points meet in one bank once (words 0 and 32): see
+    ``exchange_conflicts``."""
     return (i + (i >> 4) << log2C) + col
 
 
 def exchange_conflicts(log2L: int, major: bool) -> int:
     """The most words one bank serves in a single warp access of any
     exchange of the pass (1: conflict-free), for 4-byte accesses of one
-    plane by each register of each warp of a block."""
+    plane by each register of each warp of a block. 1 for every pass but
+    the one-column strips and one-row minor blocks of 16384 points, 2
+    there: their padded line, whose steps are immediates (a thread of
+    1024 has 64 registers for its 32 points and their 16 addresses)."""
     T = 1 << (log2L - LOG2_PTS)
     log2C = major_strip_log2(log2L) if major else 0
-    threads = major_threads(log2L) if major else MINOR_THREADS
+    threads = major_threads(log2L) if major else minor_threads(log2L)
     worst = 1
     for w, _, _ in stage_groups(log2L):
         for warp in range(0, threads, 32):
@@ -240,3 +286,29 @@ def twiddle_table_plain(L: int, device=None) -> torch.Tensor:
     ang = -math.pi * j.to(torch.float64) / (1 << p).to(torch.float64)
     tw = torch.stack([torch.cos(ang), torch.sin(ang)], dim=1)
     return tw.to(torch.float32).to(device)
+
+
+def cross_root_plain(k, log2n: int, sign: float) -> np.ndarray:
+    """The kernels' cross twiddle exp(sign·2πi·k/n) for integer exponents
+    ``k`` < n = 2^log2n, as complex64, the way ``root`` in fft_passes.cuh
+    forms it: one ``sincospif`` of k·2^(1 - log2n) up to n = 2^24, where
+    every k is exact in f32; above, k = hi·2^12 + lo, one ``sincospif`` of
+    each part (both exact in f32 after the power-of-two scale) and one f32
+    complex product. Each ``sincospif`` is taken as float64 rounded once to
+    f32, which the device's is within an ulp of."""
+    k = np.asarray(k, np.int64)
+
+    def one(part, scale_log2):
+        arg = np.float32(sign) * np.ldexp(part.astype(np.float32),
+                                          scale_log2).astype(np.float32)
+        ang = np.pi * arg.astype(np.float64)
+        return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+    if log2n <= EXACT_LOG2N:
+        c, s = one(k, 1 - log2n)
+        return (c + 1j * s).astype(np.complex64)
+    c1, s1 = one(k >> 12, 13 - log2n)
+    c0, s0 = one(k & 4095, 1 - log2n)
+    re = c1 * c0 - s1 * s0
+    im = c1 * s0 + s1 * c0
+    return (re + 1j * im).astype(np.complex64)

@@ -125,6 +125,58 @@ def _ifft2p_rec(y, factors, sign):
     return x.reshape(*x.shape[:-2], 2, n)  # rows are (o, a) o-major
 
 
+def _cmatmul(tr, ti, xr, xi):
+    """(tr + i·ti) @ (xr + i·xi): t [c, a], x [..., a, m] → [..., c, m];
+    four real products."""
+    return (torch.matmul(tr, xr) - torch.matmul(ti, xi),
+            torch.matmul(tr, xi) + torch.matmul(ti, xr))
+
+
+def _cfft_rec(xr, xi, factors, sign):
+    """Natural-order four-step complex FFT along the last axis (length
+    prod(factors)) of split (real, imag) f32 arrays."""
+    a = factors[0]
+    n = xr.shape[-1]
+    m = n // a
+    tr, ti = _dft_mat(a, sign, xr.device)
+    # index = idx_a·m + idx_b → [..., a, m]
+    xr = xr.reshape(*xr.shape[:-1], a, m)
+    xi = xi.reshape(*xi.shape[:-1], a, m)
+    yr, yi = _cmatmul(tr, ti, xr, xi)  # [..., c, m]
+    if len(factors) == 1:
+        return yr.reshape(*yr.shape[:-2], n), yi.reshape(*yi.shape[:-2], n)
+    wr, wi = _twiddle(a, m, sign, xr.device)
+    zr = yr * wr - yi * wi
+    zi = yr * wi + yi * wr
+    zr, zi = _cfft_rec(zr, zi, factors[1:], sign)  # [..., c, d]
+    # k = c + a·d → put d before c, then flatten
+    zr = zr.transpose(-1, -2).reshape(*zr.shape[:-2], n)
+    zi = zi.transpose(-1, -2).reshape(*zi.shape[:-2], n)
+    return zr, zi
+
+
+def cfft_parts(xr, xi, inverse: bool = False,
+               factors: tuple[int, ...] | None = None):
+    """Complex FFT along the last axis of split (real, imag) f32 tensors,
+    in natural order: forward as ``torch.fft.fft``, inverse as
+    ``torch.fft.ifft`` (with the 1/n). Returns (real, imag)."""
+    n = xr.shape[-1]
+    factors = factors or default_factors(n)
+    sign = 1 if inverse else -1
+    with fp32_matmul():
+        yr, yi = _cfft_rec(xr.to(_F32), xi.to(_F32), factors, sign)
+    if inverse:
+        s = torch.tensor(1.0 / n, dtype=_F32, device=yr.device)
+        return yr * s, yi * s
+    return yr, yi
+
+
+def cfft(x, inverse: bool = False, factors: tuple[int, ...] | None = None):
+    """:func:`cfft_parts` on a complex tensor: complex64 in and out."""
+    yr, yi = cfft_parts(x.real.to(_F32), x.imag.to(_F32), inverse, factors)
+    return torch.complex(yr, yi)
+
+
 def cfft_scrambled_parts(xr, xi, factors: tuple[int, ...]):
     """Forward FFT along the last axis to digit-reversed order. The
     outputs are views [..., G, c_last] of the scrambled layout, meaningful

@@ -58,10 +58,20 @@ holds every kernel against its plain PyTorch version:
    ``"jnp"``, with ``"xla"`` + ``"pallas"`` (kernel 7) and with
    ``"mxu"`` + ``"jnp"``: each must find the plants and give the fused
    path's peaks within TOL_SCAN.
-7. fft_len 2^23 and 2^24: config #2's episode through
-   ``SnippetMatcher(chunk_secs=120)`` and ``(chunk_secs=240)`` on the
-   fused path; kernels 6, 2, 3, 4 and 5 against their plain versions on
-   one slab, timed; the plants found in p50-of-5 timed runs.
+7. fft_len 2^23 to 2^28: config #2's episode through
+   ``SnippetMatcher`` at chunk_secs 120, 240, 600, 1200, 3000 and 3100
+   (A x M up to 16384 x 16384) on the fused path; kernels 6, 2, 3, 4 and 5
+   against their plain versions on one slab (8 windows: the episode's 30,
+   15, 6, 3, 2 and 2 windows are padded to whole slabs of 8), timed; the
+   plants found in timed runs (p50 of 5 up to 2^25, of 2 above), and the
+   peak ``torch.cuda.max_memory_allocated`` of those runs. The numbers of the
+   new factor modes (2^25 - 2^28) are rows of the kernels line of their
+   own. Then ``ShardedScanner`` at 2^25 with 4 queries (the sweep's Q):
+   kernels 1-5 against plain at its slab, one scan with every kernel
+   launched and query 0's plants found; and ``matcher_cli.run
+   --chunk-size 600`` with the default ``--fft-impl auto``, on the card
+   and with ``--device cpu``: the two label files byte for byte equal,
+   both plants in them.
 8. The archive sweep (config #5's path on one card), through
    ``sweep_cli.run`` with --resample, --progress-file and the int16 wire:
    24 mono wav episodes of 600 s at 44.1 kHz (config #3's literal episode
@@ -246,7 +256,11 @@ TOL_SCAN = 1.2e-5  # the reference's oracle tolerance (tests/test_correlate.py)
 PLANT_TOL = 1  # samples
 NAME_CHARS = 96  # kernel names printed by the profile phases
 JNP_QUERIES = 64  # the vpu + jnp scan: 1 x 1800 s x 64 queries
-LARGE_CHUNKS = (120.0, 240.0)  # chunk_secs giving fft_len 2^23 and 2^24
+# chunk_secs giving fft_len 2^23 .. 2^28 for config #2's 10 s snippet
+LARGE_CHUNKS = (120.0, 240.0, 600.0, 1200.0, 3000.0, 3100.0)
+WIDE_CHUNK = 600.0  # 2^25: the ShardedScanner and matcher CLI runs
+WIDE_REPEATS = 2  # timed repeats of each size above 2^25
+WIDE_QUERIES = 4  # the sweep's queries, in the ShardedScanner run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 # The FFT passes' times before the stage-group design, when every stage was
 # one round trip through shared memory: this script at commit 0c3e91a on an
@@ -734,74 +748,100 @@ def batch_scan(config, device, rows):
     profile_run("one config #3 scan", lambda: scanner.scan_staged(staged))
 
 
-def check_single_query_kernels(matcher, episode_wire, rows=None):
-    """Kernel 6 at the matcher's slab and at an odd slab; kernels 2-5 at
-    the single-query launch shapes (P = 4 planes, one query spectrum).
-    ``rows``: record kernel 6's numbers (config #2); None at the other
-    fft_len."""
+def fft_along(planes, dim, inverse=False):
+    """One torch.fft call over ``dim`` of the complex planes, the library
+    yardstick of a pass: made ready (the complex copy) and returned, to be
+    timed."""
+    xc = torch.complex(planes[0], planes[1])
+    if inverse:
+        return lambda: torch.fft.ifft(xc, dim=dim, norm="forward")
+    return lambda: torch.fft.fft(xc, dim=dim)
+
+
+def check_single_query_kernels(matcher, episode_wire, record=None):
+    """Kernel 6 at the matcher's slab (SLAB windows, the slab every config
+    #2 episode of up to SLAB windows is padded to) and at an odd slab;
+    kernels 2-5 at the single-query launch shapes (P = 4 planes, one query
+    spectrum). ``record``: the rows, by kernel name, that keep these
+    numbers (with a torch.fft time where one call computes the same
+    transform); the kernels it leaves out are printed only."""
+    record = record or {}
+    slab, odd = SLAB, ODD_SLAB
     staged, n = matcher.stage(episode_wire)
     s_r, s_i = matcher._sample_f
     n_fft = matcher.fft_len
     A, M = F.split_factors(n_fft)
     W, chunk = matcher.window, matcher.chunk
-    ep = pad_wire_on_device(staged, (SLAB + window_rows(W, chunk)) * chunk)
-    win = windows_from_episode(ep, 0, SLAB, chunk, W)
+    ep = pad_wire_on_device(staged, (slab + window_rows(W, chunk)) * chunk)
+    win = windows_from_episode(ep, 0, slab, chunk, W)
     x0, x1 = win[0::2], win[1::2]
     P = x0.shape[0]
     tag = f" at fft_len 2^{n_fft.bit_length() - 1}"
     print(f"single-query slab: windows {tuple(win.shape)} {win.dtype} as "
           f"{P} pairs, n = {n_fft} (A = {A}, M = {M})")
 
+    def check(name, label, got, want, kernel, plain, work, library=None):
+        """One kernel against its plain version, then timed, with the
+        library call that ``library()`` makes ready where ``record`` has
+        the kernel's row, which keeps the numbers."""
+        row = record.get(name)
+        err = compare_planes(name + label, got, want)
+        del want  # the plain output's memory, before the timings
+        if row is not None:
+            row["max_abs_err"] = err
+        timed(name + label, kernel, plain, row, work,
+              library() if library and row is not None else None)
+
     name = "fft_major_fwd_wire2"
     X = F.fft_major_fwd_wire2(x0, x1, A, n_fft, W)
-    err = compare_planes(name + tag, X,
-                         F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W))
-    if rows is not None:
-        rows[name]["max_abs_err"] = err
-    timed(name + tag,
+    check(name, tag, X, F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W),
           lambda: F.fft_major_fwd_wire2(x0, x1, A, n_fft, W, out=X),
           lambda: F.fft_major_fwd_wire2_plain(x0, x1, A, n_fft, W),
-          rows[name] if rows is not None else None,
-          (SLAB * min(W, n_fft) * win.element_size() + 8 * P * n_fft,
+          (slab * min(W, n_fft) * win.element_size() + 8 * P * n_fft,
            fft_flops(P * M, A) + 6 * P * n_fft))
-    odd = windows_from_episode(ep, 0, ODD_SLAB, chunk, W)
+    w_odd = windows_from_episode(ep, 0, odd, chunk, W)
     compare_planes(
-        f"{name}{tag}, odd slab {ODD_SLAB}",
-        F.fft_major_fwd_wire2(odd[0::2], odd[1::2], A, n_fft, W),
-        F.fft_major_fwd_wire2_plain(odd[0::2], odd[1::2], A, n_fft, W))
+        f"{name}{tag}, odd slab {odd}",
+        F.fft_major_fwd_wire2(w_odd[0::2], w_odd[1::2], A, n_fft, W),
+        F.fft_major_fwd_wire2_plain(w_odd[0::2], w_odd[1::2], A, n_fft, W))
+    del w_odd
 
     label = f"{tag}, Qh = 1, P = {P}"
     Y = F.fft_minor(X[0], X[1], M)
-    compare_planes(f"fft_minor{label}", Y, F.fft_minor_plain(X[0], X[1], M))
-    timed(f"fft_minor{label}", lambda: F.fft_minor(X[0], X[1], M, out=Y),
-          lambda: F.fft_minor_plain(X[0], X[1], M), None,
-          (16 * P * n_fft, fft_flops(P * A, M)))
+    check("fft_minor", label, Y, F.fft_minor_plain(X[0], X[1], M),
+          lambda: F.fft_minor(X[0], X[1], M, out=Y),
+          lambda: F.fft_minor_plain(X[0], X[1], M),
+          (16 * P * n_fft, fft_flops(P * A, M)),
+          lambda: fft_along(X, -1))
+    del X
     tr, ti = s_r.view(1, A, M), s_i.view(1, A, M)
     V = F.ifft_minor_product(Y[0], Y[1], tr, ti, M)
-    compare_planes(f"ifft_minor_product{label}", V,
-                   F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M))
-    timed(f"ifft_minor_product{label}",
+    check("ifft_minor_product", label, V,
+          F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M),
           lambda: F.ifft_minor_product(Y[0], Y[1], tr, ti, M, out=V),
-          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M), None,
+          lambda: F.ifft_minor_product_plain(Y[0], Y[1], tr, ti, M),
           (16 * P * n_fft + 8 * n_fft, P * (fft_flops(A, M) + 6 * n_fft)))
+    del Y
     width = correlation_crop(matcher.valid, matcher.config.block, n_fft,
                              "vpu", "pallas")
     a_crop = width // M
     Z = F.fft_major(V[0], V[1], A, n_fft, a_crop)
-    compare_planes(f"fft_major{label}", Z,
-                   F.fft_major_plain(V[0], V[1], A, n_fft, a_crop))
-    timed(f"fft_major{label}",
+    check("fft_major", label, Z,
+          F.fft_major_plain(V[0], V[1], A, n_fft, a_crop),
           lambda: F.fft_major(V[0], V[1], A, n_fft, a_crop, out=Z),
-          lambda: F.fft_major_plain(V[0], V[1], A, n_fft, a_crop), None,
+          lambda: F.fft_major_plain(V[0], V[1], A, n_fft, a_crop),
           (8 * P * n_fft + 8 * P * width,
-           fft_flops(P * M, A) + 6 * P * n_fft))
-    del X, Y, V
+           fft_flops(P * M, A) + 6 * P * n_fft),
+          lambda: fft_along(V, 1, inverse=True))
+    del V
     starts = torch.arange(2 * P, device=ep.device) * chunk
     valid = ((n - starts).clamp(0, W) - matcher.snippet.m + 1).clamp(min=0)
     scale = torch.full((2 * P,), matcher.snippet.inv_autocorr,
                        dtype=torch.float32, device=ep.device)
+    name = "local_max_block_reduce_packed"
     check_reduce_packed(Z[0].view(P, width), Z[1].view(P, width), scale,
-                        valid, label=label)
+                        valid, {name: record[name]} if name in record
+                        else None, label=label)
 
 
 def compare_single_query_paths(matcher, plain_matcher, episode_wire,
@@ -824,13 +864,13 @@ def compare_single_query_paths(matcher, plain_matcher, episode_wire,
 
 
 def timed_repeats(label, stage, scan, offsets, distance_secs,
-                  path=SINGLE_PATH):
-    """``REPEATS`` runs of stage then scan, each with the launch counts
+                  path=SINGLE_PATH, repeats=REPEATS):
+    """``repeats`` runs of stage then scan, each with the launch counts
     reset just before it; prints the p50 of stage, scan and end-to-end
     seconds, checks the plants every time, returns one run's counts
     (``path``: the kernels each run must launch)."""
     stage_s, scan_s, counts = [], [], []
-    for r in range(REPEATS + 1):  # the first run warms up, untimed
+    for r in range(repeats + 1):  # the first run warms up, untimed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         staged = stage()
@@ -846,7 +886,7 @@ def timed_repeats(label, stage, scan, offsets, distance_secs,
     if any(c != counts[0] for c in counts):
         raise AssertionError(f"{label}: launch counts differ: {counts}")
     e2e = [a + b for a, b in zip(stage_s, scan_s)]
-    print(f"{label}: p50 of {REPEATS} runs: stage "
+    print(f"{label}: p50 of {repeats} runs: stage "
           f"{statistics.median(stage_s):.4f} s, scan "
           f"{statistics.median(scan_s):.4f} s, end to end "
           f"{statistics.median(e2e):.4f} s (e2e min {min(e2e):.4f}, max "
@@ -868,7 +908,9 @@ def single_query(config, device, rows):
           f"{len(snippet) / SR:g} s snippet, {config.transfer_dtype}, "
           f"fft_len {matcher.fft_len}, path {matcher.fft_impl}, plants at "
           f"{offsets} s")
-    check_single_query_kernels(matcher, episode_wire, rows)
+    check_single_query_kernels(
+        matcher, episode_wire,
+        {"fft_major_fwd_wire2": rows["fft_major_fwd_wire2"]})
     torch.cuda.empty_cache()
     compare_single_query_paths(matcher, plain_matcher, episode_wire)
     torch.cuda.empty_cache()
@@ -1085,24 +1127,141 @@ def single_query_jnp(config, device, rows):
               f"{ {k: v for k, v in launches.items() if v} }")
 
 
+def wide_rows(rows, kernels, log2n, label=""):
+    """Rows of the kernels line of their own for ``kernels`` at fft_len
+    2^log2n (the factor modes past 4096), added to ``rows``; returns them
+    by kernel name."""
+    got = {}
+    for k in kernels:
+        name = f"{k.__name__} (fft_len 2^{log2n}{label})"
+        src, tpu = KERNEL_ROWS[k.__name__]
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": tpu}
+        got[k.__name__] = rows[name]
+    return got
+
+
+def peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
 def large_fft(config, device, rows):
-    """Path 7, fft_len 2^23 and 2^24: config #2's episode through the
-    fused ``SnippetMatcher`` at 120 s and 240 s chunks; kernels 6, 2-5 on
-    one slab against plain, and the plants in timed runs."""
+    """Path 7, fft_len 2^23 to 2^28: config #2's episode through the
+    fused ``SnippetMatcher`` at each of LARGE_CHUNKS; kernels 6, 2-5 on
+    one slab against plain, the plants in timed runs, their peak memory;
+    the new factor modes' numbers kept as rows of their own."""
     snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
     episode_wire = quantize_wire(episode, config.transfer_dtype)
     for chunk_secs in LARGE_CHUNKS:
         cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
         matcher = SnippetMatcher(snippets[0], SR, cfg, device=device)
-        print(f"chunk {chunk_secs:g} s: fft_len {matcher.fft_len}, "
-              f"path {matcher.fft_impl}")
-        check_single_query_kernels(matcher, episode_wire)
+        n_fft = matcher.fft_len
+        log2n = n_fft.bit_length() - 1
+        A, M = F.split_factors(n_fft)
+        windows = -(-len(episode) // matcher.chunk)
+        wide = n_fft > 1 << 24
+        print(f"chunk {chunk_secs:g} s: fft_len {n_fft} = 2^{log2n} (A = "
+              f"{A}, M = {M}), {windows} windows, path {matcher.fft_impl}")
+        record = wide_rows(rows, SINGLE_PATH, log2n) if wide else None
+        torch.cuda.reset_peak_memory_stats()
+        check_single_query_kernels(matcher, episode_wire, record)
+        print(f"fft_len 2^{log2n}: peak torch.cuda.max_memory_allocated of "
+              f"the kernel checks {peak_gb():.2f} GB")
         torch.cuda.empty_cache()
-        timed_repeats(
-            f"fft_len {matcher.fft_len}, SnippetMatcher.stage + match_staged",
+        torch.cuda.reset_peak_memory_stats()
+        launches = timed_repeats(
+            f"fft_len 2^{log2n}, SnippetMatcher.stage + match_staged",
             lambda: matcher.stage(episode_wire), matcher.match_staged,
-            offsets, config.distance_secs)
+            offsets, config.distance_secs,
+            repeats=REPEATS if log2n <= 25 else WIDE_REPEATS)
+        print(f"fft_len 2^{log2n}: peak torch.cuda.max_memory_allocated of "
+              f"the timed runs {peak_gb():.2f} GB; {CARD['line']}")
+        for name, row in (record or {}).items():
+            row["launches"] = launches[name]
+        del matcher
         torch.cuda.empty_cache()
+
+
+def wide_scan(config, device, rows):
+    """Path 7, ``ShardedScanner`` at fft_len 2^25 (600 s chunks) with
+    WIDE_QUERIES queries, the sweep's shape: kernels 1-5 against plain at
+    its slab (rows of their own), then one scan of config #2's 3600 s
+    episode, every kernel launched, query 0's plants found."""
+    snippets, offsets, episode = make_bench_inputs(WIDE_QUERIES,
+                                                   SINGLE_EPISODE_SECS)
+    cfg = dataclasses.replace(config, chunk_secs=WIDE_CHUNK)
+    episode_wire = quantize_wire(episode, cfg.transfer_dtype)
+    scanner = ShardedScanner(snippets, SR, cfg, device=device)
+    log2n = scanner.fft_len.bit_length() - 1
+    print(f"ShardedScanner: 1 x {SINGLE_EPISODE_SECS} s episode, "
+          f"{WIDE_QUERIES} queries, chunk {WIDE_CHUNK:g} s, fft_len "
+          f"2^{log2n}, {cfg.transfer_dtype}")
+    record = wide_rows(rows, BATCH_PATH, log2n, f", {WIDE_QUERIES} queries")
+    check_kernels(scanner, episode_wire, record)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    peaks, launches, t_stage, t_scan = scan_times(scanner, [episode_wire],
+                                                  BATCH_PATH)
+    check_plants([per_query[0] for per_query in peaks], offsets,
+                 cfg.distance_secs)
+    for name, row in record.items():
+        row["launches"] = launches[name]
+    print(f"ShardedScanner at 2^{log2n}, {WIDE_QUERIES} queries: stage "
+          f"{t_stage:.3f} s, scan {t_scan:.3f} s; plants of query 0 found "
+          f"within {PLANT_TOL} sample; launches {launches}; peak "
+          f"torch.cuda.max_memory_allocated {peak_gb():.2f} GB; "
+          f"{CARD['line']}")
+
+
+def wide_cli(config, device, rows):
+    """Path 7, ``matcher_cli.run --chunk-size 600`` (fft_len 2^25) with
+    the default ``--fft-impl auto`` and ``--peaks-impl auto``, on the card
+    (kernels 6, 2-5 once a slab) and with ``--device cpu`` (the plain
+    torch path auto picks there, no launch): the label files byte for
+    byte equal, both plants in them."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    with tempfile.TemporaryDirectory(prefix="am_cli_wide_") as tmp:
+        root = Path(tmp)
+        write_mono_wav(root / "intro.wav", SR, snippets[0])
+        write_mono_wav(root / "episode.wav", SR, episode)
+        parser = matcher_cli.build_parser()
+        argv = [str(root / "episode.wav"), "--snippet",
+                str(root / "intro.wav"), "--chunk-size", f"{WIDE_CHUNK:g}"]
+        slabs = n_slabs(MatchConfig(chunk_secs=WIDE_CHUNK),
+                        SINGLE_EPISODE_SECS)
+        out = {}
+        for side, kernels, want in (("cuda", SINGLE_PATH, slabs),
+                                    ("cpu", (), 0)):
+            dev = str(device) if side == "cuda" else "cpu"
+            out[side] = root / f"episode.{side}.txt"
+            ns = parser.parse_args(argv + ["--device", dev, "-o",
+                                           str(out[side])])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc, launches = counted(lambda: matcher_cli.run(ns), kernels)
+            t_run = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"matcher_cli.run --device {dev}: {rc}")
+            check_launches(f"matcher CLI --device {dev}", launches, kernels,
+                           want)
+            print(f"matcher CLI --chunk-size {WIDE_CHUNK:g} --device {dev} "
+                  f"(fft_len 2^25, --fft-impl auto, decode + stage + scan + "
+                  f"labels): {t_run:.3f} s; launches {launches}; peak "
+                  f"torch.cuda.max_memory_allocated {peak_gb():.2f} GB")
+        card, cpu = out["cuda"].read_bytes(), out["cpu"].read_bytes()
+        if card != cpu:
+            raise AssertionError(f"matcher CLI labels: card {card!r}, CPU "
+                                 f"path {cpu!r}")
+        labels = read_labels(out["cuda"])
+        want = [int(o * SR) for o in offsets]
+        got = [(lb.start * SR - 7 * SR, lb.end * SR) for lb in labels]
+        if len(got) != 1 or any(abs(g - w) > PLANT_TOL + 0.5
+                                for g, w in zip(got[0], want)):
+            raise AssertionError(f"matcher CLI labels {got}, plants {want}")
+        print(f"matcher CLI --chunk-size {WIDE_CHUNK:g}: the card's label "
+              f"file equals the CPU path's byte for byte "
+              f"({card.decode().strip()!r}), both plants within "
+              f"{PLANT_TOL} sample; {CARD['line']}")
 
 
 def check_frame_plants(label, peaks, offsets, hop):
@@ -1962,7 +2121,8 @@ def main() -> int:
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
-                  jnp_scan, single_query_jnp, large_fft, spectrogram_batch,
+                  jnp_scan, single_query_jnp, large_fft, wide_scan,
+                  wide_cli, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run, sharded_scan, mesh_dryrun,
                   worker_archive):

@@ -1,11 +1,13 @@
 """The host side of the CUDA FFT passes' design (``ops/fft_plan.py``).
 
 The kernels run only on a GPU; what they are told and what they assume
-is checked here on the CPU: the stage groups of every factor 2^7 to 2^12
+is checked here on the CPU: the stage groups of every factor 2^7 to 2^14
 cover each radix-2 stage once, the exchange tiles are free of bank
-conflicts and fit the block, the twiddle table is the plain one, and a
-numpy emulation of the kernels' algorithm (16 registers per thread, the groups, the exchanges,
-the twiddle indices of ``run_group``) gives the plain transforms.
+conflicts and fit the block, the twiddle table is the plain one, the
+cross twiddle's split exponent above fft_len 2^24 stays within 2 ulp,
+and a numpy emulation of the kernels' algorithm (16 registers per thread,
+the groups, the exchanges, the twiddle indices of ``run_group``) gives
+the plain transforms.
 """
 
 import numpy as np
@@ -35,7 +37,7 @@ def test_stage_groups_cover_every_stage_once(b):
     assert groups[0][0] == b - P.LOG2_PTS and groups[-1][0] == 0
 
 
-@pytest.mark.parametrize("b", [6, 13])
+@pytest.mark.parametrize("b", [P.MIN_LOG2 - 1, P.MAX_LOG2 + 1])
 def test_no_plan_outside_the_factors(b):
     with pytest.raises(ValueError):
         P.stage_groups(b)
@@ -44,7 +46,9 @@ def test_no_plan_outside_the_factors(b):
 @pytest.mark.parametrize("major", [False, True])
 @pytest.mark.parametrize("b", LOG2S)
 def test_exchange_tiles_have_no_bank_conflicts(b, major):
-    assert P.exchange_conflicts(b, major) == 1
+    """Conflict-free up to 8192 points a line; at 16384 (the padded
+    one-column line, one of 32 words in a shared bank) at most 2-way."""
+    assert P.exchange_conflicts(b, major) == (1 if b < P.MAX_LOG2 else 2)
 
 
 @pytest.mark.parametrize("b", LOG2S)
@@ -53,22 +57,31 @@ def test_tiles_fit_the_block_and_hold_every_point_once(b):
     log2C = P.major_strip_log2(b)
     C = 1 << log2C
     assert P.major_threads(b) <= 1024 and P.major_threads(b) % 32 == 0
-    assert 4 <= C <= 32
+    # 4 to 32 columns up to A = 4096; the block's 2^14 points above
+    assert 1 <= C <= 32 and (C >= 4 or b > P.WIDE_LOG2)
     assert C * A == 1 << P.MAJOR_TILE_LOG2 or C in (4, 32)
     assert P.major_smem_bytes(b) <= P.MAX_SMEM
     assert P.major_smem_bytes(b, planes=True) <= P.MAX_SMEM
     words = {P.major_address(c, i, log2C) for c in range(C) for i in range(A)}
     assert len(words) == C * A
     assert max(words) < (A + A // 16) * C
-    assert P.minor_smem_bytes() <= 48 * 1024
-    assert 3 * P.minor_smem_bytes(product=True) <= P.MAX_SMEM
-    lines = P.MINOR_THREADS * P.PTS >> b
+    threads = P.minor_threads(b)
+    assert threads <= 1024 and threads % 32 == 0
+    if b <= P.WIDE_LOG2:  # several blocks an SM
+        assert P.minor_smem_bytes(b) <= 48 * 1024
+        assert 3 * P.minor_smem_bytes(b, product=True) <= P.MAX_SMEM
+    for product in (False, True):
+        assert P.minor_smem_bytes(b, product) <= P.MAX_SMEM
+    lines = threads * P.PTS >> b
     got = sorted(P.minor_address(line, i, b)
                  for line in range(lines) for i in range(A))
-    assert got == list(range(P.MINOR_THREADS * P.PTS))
+    assert len(set(got)) == threads * P.PTS
+    assert got[-1] < P.minor_tile_words(b)
+    if b <= P.PADDED_MINOR_LOG2:  # the swizzle is a permutation
+        assert got == list(range(threads * P.PTS))
 
 
-@pytest.mark.parametrize("L", [128, 2048, 4096])
+@pytest.mark.parametrize("L", [128, 2048, 4096, 16384])
 def test_twiddle_table_plain_against_numpy(L):
     tw = P.twiddle_table_plain(L).numpy()
     want = np.ones(L, np.complex128)
@@ -181,6 +194,68 @@ def test_wire_copy_covers_the_row_bytes_exactly(size, start):
         assert lead + piece <= chunks * g
 
 
+@pytest.mark.parametrize("size,start", WIRE_STARTS)
+def test_wire_copy_of_narrow_strips(size, start):
+    """The 1- and 2-column strips of A = 8192 and 16384: f32 pieces (4 or
+    8 bytes) copied exactly in chunks no longer than the piece; u8 and
+    int16 pieces (1 to 4 bytes) in the 4-byte words they touch, which fit
+    the row's slot."""
+    for log2C in range(P.MAJOR_MIN_LOG2C):
+        piece = size << log2C
+        g, lead, chunks = P.wire_copy(size, log2C, start)
+        stride = P.wire_stride(size, log2C)
+        read = {start - lead + i for i in range(chunks * g)}
+        assert g in (4, 8) and (start - lead) % g == 0 and g <= max(piece, 4)
+        if size == 4:
+            assert lead == 0 and read == set(range(start, start + piece))
+        else:
+            lo, hi = start // 4 * 4, -(-(start + piece) // 4) * 4
+            assert read == set(range(lo, hi)) and lead == start % 4
+        assert chunks * g <= stride and stride % 4 == 0
+        assert lead + piece <= chunks * g
+
+
+def test_wide_factors_take_narrow_strips_and_one_row_blocks():
+    """A = 8192 and 16384 take strips of 2 and 1 columns, no TMA stores
+    (a box row must be 16 bytes), and M = 8192 and 16384 one row of 512
+    and 1024 threads a block; the product mode at M = 16384 keeps no
+    window row beside its two padded tiles."""
+    assert [P.major_strip_log2(b) for b in (13, 14)] == [1, 0]
+    assert [P.minor_threads(b) for b in (12, 13, 14)] == [256, 512, 1024]
+    for b in (13, 14):
+        for size in (1, 2, 4):
+            for pair in (False, True):
+                assert not P.wire_layout(b, size, pair)["tma"]
+    assert P.minor_smem_bytes(13, product=True) == 4 * 4 * 8192
+    assert P.minor_smem_bytes(14, product=True) == 4 * 2 * 17408
+    assert P.minor_smem_bytes(14) == 4 * 2 * 17408
+
+
+@pytest.mark.parametrize("log2n", [22, 24, 25, 26, 27, 28])
+def test_cross_root_split_exponent_within_two_ulp(log2n):
+    """The kernels' cross twiddle W_n^{±k} (``root``), mirrored by
+    ``cross_root_plain``: within 2 ulp (of values in [0.5, 1)) of float64
+    exp for exponents k up to n - 1 = 2^28 - 1, where a single f32 of k
+    is off by up to 2^(log2n - 24) units of k."""
+    n = 1 << log2n
+    rng = np.random.default_rng(log2n)
+    k = np.concatenate([
+        np.arange(0, 4097), n - 1 - np.arange(4097),
+        rng.integers(0, n, 200_000),
+        (1 << np.arange(log2n)) + 1, (1 << np.arange(log2n)) - 1,
+    ]).astype(np.int64)
+    for sign in (-1.0, 1.0):
+        got = P.cross_root_plain(k, log2n, sign)
+        want = np.exp(sign * 2j * np.pi * (k.astype(np.float64) / n))
+        err = np.abs(got.real - want.real).max(), np.abs(
+            got.imag - want.imag).max()
+        assert max(err) <= 2 * 2.0 ** -24, err
+    if log2n > P.EXACT_LOG2N:  # one f32 of k misses the 2 ulp there
+        one = np.exp(-2j * np.pi * k.astype(np.float32).astype(np.float64)
+                     / n)
+        assert np.abs(one - np.exp(-2j * np.pi * k / n)).max() > 2 * 2.0 ** -24
+
+
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("b", LOG2S)
 def test_wire_passes_fit_and_read_without_bank_conflicts(b, pair):
@@ -204,7 +279,8 @@ def test_wire_passes_fit_and_read_without_bank_conflicts(b, pair):
                     assert max(len(w) for w in banks.values()) == 1
 
 
-@pytest.mark.parametrize("b", LOG2S)
+@pytest.mark.parametrize(
+    "b", [b for b in LOG2S if P.major_strip_log2(b) >= P.MAJOR_MIN_LOG2C])
 def test_wire_output_staging_fills_the_boxes_without_bank_conflicts(b):
     """The TMA output of a strip: each warp's writes at each step fall in
     32 banks, the block's writes fill the dense [A, C] plane once, and the

@@ -6,7 +6,8 @@ Marked ``gpu``: these need a CUDA device and nvcc, and skip without them
     python -m pytest tests/test_torch_gpu.py -m gpu
 
 FFT passes agree with their plain versions (cuFFT) within 1e-5 of the
-largest plain value (measured about 3e-7); the block reduction and the
+largest plain value (measured about 3e-7), at every fft_len 2^14 to 2^28
+(factors 128 to 16384); the block reduction and the
 peak picks are exact. Every ``fft_impl`` × ``peaks_impl`` runs on the card
 against ``plain=True``.
 """
@@ -47,15 +48,20 @@ def _close(got, want):
 
 # every factor 128 .. 4096: A = M at even log2 n, M = 2A at odd
 SIZES = [1 << e for e in range(14, 25)]
+# factors 8192 and 16384: the minor pass's one-row blocks, the major pass's
+# strips of 2 and 1 columns, the cross twiddle's split exponent
+WIDE_SIZES = [1 << e for e in range(25, 29)]
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + WIDE_SIZES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
 def test_fft_passes_match_plain(dev, n, dtype):
     g = torch.Generator(device=dev).manual_seed(n)
     A, M = F.split_factors(n)
-    W, chunk, B = int(n * 0.77), int(n * 0.6), 3
-    Qh = 4 if n <= 1 << 22 else 2
+    W, chunk = int(n * 0.77), int(n * 0.6)
+    # fewer planes as n grows: the plain versions' complex temporaries
+    B = 3 if n <= 1 << 24 else 2 if n <= 1 << 26 else 1
+    Qh = 4 if n <= 1 << 22 else 2 if n <= 1 << 24 else 1
     if dtype == torch.uint8:
         ep = torch.randint(0, 256, ((B - 1) * chunk + W,), device=dev,
                            generator=g, dtype=torch.int32).to(dtype)
@@ -77,30 +83,30 @@ def test_fft_passes_match_plain(dev, n, dtype):
 
 
 def test_passes_refuse_factors_past_the_tile(dev):
-    n = 1 << 25  # M = 8192 does not fit the minor pass's tile
+    n = 1 << 29  # M = 32768: a line of 2048 threads of 16 points
     A, M = F.split_factors(n)
-    x = torch.zeros((1, A, M), device=dev)
+    x = torch.zeros(1, device=dev).expand(1, A, M)  # shapes only: no bytes
+    wire = torch.zeros(1, dtype=torch.uint8, device=dev).expand(1, n)
     for call in (lambda: F.fft_minor(x, x, M),
                  lambda: F.ifft_minor(x, x, M),
                  lambda: F.fft_major_forward(x, x, A, n),
-                 lambda: F.fft_major_fwd_wire(
-                     torch.zeros((1, n), device=dev), A, n, n)):
-        with pytest.raises(ValueError, match="4096"):
+                 lambda: F.fft_major_fwd_wire(wire, A, n, n)):
+        with pytest.raises(ValueError, match="16384"):
             call()
     snippet = np.zeros(80000, np.float32)
     snippet[::7] = 0.1
-    with pytest.raises(ValueError, match="2\\^24"):
-        SnippetMatcher(snippet, 8000, MatchConfig(chunk_secs=2200.0),
+    with pytest.raises(ValueError, match="2\\^28"):
+        SnippetMatcher(snippet, 8000, MatchConfig(chunk_secs=34000.0),
                        device=dev)
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + WIDE_SIZES)
 def test_new_modes_match_plain(dev, n):
     """The inverse minor pass and the forward major pass of complex
     planes, and the fft2_scrambled round trip (n·x)."""
     g = torch.Generator(device=dev).manual_seed(n + 1)
     A, M = F.split_factors(n)
-    P = 4 if n <= 1 << 22 else 2
+    P = 4 if n <= 1 << 22 else 2 if n <= 1 << 26 else 1
     xr = torch.randn(P, A, M, device=dev, generator=g)
     xi = torch.randn(P, A, M, device=dev, generator=g)
     _close(F.fft_major_forward(xr, xi, A, n),
@@ -389,12 +395,16 @@ def _wire_episode(dev, g, dtype, length):
     return (torch.randn(length, device=dev, generator=g) * 3000).to(dtype)
 
 
-@pytest.mark.parametrize("n", [1 << 14, 1 << 21, 1 << 22, 1 << 23, 1 << 24])
+@pytest.mark.parametrize("n", [1 << 14, 1 << 21, 1 << 22, 1 << 23, 1 << 24]
+                         + WIDE_SIZES)
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
 @pytest.mark.parametrize("B", [4, 5])
 def test_major_fwd_wire2_matches_plain(dev, n, dtype, B):
     """Kernel 6 on strided even/odd windows of one episode; odd B pairs
-    the last window with wire silence."""
+    the last window with wire silence (at 2^27 and 2^28 B = 2 and 1, P =
+    1: one pair, and one window with silence)."""
+    if n > 1 << 26:
+        B -= 3
     g = torch.Generator(device=dev).manual_seed(n + B)
     A, M = F.split_factors(n)
     W, chunk = int(n * 0.77), int(n * 0.6)

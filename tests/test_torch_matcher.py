@@ -208,7 +208,7 @@ def test_matcher_geometry_matches_jax():
 def test_matcher_refuses_off_slice_configurations():
     """Every ``fft_impl`` × ``peaks_impl`` of the JAX package constructs;
     unknown names raise, and so does a ``"vpu"`` matcher above fft_len
-    2^24 on a CUDA device."""
+    2^28 on a CUDA device (and only there: 2^28 constructs)."""
     snippet, _ = _inputs()
     for fft_impl in TM.FFT_IMPLS:
         for peaks_impl in TM.PEAKS_IMPLS:
@@ -218,10 +218,13 @@ def test_matcher_refuses_off_slice_configurations():
     for kw in (dict(fft_impl="fftw"), dict(peaks_impl="scipy")):
         with pytest.raises(ValueError, match=next(iter(kw))):
             TM.SnippetMatcher(snippet, SR, TM.MatchConfig(**kw))
-    huge = TM.MatchConfig(chunk_secs=2200.0)  # fft_len 2^25
-    with pytest.raises(ValueError, match="2\\^24"):
+    huge = TM.MatchConfig(chunk_secs=34000.0)  # fft_len 2^29
+    with pytest.raises(ValueError, match="2\\^28"):
         TM.SnippetMatcher(snippet, SR, huge)
-    assert TM.SnippetMatcher(snippet, SR, huge, device="cpu").fft_len == 1 << 25
+    assert TM.SnippetMatcher(snippet, SR, huge, device="cpu").fft_len == 1 << 29
+    for secs, e in ((2200.0, 25), (30000.0, 28)):  # the card runs these
+        m = TM.SnippetMatcher(snippet, SR, TM.MatchConfig(chunk_secs=secs))
+        assert (m.fft_len, m.fft_impl) == (1 << e, "vpu")
 
 
 def test_entry_points_default_to_cuda():

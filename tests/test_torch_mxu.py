@@ -87,3 +87,27 @@ def test_matmuls_run_in_full_fp32(monkeypatch, rng):
     finally:
         torch.set_float32_matmul_precision(prev)
     assert seen and set(seen) == {"highest"}
+
+
+@pytest.mark.parametrize("inverse,n", [
+    (False, 256), (False, 1024), (False, 4096), (False, 1 << 14),
+    (False, 1 << 18), (True, 1024), (True, 1 << 16),
+])
+def test_cfft_matches_jax(inverse, n, rng):
+    """The natural-order matmul FFT (``cfft``, ``cfft_parts``) on the JAX
+    package's test inputs (tests/test_mxu_fft.py: 3 rows forward, 2
+    inverse), forward and inverse (with the 1/n)."""
+    rows = 2 if inverse else 3
+    x = (rng.standard_normal((rows, n))
+         + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    want = np.asarray(J.cfft(jnp.asarray(x), inverse=inverse))
+    got = T.cfft(torch.from_numpy(x), inverse=inverse)
+    assert got.dtype == torch.complex64
+    _close((got.real, got.imag), (want.real, want.imag))
+    parts = T.cfft_parts(torch.from_numpy(x.real.copy()),
+                         torch.from_numpy(x.imag.copy()), inverse=inverse)
+    jparts = J.cfft_parts(jnp.asarray(x.real), jnp.asarray(x.imag),
+                          inverse=inverse)
+    _close(parts, jparts)
+    ref = np.fft.ifft(x) if inverse else np.fft.fft(x)
+    assert np.abs(got.numpy() - ref).max() <= 2e-6 * np.abs(ref).max()

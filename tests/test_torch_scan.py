@@ -145,7 +145,7 @@ def test_pad_rows_match_jax(jax_run):
 def test_refuses_off_slice_configurations():
     """Every ``fft_impl`` × ``peaks_impl`` is scanned, one snippet and
     ``fft_len`` < 2^14 too (the tests below), and several devices: two
-    shards of the CPU scan exactly as one; above 2^24 a ``"vpu"`` scanner
+    shards of the CPU scan exactly as one; above 2^28 a ``"vpu"`` scanner
     on a CUDA device (or a mesh of them) is refused at construction, which
     allocates nothing."""
     snippets, episodes = _inputs()
@@ -170,13 +170,15 @@ def test_refuses_off_slice_configurations():
     one = ShardedScanner(snippets, SR, MatchConfig(chunk_secs=1.0),
                          device="cpu")
     assert two.scan_resident(episodes) == one.scan_resident(episodes)
-    huge = MatchConfig(chunk_secs=2200.0)  # fft_len 2^25
+    huge = MatchConfig(chunk_secs=34000.0)  # fft_len 2^29
     for device in ("cuda", ["cuda:0", "cuda:1"]):
-        with pytest.raises(ValueError, match="2\\^24"):
+        with pytest.raises(ValueError, match="2\\^28"):
             ShardedScanner(snippets, SR, huge, device=device)
-    assert ShardedScanner(snippets, SR, huge, device="cpu").fft_len == 1 << 25
+    assert ShardedScanner(snippets, SR, huge, device="cpu").fft_len == 1 << 29
     for cfg in (dataclasses.replace(huge, fft_impl="xla"),
-                MatchConfig(chunk_secs=2000.0)):  # fft_len 2^24 runs
+                MatchConfig(chunk_secs=2000.0),  # fft_len 2^24 runs
+                MatchConfig(chunk_secs=2200.0),  # and 2^25 ..
+                MatchConfig(chunk_secs=30000.0)):  # .. to 2^28
         assert ShardedScanner(snippets, SR, cfg, device="cuda").fft_len
 
 
