@@ -34,6 +34,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "am_twiddles": (_P, _I, _P),
     "am_major_fwd_wire": (_I, _P, _LL, _P, _P, _P, _I, _I, _I, _LL, _P),
@@ -42,6 +43,7 @@ SIGNATURES = {
     ),
     "am_major_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "am_major_inverse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_major_clusters": (_I, _I, _I, _PI),
     "am_minor_forward": (_P, _P, _P, _P, _P, _LL, _I, _P),
     "am_minor_inverse": (_P, _P, _P, _P, _P, _LL, _I, _P),
     "am_minor_product": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -88,9 +90,15 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def hashed_sources() -> list[Path]:
+    """The sources and their headers, whose bytes name the library (and
+    which an installed package must therefore ship)."""
+    return sorted(CSRC.glob("*.cu*"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
+    for src in hashed_sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())

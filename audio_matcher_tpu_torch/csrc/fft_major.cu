@@ -8,9 +8,10 @@
 //                               <- fft_major(inverse=False, cross=True)
 //   major_pass<float, true, false, true, B, W>
 //                               <- fft_major(inverse=True, cross=True, a_crop)
-// one instantiation per A = 2^B, 2^7 .. 2^14, and per cross twiddle W
-// (root<W>): the one-call form up to fft_len 2^24 (A <= 4096), the split
-// exponent above (A >= 2048).
+// one instantiation per A = 2^B, 2^7 .. 2^12, and per cross twiddle W
+// (root<W>): the one-call form up to fft_len 2^24, the split exponent above
+// (A >= 2048); at A = 8192 and 16384 cluster_pass<In, INVERSE, PAIR,
+// PLANES, B> in the same four modes (the split exponent).
 //
 // What is computed. The radix-2 DIF over the strided A axis of every column
 // c of [P, A, M] (natural input, bit-reversed output), then physical row r
@@ -26,13 +27,12 @@
 // the inverse reads 2 x 4.3 GB of product planes and writes 2 x 2.8 GB. A
 // column's 16 points a thread are 16 rows apart, so a block works on a
 // strip of C = 2^LOG2C columns (2^14 points: C = 32 columns, 128 bytes of a
-// row, up to A = 512; 16 at 1024; 8 at 2048; 4 at 4096; 2 at 8192 and 1 at
-// 16384, fft_len 2^25 - 2^28), 1024 threads of 64 registers, one block per
-// SM; the strip's tile holds the exchanges. The strips of 1 and 2 columns,
-// the only ones whose tiles fit at A = 16384 and 8192, read and write 4 or
-// 8 bytes of each 32-byte sector; only L2 merges them with the pieces of
-// the neighbouring blocks, which walk the neighbouring columns at about the
-// same time, and it merges them poorly (7-32x the byte bound: PERF.md).
+// row, up to A = 512; 16 at 1024; 8 at 2048; 4 at 4096), 1024 threads of
+// 64 registers, one block per SM; the strip's tile holds the exchanges. At
+// A = 8192 and 16384 (fft_len 2^26 - 2^28) a block's 2^14 points would be
+// strips of 2 and 1 columns, reading and writing 8 or 4 bytes of each
+// 32-byte sector; there a cluster of A / 2048 blocks shares a strip of 8
+// columns (the passes on clusters, below).
 //
 // What the design does about it.
 //  * Stage groups in registers, two exchanges at A = 2048 (fft_passes.cuh).
@@ -79,19 +79,28 @@ namespace {
 
 constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
+// log2 of the rows of a strip one block transforms: all A up to 4096; 2048
+// at A = 8192 and 16384, whose strips a cluster of A / 2048 blocks shares
+// (ops/fft_plan.py's major_block_log2 and major_cluster_log2).
+__host__ __device__ constexpr int block_log2(int log2A) {
+    return log2A > 12 ? 11 : log2A;
+}
+__host__ __device__ constexpr int cluster_log2(int log2A) {
+    return log2A - block_log2(log2A);
+}
 // log2 of the strip width: 2^14 points a block, 4 to 32 columns up to A =
 // 4096 (ops/fft_plan.py's major_strip_log2; narrower strips would write 16
-// bytes of each 32-byte sector at A = 2048), 2 and 1 at A = 8192 and 16384,
-// where 4 columns would not fit.
+// bytes of each 32-byte sector at A = 2048); 8 columns, whole sectors, on
+// the clusters of A = 8192 and 16384.
 __host__ __device__ constexpr int strip_log2(int log2A) {
-    return log2A > 12       ? 14 - log2A
+    return log2A > 12       ? 3
            : 14 - log2A > 5 ? 5
            : 14 - log2A < 2 ? 2
                             : 14 - log2A;
 }
-// threads a block: C * A / 16 (1024 from A = 512 up)
+// threads a block: C * (the block's rows) / 16 (1024 from A = 512 up)
 __host__ __device__ constexpr int threads_of(int log2A) {
-    return 1 << (strip_log2(log2A) + log2A - LOG2_PTS);
+    return 1 << (strip_log2(log2A) + block_log2(log2A) - LOG2_PTS);
 }
 
 // Wire -> f32 reference-scale PCM, the grid of ops/wire.py: int16 is v/65535;
@@ -178,8 +187,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
 // Start the copy of strip s of the f32 planes (plane s / strips, columns
 // c0 .. c0 + C) into raw: both planes, in the exchange tile's layout, so a
 // thread reads its first group's points as from a tile. One commit group.
-// Copies are 16 bytes, or the whole row piece where it is shorter (4 or 8
-// bytes: strips of 1 or 2 columns, A >= 8192).
+// Copies are 16 bytes, or the whole row piece where it is shorter (a strip
+// of 1 or 2 columns, which no pass takes since the cluster passes).
 template <int LOG2A, int LOG2C>
 __device__ __forceinline__ void fetch_strip(float* raw,
                                             const float* __restrict__ xr,
@@ -295,8 +304,8 @@ __host__ __device__ constexpr int box_rows(int log2A) {
 // 32-byte sector (A = 4096, C = 4: a box row must be a multiple of 16
 // bytes) and the staging plane fits (not for int16 and f32 pairs);
 // elsewhere the threads store it themselves, which is faster where the
-// pieces are whole sectors, and the only way for the 4- and 8-byte pieces
-// of A = 8192 and 16384.
+// pieces are whole sectors. At A = 8192 and 16384 the cluster passes use
+// this layout at A = 2048, with their inner twiddles beside it.
 template <typename In, bool PAIR, int LOG2A>
 struct WireLayout {
     static constexpr int LOG2C = strip_log2(LOG2A);
@@ -305,8 +314,9 @@ struct WireLayout {
     static constexpr int PIECE = (int)sizeof(In) << LOG2C;  // bytes a row
     // u8 and int16 rows: up to 4 bytes more a row (the lead of a 4-byte
     // word copy), rounded up to the widest copy, 16 bytes or the piece;
-    // pieces under 4 bytes (A >= 8192) the words that the piece and its
-    // largest lead, 4 - sizeof(In) bytes, touch
+    // pieces under 4 bytes (strips of 1 or 2 columns, which no pass takes)
+    // the words that the piece and its largest lead, 4 - sizeof(In)
+    // bytes, touch
     static constexpr int WIDE = PIECE < 16 ? PIECE : 16;
     static constexpr int STRIDE =
         sizeof(In) == 4 ? PIECE
@@ -611,6 +621,565 @@ __device__ __forceinline__ void walk_wire_strips(
     if constexpr (L::TMA) tma_writes_done();  // before the block's exit
 }
 
+// ------------------------------------------------ the passes on clusters
+// The major pass at A = 8192 and 16384 (fft_len 2^26 - 2^28). A strip of C
+// = 8 columns, whole 32-byte sectors of every row, would need 278 and 557
+// KB of tile, so a cluster of K = A / 2048 blocks (4, 8: a portable size)
+// shares it. With a = b + K*a1 and k = k1 + 2048*k2,
+//   X[k] = sum_b W_K^{b*k2} W_A^{b*k1} sum_a1 x[b + K*a1] W_2048^{a1*k1}:
+// block b (its rank in the cluster) holds rows a = b + K*a1 and runs the
+// 2048-point DIF over a1 as a block of A = 2048 does (1024 threads, the
+// same plan, twiddles and tile), then the inner twiddle W_A^{b*k1}.
+// Position r1 of that DIF holds k1 = brev_2048(r1); one all-to-all through
+// distributed shared memory sends it to block r1 / R (R = 2048 / K), whose
+// thread (col, v) holds rows r1 = b'*R + v + 128*j of every block in
+// registers j*K + b and runs the K-point DIF over b there. Register j*K +
+// r2 then holds k2 = brev_K(r2), the frequency of physical row K*r1 + r2:
+// with the cross twiddle W_n^{brev_A(r)*c}, Y[r] = X[brev_A(r)], the
+// layout of every other A. The inverse runs the steps backwards: block b'
+// reads physical rows 2048*b' + rho, applies the conjugate cross twiddle,
+// runs the K-point inverse in registers and sends residue b to block b; the
+// conjugate inner twiddle and the 2048-point inverse give natural rows a =
+// b + K*a1, written where a < a_crop. Reads and writes stay one pass over
+// the planes in whole sectors; the exchange sends each point once through
+// the cluster, one plane at a time through the one tile (the next strip,
+// in flight by cp.async, fills the rest of the block's 227 KB), and four
+// cluster barriers a strip order it (ops/fft_plan.py mirrors every index
+// map, and a CPU test runs the decomposition with them).
+
+template <int LOG2A>
+struct Cluster {
+    static constexpr int LOG2K = cluster_log2(LOG2A);  // blocks: 4 or 8
+    static constexpr int K = 1 << LOG2K;
+    static constexpr int LOG2B = block_log2(LOG2A);  // a block's rows, 2048
+    static constexpr int LOG2C = strip_log2(LOG2A);  // 8 columns
+    static constexpr int LOG2R = LOG2B - LOG2K;  // positions a block owns
+    static constexpr int THREADS = threads_of(LOG2A);
+    static constexpr int TILE = ((1 << LOG2B) + (1 << LOG2B) / 16) << LOG2C;
+    static constexpr int INNER = 128 + PTS;  // inner twiddles (float2)
+    static constexpr int CT = (PTS + 1) << LOG2C;  // cross twiddles (float2)
+    static_assert(THREADS == 1024 && LOG2C == 3 && LOG2B == 11 && LOG2K >= 2,
+                  "the cluster passes' thread map");
+};
+
+// The cluster: this block's rank, the cluster's index and count along x.
+__device__ __forceinline__ int cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_index() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+    return (int)r;
+}
+// The cluster barrier in two halves: arrive (release: this thread's
+// accesses of shared memory before it are seen by every thread after the
+// wait) and wait (acquire) for every thread of the cluster to arrive.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of p in block `rank`'s shared memory, and a
+// store there.
+__device__ __forceinline__ unsigned peer_address(const float* p, int rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(out)
+                 : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+    return out;
+}
+__device__ __forceinline__ void store_peer(unsigned address, float v) {
+    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(address), "f"(v)
+                 : "memory");
+}
+
+// The inner twiddles of block b, once a kernel: it[u] = W_A^{sign * b *
+// brev_2048(u << 4)} (u < 128) and it[128 + e] = W_A^{sign * b * 128 * e},
+// so that apply_cross(.., it[u], it + 128) multiplies position (u << 4) | r
+// by W_A^{sign * b * brev_2048((u << 4) | r)}. Exponents below A: exact.
+template <int LOG2A>
+__device__ __forceinline__ void build_inner(float2* it, float sign) {
+    const int b = cluster_rank();
+    for (int k = threadIdx.x; k < Cluster<LOG2A>::INNER; k += blockDim.x)
+        it[k] = root<false>(
+            b * (k < 128 ? brev_bits(k << LOG2_PTS, 11) : (k - 128) << 7),
+            LOG2A, sign);
+}
+
+// The cross twiddles of physical rows K*r1 + r2, r1 = b'*R + v + 128*j, of
+// strip columns c0 + col: brev_A of the row is brev_2048(b'*R + v) (the
+// thread's, cluster_cross_base) plus E(r) = brev_2048(128*j) + 2048 *
+// brev_K(r2) of register r = j*K + r2, at ct[col * 17 + r] (exponents E(r)
+// * c < n, exact in root<true>).
+template <int LOG2K>
+__device__ __forceinline__ int cluster_cross_exponent(int r) {
+    return brev_bits((r >> LOG2K) << 7, 11) +
+           (brev_bits(r & ((1 << LOG2K) - 1), LOG2K) << 11);
+}
+template <int LOG2A>
+__device__ __forceinline__ void build_cluster_cross(float2* ct, int c0,
+                                                    int log2n, float sign) {
+    using Cl = Cluster<LOG2A>;
+    for (int k = threadIdx.x; k < (PTS << Cl::LOG2C); k += blockDim.x) {
+        const int col = k >> LOG2_PTS, r = k & (PTS - 1);
+        ct[col * (PTS + 1) + r] = root<true>(
+            cluster_cross_exponent<Cl::LOG2K>(r) * (c0 + col), log2n, sign);
+    }
+}
+template <int LOG2A>
+__device__ __forceinline__ float2 cluster_cross_base(int v, int c,
+                                                     int log2n, float sign) {
+    using Cl = Cluster<LOG2A>;
+    return root<true>(brev_bits((cluster_rank() << Cl::LOG2R) + v, 11) * c,
+                      log2n, sign);
+}
+// Register r times base * t[r] (t[0] = 1).
+__device__ __forceinline__ void apply_table(float (&xr)[PTS],
+                                            float (&xi)[PTS], float2 base,
+                                            const float2* t) {
+#pragma unroll
+    for (int r = 0; r < PTS; ++r) {
+        const float2 w = r ? cmul(base, t[r]) : base;
+        const float vr = xr[r], vi = xi[r];
+        xr[r] = vr * w.x - vi * w.y;
+        xi[r] = vr * w.y + vi * w.x;
+    }
+}
+
+// The exchange tile's word of slot s (the A = 2048 tile: rows of 8 words,
+// a padding row per 16) in column col.
+__device__ __forceinline__ int cluster_word(int s, int col) {
+    return ((s + (s >> 4)) << 3) + col;
+}
+
+// Forward: thread (col, u) of block b sends positions r1 = (u << 4) | r of
+// one plane to block r1 / R, slots b*R + r1 mod R (16 consecutive slots: a
+// base address and immediates); thread (col, v) of that block takes slot
+// b*R + 128*j + v into register j*K + b.
+template <int LOG2A>
+__device__ __forceinline__ void push_forward(const float (&x)[PTS],
+                                             float* xt) {
+    using Cl = Cluster<LOG2A>;
+    constexpr int LOW = 7 - Cl::LOG2K;  // bits of u below the destination
+    const int tid = threadIdx.x, u = tid >> 3;
+    const int s0 = (cluster_rank() << Cl::LOG2R) +
+                   ((u & ((1 << LOW) - 1)) << LOG2_PTS);
+    const unsigned at = peer_address(xt + cluster_word(s0, tid & 7), u >> LOW);
+#pragma unroll
+    for (int r = 0; r < PTS; ++r) store_peer(at + 32 * r, x[r]);
+}
+template <int LOG2A>
+__device__ __forceinline__ void pull_forward(float (&x)[PTS],
+                                             const float* xt) {
+    using Cl = Cluster<LOG2A>;
+    const int tid = threadIdx.x, v = tid >> 3;
+    const float* p = xt + cluster_word(v, tid & 7);
+#pragma unroll
+    for (int r = 0; r < PTS; ++r) {
+        const int j = r >> Cl::LOG2K, b = r & (Cl::K - 1);
+        x[r] = p[(((b << Cl::LOG2R) + (j << 7)) * 17 / 16) << 3];
+    }
+}
+// Inverse: thread (col, v) of block b' sends register j*K + b (residue b of
+// row r1 = b'*R + v + 128*j) to block b, slot r1; thread (col, u) of that
+// block takes positions (u << 4) | r, the first window of its 2048-point
+// inverse.
+template <int LOG2A>
+__device__ __forceinline__ void push_inverse(const float (&x)[PTS],
+                                             float* xt) {
+    using Cl = Cluster<LOG2A>;
+    const int tid = threadIdx.x, v = tid >> 3;
+    const float* p = xt + cluster_word((cluster_rank() << Cl::LOG2R) + v,
+                                       tid & 7);
+#pragma unroll
+    for (int b = 0; b < Cl::K; ++b) {
+        const unsigned at = peer_address(p, b);
+#pragma unroll
+        for (int j = 0; j < (PTS >> Cl::LOG2K); ++j)
+            store_peer(at + 4 * ((136 * j) << 3), x[(j << Cl::LOG2K) + b]);
+    }
+}
+
+// The all-to-all of both planes, one after the other through xt: wait for
+// every block to be done with its tile (the arrive before is the caller's),
+// send the real plane, barrier, take it, barrier, the imaginary plane the
+// same way.
+template <bool INVERSE, int LOG2A>
+__device__ __forceinline__ void cluster_exchange(float (&vr)[PTS],
+                                                 float (&vi)[PTS], float* xt,
+                                                 MajorTile<3> tile, int u) {
+    cluster_wait();
+    if (INVERSE) push_inverse<LOG2A>(vr, xt);
+    else push_forward<LOG2A>(vr, xt);
+    cluster_arrive();
+    cluster_wait();  // the real plane is in every block
+    if (INVERSE) {
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) vr[r] = xt[tile.word(u, 0, r)];
+    } else {
+        pull_forward<LOG2A>(vr, xt);
+    }
+    cluster_arrive();
+    cluster_wait();  // and read
+    if (INVERSE) push_inverse<LOG2A>(vi, xt);
+    else push_forward<LOG2A>(vi, xt);
+    cluster_arrive();
+    cluster_wait();
+    if (INVERSE) {
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) vi[r] = xt[tile.word(u, 0, r)];
+    } else {
+        pull_forward<LOG2A>(vi, xt);
+    }
+}
+
+// The block's 2048-point transform; the arrive that lets the cluster's
+// blocks write into xt again comes after the last exchange, before the last
+// group's stages.
+template <bool FORWARD>
+__device__ __forceinline__ void block_transform(float (&vr)[PTS],
+                                                float (&vi)[PTS], float* xt,
+                                                MajorTile<3> tile, int u,
+                                                const float2* tw) {
+    using Pl = Plan<11>;
+    constexpr int LAST = FORWARD ? Pl::NG - 1 : 0;
+    constexpr int BEFORE = FORWARD ? LAST - 1 : 1;
+    transform<FORWARD, false, 11, 0, Pl::NG - 1>(vr, vi, xt, xt, tile, u, tw);
+    exchange<false, Pl::w(BEFORE), Pl::w(LAST)>(vr, vi, xt, xt, tile, u);
+    cluster_arrive();
+    run_group<FORWARD, Pl::w(LAST), Pl::qlo(LAST), Pl::k(LAST)>(vr, vi, u,
+                                                                 tw);
+}
+
+// The forward's end of a strip, from the block's 2048-point DIF (positions
+// (u << 4) | r): the inner twiddle, the exchange, the K-point DIF, the cross
+// twiddle and the stores of physical rows K*r1 + r2 of plane p, columns c0
+// + col: whole 32-byte sectors.
+template <int LOG2A>
+__device__ __forceinline__ void forward_tail(
+    float (&vr)[PTS], float (&vi)[PTS], float* xt, const float2* it,
+    const float2* ct, const float2* bases, const float2* __restrict__ tw,
+    float* __restrict__ yr, float* __restrict__ yi, int s, int log2M) {
+    using Cl = Cluster<LOG2A>;
+    {
+        const int u = opaque(threadIdx.x) >> 3;
+        apply_cross(vr, vi, it[u], it + 128);
+        cluster_exchange<false, LOG2A>(
+            vr, vi, xt, MajorTile<3>{opaque(threadIdx.x) & 7}, u);
+    }
+    run_group<true, 0, 0, Cl::LOG2K>(vr, vi, 0, tw);
+    const int tid = opaque(threadIdx.x), col = tid & 7, v = tid >> 3;
+    apply_table(vr, vi, bases[tid], ct + col * (PTS + 1));
+    const int lm = opaque(log2M), log2strips = lm - 3;
+    const unsigned s2 = (unsigned)opaque(s);
+    const long long out =
+        ((long long)(s2 >> log2strips) << (LOG2A + lm)) +
+        ((long long)((cluster_rank() << 11) + (v << Cl::LOG2K)) << lm) +
+        ((s2 & ((1u << log2strips) - 1)) << 3) + col;
+#pragma unroll
+    for (int r = 0; r < PTS; ++r) {
+        const long long row = ((r >> Cl::LOG2K) << (7 + Cl::LOG2K)) +
+                              (r & (Cl::K - 1));
+        yr[out + (row << lm)] = vr[r];
+        yi[out + (row << lm)] = vi[r];
+    }
+}
+
+// Start the copy of block b's rows of strip s of the f32 planes into raw,
+// 16 bytes a copy, two a row piece. Forward: rows b + K*a1 at row a1 of the
+// A = 2048 tile. Inverse: rows 2048*b + rho at row slot rho ^ ((rho >>
+// log2K) & 3), unpadded, so that the threads' reads of rows K*(v + 128*j)
+// + r2 (v mod 4 differs in a warp) meet no bank twice. One commit group.
+template <bool INVERSE, int LOG2A>
+__device__ __forceinline__ void fetch_cluster_strip(
+    float* raw, const float* __restrict__ xr, const float* __restrict__ xi,
+    int s, int log2M) {
+    using Cl = Cluster<LOG2A>;
+    const int b = cluster_rank();
+    const int log2strips = log2M - 3;
+    const long long at = ((long long)(s >> log2strips) << (LOG2A + log2M)) +
+                         ((s & ((1 << log2strips) - 1)) << 3);
+#pragma unroll 1
+    for (int k = threadIdx.x; k < 2 << 12; k += blockDim.x) {
+        const int im = k >> 12, a = (k >> 1) & 2047, q = (k & 1) << 2;
+        const int slot = INVERSE ? (a ^ ((a >> Cl::LOG2K) & 3)) << 3
+                                 : (a + (a >> 4)) << 3;
+        const long long row =
+            INVERSE ? (long long)((b << 11) + a)
+                    : b + ((long long)a << Cl::LOG2K);
+        cp_async(raw + (im ? Cl::TILE : 0) + slot + q,
+                 (im ? xi : xr) + at + (row << log2M) + q, 16);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The f32 planes' passes on a cluster: cluster i walks strips i, i +
+// clusters, ...; the next strip's copy is in flight while the block works
+// on the current one, as in walk_strips. Shared memory: raw (two planes),
+// the exchange tile xt, the cross twiddles, a cross base a thread, the
+// inner twiddles.
+template <bool INVERSE, int LOG2A>
+__device__ __forceinline__ void walk_cluster_strips(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    float* __restrict__ yr, float* __restrict__ yi,
+    const float2* __restrict__ tw, int log2M, int a_crop, int strips,
+    float* smem) {
+    using Cl = Cluster<LOG2A>;
+    float* raw = smem;
+    float* xt = smem + 2 * Cl::TILE;
+    float2* ct = reinterpret_cast<float2*>(xt + Cl::TILE);
+    float2* bases = ct + Cl::CT;
+    float2* it = bases + Cl::THREADS;
+    const float sign = INVERSE ? 1.0f : -1.0f;
+    constexpr int W0 = first_window<11>(true);
+    float vr[PTS], vi[PTS];
+
+    build_inner<LOG2A>(it, sign);
+    fetch_cluster_strip<INVERSE, LOG2A>(raw, xr, xi, cluster_index(), log2M);
+    if (INVERSE) cluster_arrive();  // the tile is free
+    for (int s = cluster_index(); s < strips; s += cluster_count()) {
+        const int lm = opaque(log2M);
+        const int col = opaque(threadIdx.x) & 7;
+        const int u = opaque(threadIdx.x) >> 3;
+        const int c0 = (s & ((1 << (lm - 3)) - 1)) << 3;
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();  // the strip is in raw; the last one's reads are done
+        build_cluster_cross<LOG2A>(ct, c0, LOG2A + lm, sign);
+        bases[threadIdx.x] =
+            cluster_cross_base<LOG2A>(u, c0 + col, LOG2A + lm, sign);
+        if (INVERSE) {
+            // rows K*(u + 128*j) + r2 into register j*K + r2
+            const int k = u & 3;
+            const float* p = raw + (u << (Cl::LOG2K + 3)) + col;
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) {
+                const int w = (((r >> Cl::LOG2K) << (7 + Cl::LOG2K)) +
+                               ((r & (Cl::K - 1)) ^ k)) << 3;
+                vr[r] = p[w];
+                vi[r] = p[Cl::TILE + w];
+            }
+        } else {
+            const MajorTile<3> tile{col};
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) {
+                vr[r] = raw[tile.word(u, W0, r)];
+                vi[r] = raw[Cl::TILE + tile.word(u, W0, r)];
+            }
+        }
+        __syncthreads();  // raw is free, the cross twiddles are built
+        if (s + cluster_count() < strips)
+            fetch_cluster_strip<INVERSE, LOG2A>(raw, xr, xi,
+                                                s + cluster_count(), lm);
+        if constexpr (INVERSE) {
+            const int tid = opaque(threadIdx.x);
+            apply_table(vr, vi, bases[tid], ct + (tid & 7) * (PTS + 1));
+            run_group<false, 0, 0, Cl::LOG2K>(vr, vi, 0, tw);
+            const int u2 = opaque(threadIdx.x) >> 3;
+            const MajorTile<3> tile{opaque(threadIdx.x) & 7};
+            cluster_exchange<true, LOG2A>(vr, vi, xt, tile, u2);
+            apply_cross(vr, vi, it[u2], it + 128);
+            block_transform<false>(vr, vi, xt, tile, u2, tw);
+            // natural rows a = b + K*(u + 128*r), the first a_crop
+            const int lm2 = opaque(log2M), log2strips = lm2 - 3;
+            const unsigned s2 = (unsigned)opaque(s);
+            const int t2 = opaque(threadIdx.x);
+            const int a0 = cluster_rank() + ((t2 >> 3) << Cl::LOG2K);
+            const long long out =
+                (long long)(s2 >> log2strips) * ((long long)a_crop << lm2) +
+                ((long long)a0 << lm2) +
+                ((s2 & ((1u << log2strips) - 1)) << 3) + (t2 & 7);
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) {
+                if (a0 + (r << (7 + Cl::LOG2K)) < a_crop) {
+                    const long long o =
+                        out + ((long long)(r << (7 + Cl::LOG2K)) << lm2);
+                    yr[o] = vr[r];
+                    yi[o] = vi[r];
+                }
+            }
+        } else {
+            block_transform<true>(vr, vi, xt, MajorTile<3>{col}, u, tw);
+            forward_tail<LOG2A>(vr, vi, xt, it, ct, bases, tw, yr, yi, s,
+                                log2M);
+        }
+    }
+    if (INVERSE) cluster_wait();  // the last arrive's
+}
+
+// The wire passes on a cluster: one plane's rows b + K*a1 (a1 < 2048) of
+// strip columns c0 .. c0 + 8 into raw, row a1 at raw + a1 * STRIDE, as
+// fetch_wire_plane copies A = 2048's rows (all rows of a piece share its
+// start's alignment: M * sizeof(In) is a multiple of 128 bytes).
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void fetch_cluster_wire_plane(unsigned char* raw,
+                                                         const In* piece,
+                                                         int c0, int log2M,
+                                                         long long w_len) {
+    using L = WireLayout<In, PAIR, 11>;
+    constexpr int LOG2K = Cluster<LOG2A>::LOG2K;
+    const int b = cluster_rank();
+    const WireCopy cp = wire_copy<In, L::PIECE>(piece);
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(piece) - cp.lead;
+#pragma unroll 1
+    for (int k = threadIdx.x; k < (cp.chunks << 11); k += blockDim.x) {
+        const int a = k / cp.chunks, j = k - a * cp.chunks;
+        const int first_byte = j * cp.grain - cp.lead;
+        const long long row = b + ((long long)a << LOG2K);
+        const long long first = (row << log2M) + c0 +
+                                (first_byte > 0 ? first_byte : 0) /
+                                    (int)sizeof(In);
+        if (first < w_len)
+            cp_async(raw + a * L::STRIDE + j * cp.grain,
+                     src + (row << log2M) * sizeof(In) + j * cp.grain,
+                     cp.grain);
+    }
+}
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void fetch_cluster_wire(
+    unsigned char* raw, const In* __restrict__ x, long long in_stride,
+    const In* __restrict__ x1, long long x1_stride, int x1_rows, int s,
+    int log2M, long long w_len) {
+    using L = WireLayout<In, PAIR, 11>;
+    const int log2strips = log2M - 3;
+    const long long p = s >> log2strips;
+    const int c0 = (s & ((1 << log2strips) - 1)) << 3;
+    fetch_cluster_wire_plane<In, PAIR, LOG2A>(raw, x + p * in_stride + c0,
+                                              c0, log2M, w_len);
+    if (PAIR && p < x1_rows) {
+        fetch_cluster_wire_plane<In, PAIR, LOG2A>(
+            raw + L::A * L::STRIDE, x1 + p * x1_stride + c0, c0, log2M,
+            w_len);
+    } else if (PAIR) {
+        const unsigned word = sizeof(In) == 1 ? 0x80808080u : 0u;
+        unsigned* sil = reinterpret_cast<unsigned*>(raw + L::A * L::STRIDE);
+        for (int k = threadIdx.x; k < L::A * L::STRIDE / 4; k += blockDim.x)
+            sil[k] = word;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The wire passes, forward only, on a cluster: walk_wire_strips' decode at
+// A = 2048's layout (WireLayout<In, PAIR, 11>: the exchange tile, the
+// strip's wire rows, the mu-law table, the cross twiddles and a cross base
+// a thread) and the inner twiddles, with the forward's cluster steps.
+template <typename In, bool PAIR, int LOG2A>
+__device__ __forceinline__ void walk_cluster_wire_strips(
+    const In* __restrict__ x, long long in_stride, const In* __restrict__ x1,
+    long long x1_stride, int x1_rows, float* __restrict__ yr,
+    float* __restrict__ yi, const float2* __restrict__ tw, int log2M,
+    long long w_len, int strips, float* smem) {
+    using L = WireLayout<In, PAIR, 11>;
+    using Cl = Cluster<LOG2A>;
+    float* xt = smem;
+    unsigned char* raw = reinterpret_cast<unsigned char*>(smem + L::TILE);
+    float* lut = reinterpret_cast<float*>(raw + L::RAW);
+    float2* ct = reinterpret_cast<float2*>(lut + L::LUT);
+    float2* bases = ct + Cl::CT;
+    float2* it = bases + Cl::THREADS;
+    float vr[PTS], vi[PTS];
+
+    if (sizeof(In) == 1)
+        for (int k = threadIdx.x; k < L::LUT; k += blockDim.x)
+            lut[k] = dequant((uint8_t)(k / L::LUT_COPIES));
+    build_inner<LOG2A>(it, -1.0f);
+    fetch_cluster_wire<In, PAIR, LOG2A>(raw, x, in_stride, x1, x1_stride,
+                                        x1_rows, cluster_index(), log2M,
+                                        w_len);
+    for (int s = cluster_index(); s < strips; s += cluster_count()) {
+        const int lm = opaque(log2M);
+        const int log2n = LOG2A + lm, log2strips = lm - 3;
+        const int col = opaque(threadIdx.x) & 7;
+        const int u = opaque(threadIdx.x) >> 3;
+        const long long p = s >> log2strips;
+        const int c0 = (s & ((1 << log2strips) - 1)) << 3;
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();  // the strip is in raw; the last one's reads are done
+        build_cluster_cross<LOG2A>(ct, c0, log2n, -1.0f);
+        bases[threadIdx.x] = cluster_cross_base<LOG2A>(u, c0 + col, log2n,
+                                                       -1.0f);
+        {
+            const float* lane_lut = lut + (threadIdx.x & (L::LUT_COPIES - 1));
+            auto decode = [lane_lut](In v) {
+                return sizeof(In) == 1
+                           ? lane_lut[(uint8_t)v * L::LUT_COPIES]
+                           : dequant(v);
+            };
+            // natural rows of column c below w_len: a < a_end; this
+            // block's rows b + K*a1 among them: a1 < a1_end
+            const int c = c0 + col;
+            const long long ends = (w_len - c + (1LL << lm) - 1) >> lm;
+            const int a_end = (int)(ends < 0 ? 0
+                                    : ends < (1 << LOG2A) ? ends
+                                                          : 1 << LOG2A);
+            const int b = cluster_rank();
+            const int a1_end =
+                a_end > b ? (a_end - b + Cl::K - 1) >> Cl::LOG2K : 0;
+            const int at = u * L::STRIDE + col * (int)sizeof(In);
+            const unsigned char* r0 =
+                raw + at +
+                wire_copy<In, L::PIECE>(x + p * in_stride + c0).lead;
+            const unsigned char* r1 =
+                raw + L::A * L::STRIDE + at +
+                (PAIR && p < x1_rows
+                     ? wire_copy<In, L::PIECE>(x1 + p * x1_stride + c0).lead
+                     : 0);
+            constexpr int STEP = (L::A / PTS) * L::STRIDE;  // 128 rows
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) {
+                const bool in = u + (r << 7) < a1_end;
+                vr[r] = in ? decode(*reinterpret_cast<const In*>(
+                                 r0 + r * STEP))
+                           : 0.0f;
+                vi[r] = PAIR && in ? decode(*reinterpret_cast<const In*>(
+                                         r1 + r * STEP))
+                                   : 0.0f;
+            }
+        }
+        __syncthreads();  // raw is free, the cross twiddles are built
+        const int next = opaque(s) + cluster_count();  // not kept: opaque
+        if (next < strips)
+            fetch_cluster_wire<In, PAIR, LOG2A>(raw, x, in_stride, x1,
+                                                x1_stride, x1_rows, next, lm,
+                                                w_len);
+        block_transform<true>(vr, vi, xt,
+                              MajorTile<3>{opaque(threadIdx.x) & 7},
+                              opaque(threadIdx.x) >> 3, tw);
+        forward_tail<LOG2A>(vr, vi, xt, it, ct, bases, tw, yr, yi, s,
+                            log2M);
+    }
+}
+
+// One block of a cluster (Cluster<LOG2A>: 1024 threads, all of the SM's
+// registers): the f32 planes (walk_cluster_strips; the inverse writes [P,
+// a_crop, M]) or the wire (walk_cluster_wire_strips).
+template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A>
+__global__ void __launch_bounds__(1024, 1)
+cluster_pass(const In* __restrict__ x, long long in_stride,
+             const In* __restrict__ x1, long long x1_stride, int x1_rows,
+             float* __restrict__ yr, float* __restrict__ yi,
+             const float2* __restrict__ tw, int log2M, long long w_len,
+             int a_crop, int strips) {
+    extern __shared__ __align__(128) float smem[];
+    if constexpr (PLANES)
+        walk_cluster_strips<INVERSE, LOG2A>(
+            reinterpret_cast<const float*>(x),
+            reinterpret_cast<const float*>(x1), yr, yi, tw, log2M, a_crop,
+            strips, smem);
+    else
+        walk_cluster_wire_strips<In, PAIR, LOG2A>(x, in_stride, x1, x1_stride,
+                                                  x1_rows, yr, yi, tw, log2M,
+                                                  w_len, strips, smem);
+}
+
 // Thread (col, u) = (tid mod C, tid / C) holds 16 points of column c =
 // c0 + col of a strip of C columns; a persistent block walks the strips.
 // PLANES: x, x1 are the two [P, A, M] f32 planes (walk_strips, one block
@@ -731,10 +1300,78 @@ int launch_major_as(const In* x, long long in_stride, const In* x1,
     return (int)cudaGetLastError();
 }
 
+// A cluster pass's shared memory a block: the planes' raw (two planes),
+// exchange tile, cross twiddles, cross bases and inner twiddles; the wire's
+// WireLayout at A = 2048 and the inner twiddles.
+template <typename In, bool PAIR, bool PLANES, int LOG2A>
+constexpr size_t cluster_smem() {
+    using Cl = Cluster<LOG2A>;
+    return PLANES ? (size_t)(3 * Cl::TILE +
+                             2 * (Cl::CT + Cl::THREADS + Cl::INNER)) *
+                        sizeof(float)
+                  : (size_t)WireLayout<In, PAIR, 11>::SMEM + 8 * Cl::INNER;
+}
+
+// A cluster pass's launch configuration (clusters of K blocks, its shared
+// memory allowed) and the clusters the card holds at once at that shared
+// memory: the grid of its persistent walk (cudaOccupancyMaxActiveClusters).
+template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           cudaStream_t stream, int* clusters) {
+    using Cl = Cluster<LOG2A>;
+    constexpr size_t smem = cluster_smem<In, PAIR, PLANES, LOG2A>();
+    static_assert(smem <= MAX_SMEM, "the cluster pass's shared memory");
+    auto kern = cluster_pass<In, INVERSE, PAIR, PLANES, LOG2A>;
+    *clusters = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = Cl::K;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg->gridDim = dim3(Cl::K);
+    cfg->blockDim = dim3(Cl::THREADS);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = stream;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveClusters(clusters, kern, cfg);
+    return err;
+}
+
+// A cluster pass's launch: the clusters the card holds (none: the launch
+// is refused, cudaErrorLaunchOutOfResources), or fewer where there are
+// fewer strips; its cudaLaunchKernelEx error or cudaGetLastError().
+template <typename In, bool INVERSE, bool PAIR, bool PLANES, int LOG2A>
+int launch_cluster(const In* x, long long in_stride, const In* x1,
+                   long long x1_stride, int x1_rows, float* yr, float* yi,
+                   const float2* tw, int P, int log2M, long long w_len,
+                   int a_crop, cudaStream_t stream) {
+    using Cl = Cluster<LOG2A>;
+    const long long strips = (long long)P << (log2M - Cl::LOG2C);
+    if (strips > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg{};
+    cudaLaunchAttribute attr[1];
+    int clusters = 0;
+    cudaError_t err = cluster_config<In, INVERSE, PAIR, PLANES, LOG2A>(
+        &cfg, attr, stream, &clusters);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    const long long grid = strips < clusters ? strips : clusters;
+    cfg.gridDim = dim3((unsigned)(grid * Cl::K));
+    err = cudaLaunchKernelEx(&cfg, cluster_pass<In, INVERSE, PAIR, PLANES,
+                                                LOG2A>,
+                             x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw,
+                             log2M, w_len, a_crop, (int)strips);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
 // The instantiation for A = 2^log2A and the cross twiddle's form: root<true>
-// above fft_len 2^24, and at A >= 8192 whatever the fft_len (one
-// instantiation fewer); root<false> up to 2^24 at A <= 4096. A <= 1024 never
-// passes 2^24 (M is at most 16384), so it has root<false> alone.
+// above fft_len 2^24, root<false> up to 2^24 at A <= 4096 (A <= 1024 never
+// passes 2^24: M is at most 16384, so it has root<false> alone); the
+// cluster passes (root<true> whatever the fft_len) at A = 8192 and 16384.
 template <typename In, bool INVERSE, bool PAIR, bool PLANES>
 int launch_major(const In* x, long long in_stride, const In* x1,
                  long long x1_stride, int x1_rows, float* yr, float* yi,
@@ -742,21 +1379,59 @@ int launch_major(const In* x, long long in_stride, const In* x1,
                  long long w_len, int a_crop, cudaStream_t stream) {
     if (!factor_fits(log2A) || !factor_fits(log2M) || P < 1)
         return (int)cudaErrorInvalidValue;
-    return with_factor(log2A, [&](auto L) {
+    return with_factor(log2A, [&](auto L) -> int {
         constexpr int LOG2A = decltype(L)::value;
-        auto go = [&](auto wide) {
-            return launch_major_as<In, INVERSE, PAIR, PLANES, LOG2A,
-                                   decltype(wide)::value>(
+        if constexpr (cluster_log2(LOG2A) > 0) {
+            return launch_cluster<In, INVERSE, PAIR, PLANES, LOG2A>(
                 x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, P, log2M,
                 w_len, a_crop, stream);
-        };
-        if constexpr (LOG2A + MAX_LOG2_FACTOR <= 24)
-            return go(std::false_type{});
-        else if constexpr (LOG2A > 12)
-            return go(std::true_type{});
-        else
-            return LOG2A + log2M > 24 ? go(std::true_type{})
-                                      : go(std::false_type{});
+        } else {
+            auto go = [&](auto wide) {
+                return launch_major_as<In, INVERSE, PAIR, PLANES, LOG2A,
+                                       decltype(wide)::value>(
+                    x, in_stride, x1, x1_stride, x1_rows, yr, yi, tw, P,
+                    log2M, w_len, a_crop, stream);
+            };
+            if constexpr (LOG2A + MAX_LOG2_FACTOR <= 24)
+                return go(std::false_type{});
+            else
+                return LOG2A + log2M > 24 ? go(std::true_type{})
+                                          : go(std::false_type{});
+        }
+    });
+}
+
+// The clusters one instantiation's launch gets at A = 2^log2A (8192 or
+// 16384): entry 0 = am_major_fwd_wire, 1 = am_major_fwd_wire2 (dtype as
+// theirs), 2 = am_major_forward, 3 = am_major_inverse.
+template <typename In>
+int wire_clusters(int entry, int log2A, int* clusters) {
+    cudaLaunchConfig_t cfg{};
+    cudaLaunchAttribute attr[1];
+    return with_factor(log2A, [&](auto L) -> int {
+        constexpr int LOG2A = decltype(L)::value;
+        if constexpr (cluster_log2(LOG2A) == 0) {
+            return (int)cudaErrorInvalidValue;
+        } else {
+            switch (entry) {
+                case 0:
+                    return (int)cluster_config<In, false, false, false, LOG2A>(
+                        &cfg, attr, 0, clusters);
+                case 1:
+                    return (int)cluster_config<In, false, true, false, LOG2A>(
+                        &cfg, attr, 0, clusters);
+                case 2:
+                    return (int)cluster_config<float, false, true, true,
+                                               LOG2A>(&cfg, attr, 0,
+                                                      clusters);
+                case 3:
+                    return (int)cluster_config<float, true, false, true,
+                                               LOG2A>(&cfg, attr, 0,
+                                                      clusters);
+                default:
+                    return (int)cudaErrorInvalidValue;
+            }
+        }
     });
 }
 
@@ -826,6 +1501,22 @@ int am_major_inverse(const float* xr, const float* xi, float* yr, float* yi,
     return launch_major<float, true, false, true>(
         xr, 1LL << (log2A + log2M), xi, 0, 0, yr, yi, (const float2*)tw, P,
         log2A, log2M, 0, a_crop, (cudaStream_t)stream);
+}
+
+// The clusters the card holds at once for one cluster pass (the grid of its
+// launches): entry 0 = am_major_fwd_wire, 1 = am_major_fwd_wire2, 2 =
+// am_major_forward, 3 = am_major_inverse; dtype as the wire passes' (read
+// by entries 0 and 1); log2A 13 or 14. 0 clusters: its launches are refused.
+int am_major_clusters(int entry, int dtype, int log2A, int* clusters) {
+    *clusters = 0;
+    if (!factor_fits(log2A) || cluster_log2(log2A) == 0)
+        return (int)cudaErrorInvalidValue;
+    switch (entry < 2 ? dtype : 2) {
+        case 0: return wire_clusters<uint8_t>(entry, log2A, clusters);
+        case 1: return wire_clusters<int16_t>(entry, log2A, clusters);
+        case 2: return wire_clusters<float>(entry, log2A, clusters);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // extern "C"

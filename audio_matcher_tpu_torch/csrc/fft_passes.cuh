@@ -298,11 +298,12 @@ __device__ __forceinline__ void exchange(float (&xr)[PTS], float (&xi)[PTS],
     }
 }
 
-// Every group of the plan of a line of 2^B points, from step S on, with
+// Every group of the plan of a line of 2^B points, steps S .. E - 1, with
 // the exchanges between them: forward from the top window [B-4, B) down to
 // [0, 4), inverse from [0, 4) up. The points come in and go out in
 // registers, at the first and the last group's window.
-template <bool FORWARD, bool TWO, int B, int S = 0, class Tile>
+template <bool FORWARD, bool TWO, int B, int S = 0, int E = Plan<B>::NG,
+          class Tile>
 __device__ __forceinline__ void transform(float (&xr)[PTS], float (&xi)[PTS],
                                           float* sr, float* si, Tile tile,
                                           int u,
@@ -314,8 +315,8 @@ __device__ __forceinline__ void transform(float (&xr)[PTS], float (&xi)[PTS],
         exchange<TWO, P::w(F), P::w(G)>(xr, xi, sr, si, tile, u);
     }
     run_group<FORWARD, P::w(G), P::qlo(G), P::k(G)>(xr, xi, u, tw);
-    if constexpr (S + 1 < P::NG)
-        transform<FORWARD, TWO, B, S + 1>(xr, xi, sr, si, tile, u, tw);
+    if constexpr (S + 1 < E)
+        transform<FORWARD, TWO, B, S + 1, E>(xr, xi, sr, si, tile, u, tw);
 }
 
 // The window a thread holds before the first group and after the last.

@@ -29,6 +29,7 @@ spectra.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 
@@ -181,8 +182,10 @@ def _aligned16(*tensors: torch.Tensor) -> None:
 
 
 def _check_blocks(P: int, log2A: int, log2M: int) -> None:
-    """Raise if a major pass's strips (P·M/C) would pass MAX_BLOCKS."""
-    if P << (log2M - fft_plan.major_strip_log2(log2A)) > MAX_BLOCKS:
+    """Raise if a major pass's strips (P·M/C, each a block's, or at A ≥
+    8192 a cluster's: :func:`fft_plan.major_strips`) would pass
+    MAX_BLOCKS, the kernels' int count of them."""
+    if fft_plan.major_strips(P, log2A, log2M) > MAX_BLOCKS:
         raise ValueError(
             f"{P} planes of {1 << log2M} columns exceed {MAX_BLOCKS} strips"
         )
@@ -552,6 +555,32 @@ def fft_major_forward(xr, xi, A: int, n: int, out=None):
 
 
 fft_major_forward.launches = 0
+
+_CLUSTER_ENTRIES = {fft_major_fwd_wire: 0, fft_major_fwd_wire2: 1,
+                    fft_major_forward: 2, fft_major: 3}
+
+
+def major_clusters(kernel, A: int, dtype=torch.float32, device=None) -> int:
+    """The clusters of A / 2048 blocks the card holds at once for a major
+    pass at A = 8192 or 16384 (``kernel``: :func:`fft_major_fwd_wire`,
+    :func:`fft_major_fwd_wire2` with wire ``dtype``,
+    :func:`fft_major_forward` or :func:`fft_major`): the grid of its
+    persistent walk, ``cudaOccupancyMaxActiveClusters`` at its shared
+    memory. 0 means its launches are refused, and raise. CUDA only."""
+    log2A = _log2(A, "A")
+    if fft_plan.major_cluster_log2(log2A) == 0:
+        raise ValueError(f"A = {A} runs on blocks, not clusters")
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError("cluster occupancy is a CUDA device's")
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.load().am_major_clusters(
+            _CLUSTER_ENTRIES[kernel], _WIRE_CODES[dtype], log2A,
+            ctypes.byref(got))
+    _build.check(rc, "am_major_clusters")
+    return got.value
+
 
 KERNELS = (
     fft_major_fwd_wire, fft_minor, ifft_minor_product, fft_major,

@@ -12,8 +12,10 @@ L = 2048 (groups of 4 + 4 + 3 stages) instead of eleven round trips.
 
 This module is the host side of that design, kept apart from the
 wrappers so the CPU tests reach it: the stage groups of each L (the
-grouping the kernels' compile-time ``Plan`` makes); the strip width and
-thread count of the major pass; the shared-memory bytes of each pass; the
+grouping the kernels' compile-time ``Plan`` makes); the strip width,
+cluster size and thread count of the major pass, and at A ≥ 8192 every
+index map of its cluster passes (``cluster_*``); the shared-memory bytes
+of each pass; the
 shared-memory address of a point in each pass's exchange tile (the same
 functions as the kernels' ``MinorTile`` and ``MajorTile``), with which a
 test counts bank conflicts; the wire passes' copy of a strip's rows into
@@ -25,8 +27,11 @@ twiddle table; and the cross twiddle's split exponent above n = 2^24
 
 Factors run from 2^7 to 2^14 (fft_len up to 2^28). Up to 4096 a minor
 block is MINOR_THREADS threads holding 4096/M rows, and a major strip is
-C = 4 to 32 columns; at 8192 and 16384 a minor block is one row of M/16
-threads, and a major strip the 2^14 points of C = 2 or 1 columns.
+C = 4 to 32 columns, one block's; at 8192 and 16384 a minor block is one
+row of M/16 threads, and a major strip of C = 8 columns is shared by a
+cluster of K = A/2048 blocks (``fft_major.cu``'s passes on clusters):
+block b transforms rows b + K·a1 over a1 as a block of A = 2048 does,
+and one exchange through the cluster runs the K-point stage.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ MIN_LOG2, MAX_LOG2 = 7, 14  # factors 128 .. 16384
 MINOR_THREADS = 256
 MAJOR_TILE_LOG2 = 14  # points of a major-pass strip: C·A = 2^14 ...
 MAJOR_MIN_LOG2C = 2  # ... and at least 4 columns (16 bytes of a row) ...
-WIDE_LOG2 = 12  # ... up to A = 4096; wider factors take C = 2^14 / A
+WIDE_LOG2 = 12  # ... up to A = 4096; wider factors run on clusters:
+CLUSTER_BLOCK_LOG2 = 11  # a block's rows of a cluster's strip (2048) ...
+CLUSTER_LOG2C = 3  # ... of 8 columns, whole 32-byte sectors of a row
+CLUSTER_INNER = 128 + 16  # inner twiddles (float2) a cluster block keeps
 EXACT_LOG2N = 24  # f32 holds every integer exponent k < n up to here
 PADDED_MINOR_LOG2 = 13  # minor tiles above this are padded, not swizzled
 MAX_SMEM = 232448  # bytes a Hopper block may use (227 KB)
@@ -81,45 +89,66 @@ def position(u: int, r: int, w: int) -> int:
     return low | (u >> w) << (w + LOG2_PTS) | r << w
 
 
+def major_cluster_log2(log2A: int) -> int:
+    """log2 of the blocks that share a major strip: 1 up to A = 4096; A /
+    2048 (4, 8) at 8192 and 16384, a cluster."""
+    return log2A - CLUSTER_BLOCK_LOG2 if log2A > WIDE_LOG2 else 0
+
+
+def major_block_log2(log2A: int) -> int:
+    """log2 of the rows of a strip one block transforms: A, or 2048 on a
+    cluster."""
+    return log2A - major_cluster_log2(log2A)
+
+
 def major_strip_log2(log2A: int) -> int:
     """log2 of the major pass's strip width C: 2^14 points per block (at
     most 1024 threads, 16 points each), at most 32 columns (128 bytes of a
     row per plane): C = 32 up to A = 512, 16 at 1024, 8 at 2048, 4 at
-    4096, where 8 columns would need 278 KB of tile; 2 at 8192 and 1 at
-    16384, the block's 2^14 points (narrow rows, but the only strips whose
-    tiles fit)."""
+    4096, where 8 columns would need 278 KB of tile; 8 at 8192 and 16384,
+    a cluster's, whose blocks hold 2048 rows each (2^14 points)."""
     if log2A > WIDE_LOG2:
-        return MAJOR_TILE_LOG2 - log2A
+        return CLUSTER_LOG2C
     return max(MAJOR_MIN_LOG2C, min(5, MAJOR_TILE_LOG2 - log2A))
 
 
 def major_threads(log2A: int) -> int:
-    return 1 << (major_strip_log2(log2A) + log2A - LOG2_PTS)
+    return 1 << (major_strip_log2(log2A) + major_block_log2(log2A)
+                 - LOG2_PTS)
+
+
+def major_strips(P: int, log2A: int, log2M: int) -> int:
+    """The strips of a major pass over P planes, P·M/C: each one block's,
+    or at A ≥ 8192 one cluster's; the kernels count them in an int."""
+    return P << (log2M - major_strip_log2(log2A))
 
 
 def major_smem_bytes(log2A: int, planes: bool = False, elem_size: int = 4,
                      pair: bool = True) -> int:
     """The f32 planes' passes (``planes``): three planes of the
-    [A + A/16, C] exchange tile (the next strip's two, copied in while the
-    block works, and one to exchange through), 17 cross twiddles (float2)
-    per column and one float2 a thread. The wire passes: ``wire_layout``'s
-    bytes for wire elements of ``elem_size`` bytes (the default, f32 pairs,
-    is the largest)."""
+    [B + B/16, C] exchange tile of the block's B rows (the next strip's
+    two, copied in while the block works, and one to exchange through),
+    17 cross twiddles (float2) per column, one float2 a thread and, on a
+    cluster, the inner twiddles. The wire passes: ``wire_layout``'s bytes
+    for wire elements of ``elem_size`` bytes (the default, f32 pairs, is
+    the largest)."""
     if not planes:
         return wire_layout(log2A, elem_size, pair)["smem"]
-    A = 1 << log2A
+    B = 1 << major_block_log2(log2A)
     C = 1 << major_strip_log2(log2A)
-    tile = (A + A // 16) * C
-    return 4 * (3 * tile + 2 * major_threads(log2A) + 34 * C)
+    tile = (B + B // 16) * C
+    inner = 8 * CLUSTER_INNER if major_cluster_log2(log2A) else 0
+    return 4 * (3 * tile + 2 * major_threads(log2A) + 34 * C) + inner
 
 
 def wire_stride(elem_size: int, log2C: int) -> int:
     """Bytes of shared memory a row piece of a strip takes in the wire
     passes: f32 pieces exactly; u8 and int16 pieces up to 4 bytes more (the
     lead of a 4-byte word copy), rounded up to their widest copy (16 bytes,
-    or the piece where it is shorter); pieces under 4 bytes (A >= 8192)
-    the 4-byte words that the piece and its largest lead (4 - elem_size
-    bytes) touch."""
+    or the piece where it is shorter); pieces under 4 bytes (strips of 1
+    or 2 columns, which no pass takes since the cluster passes) the 4-byte
+    words that the piece and its largest lead (4 - elem_size bytes)
+    touch."""
     piece = elem_size << log2C
     if elem_size == 4:
         return piece
@@ -159,14 +188,17 @@ def wire_layout(log2A: int, elem_size: int, pair: bool) -> dict[str, int]:
     row is a multiple of 16 bytes) and it fits; the strip's wire rows
     (``stride`` bytes each, A rows a plane, one plane or two for ``pair``);
     for mu-law the 256 decoded codes LUT_COPIES times; the cross twiddles
-    and a float2 a thread."""
-    A = 1 << log2A
+    and a float2 a thread. On a cluster (A ≥ 8192) the layout of the
+    block's 2048 rows, and the inner twiddles."""
+    A = 1 << major_block_log2(log2A)
     log2C = major_strip_log2(log2A)
     tile = 4 * (A + A // 16 << log2C)
     stride = wire_stride(elem_size, log2C)
     raw = (2 if pair else 1) * A * stride
     lut = 4 * 256 * LUT_COPIES if elem_size == 1 else 0
     rest = raw + lut + 8 * (PTS + 1 << log2C) + 8 * major_threads(log2A)
+    if major_cluster_log2(log2A):
+        rest += 8 * CLUSTER_INNER
     tma = 4 << log2C == 16 and tile + 4 * (A << log2C) + rest <= MAX_SMEM
     stage = 4 * (A << log2C) if tma else 0
     return {"tile": tile, "stage": stage, "piece": elem_size << log2C,
@@ -194,11 +226,94 @@ def stage_word(log2A: int, tid: int, r: int) -> int:
 
 
 def block_strips(P: int, log2A: int, log2M: int, blocks: int) -> list[range]:
-    """The strips each block of a major pass walks: block b takes strips
-    b, b + blocks, ... of the P·M/C, where strip s is columns
-    (s mod M/C)·C of plane s // (M/C)."""
-    strips = P << (log2M - major_strip_log2(log2A))
+    """The strips each walker of a major pass walks (``blocks`` of them:
+    blocks, or at A ≥ 8192 clusters, whose blocks all walk their
+    cluster's): walker b takes strips b, b + blocks, ... of the P·M/C,
+    where strip s is columns (s mod M/C)·C of plane s // (M/C)."""
+    strips = major_strips(P, log2A, log2M)
     return [range(b, strips, blocks) for b in range(min(blocks, strips))]
+
+
+# ------------------------------------------ the cluster passes' index maps
+# A = K·2048 (K = 4, 8); block b of a strip's cluster, thread tid = (col,
+# u) = (tid mod 8, tid // 8), u < 128, register r < 16. R = 2048 / K
+# positions of a block's 2048-point transform go to each block. Each map
+# takes numpy arrays (or ints) and is the kernel's formula.
+def cluster_forward_row(log2A: int, b, a1):
+    """The plane row of row a1 of block b's forward transform: b + K·a1
+    (``fetch_cluster_strip``, ``fetch_cluster_wire_plane``)."""
+    return b + (np.asarray(a1) << major_cluster_log2(log2A))
+
+
+def cluster_inverse_raw_slot(log2A: int, rho):
+    """The row slot of physical row 2048·b + rho in the inverse's copy of
+    the strip: rho ^ ((rho >> log2K) & 3), unpadded (rows of 8 words)."""
+    rho = np.asarray(rho)
+    return rho ^ ((rho >> major_cluster_log2(log2A)) & 3)
+
+
+def cluster_push_forward(log2A: int, b, u, r):
+    """Where the forward sends position (u << 4) | r of block b's
+    transform: (destination block, slot of its exchange tile)."""
+    lk = major_cluster_log2(log2A)
+    low = 7 - lk
+    u, r = np.asarray(u), np.asarray(r)
+    slot = (b << (CLUSTER_BLOCK_LOG2 - lk)) + ((u & ((1 << low) - 1)) << 4) + r
+    return u >> low, slot
+
+
+def cluster_pull_forward(log2A: int, v, r):
+    """The slot thread v of a block takes into register r = j·K + b of the
+    K-point stage: b·R + 128·j + v (``pull_forward``)."""
+    lk = major_cluster_log2(log2A)
+    r = np.asarray(r)
+    return ((r & ((1 << lk) - 1)) << (CLUSTER_BLOCK_LOG2 - lk)) + (
+        (r >> lk) << 7) + v
+
+
+def cluster_push_inverse(log2A: int, b, v, r):
+    """Where the inverse sends register r = j·K + b2 of thread v of block
+    b (residue b2 of position r1 = b·R + v + 128·j): (block b2, slot r1)."""
+    lk = major_cluster_log2(log2A)
+    r = np.asarray(r)
+    return r & ((1 << lk) - 1), (b << (CLUSTER_BLOCK_LOG2 - lk)) + v + (
+        (r >> lk) << 7)
+
+
+def cluster_stage_row(log2A: int, b, v, r):
+    """The physical row of register r = j·K + r2 of thread v of block b in
+    the K-point stage: K·(b·R + v + 128·j) + r2, the forward's stores and
+    the inverse's loads; brev_A of it is brev_2048(b·R + v) (the thread's
+    cross base) + ``cluster_cross_exponent(r)``."""
+    lk = major_cluster_log2(log2A)
+    r = np.asarray(r)
+    r1 = (b << (CLUSTER_BLOCK_LOG2 - lk)) + v + ((r >> lk) << 7)
+    return (r1 << lk) + (r & ((1 << lk) - 1))
+
+
+def cluster_cross_exponent(log2A: int, r):
+    """E(r) = brev_2048(128·j) + 2048·brev_K(r2) of register r = j·K + r2
+    (``cluster_cross_exponent``): the cross twiddle table's exponent."""
+    lk = major_cluster_log2(log2A)
+    r = np.asarray(r)
+    return brev(r >> lk << 7, CLUSTER_BLOCK_LOG2) + (
+        brev(r & ((1 << lk) - 1), lk) << CLUSTER_BLOCK_LOG2)
+
+
+def cluster_inverse_row(log2A: int, b, u, r):
+    """The natural row the inverse writes from register r of thread u of
+    block b: b + K·(u + 128·r) (written where it is below a_crop)."""
+    return b + ((np.asarray(u) + (np.asarray(r) << 7))
+                << major_cluster_log2(log2A))
+
+
+def brev(x, bits: int):
+    """Bit reversal of x over ``bits`` bits (numpy arrays or ints)."""
+    x = np.asarray(x, np.int64)
+    out = np.zeros_like(x)
+    for i in range(bits):
+        out |= ((x >> i) & 1) << (bits - 1 - i)
+    return out
 
 
 def minor_threads(log2M: int) -> int:
@@ -238,22 +353,65 @@ def minor_address(line: int, i: int, log2M: int) -> int:
                 | (g >> 8 & 1) * 20)
 
 
-def major_address(col: int, i: int, log2C: int) -> int:
+def major_address(col, i, log2C: int):
     """Word of point i of strip column ``col`` in a plane of the major
     exchange tile: rows of C words, one padding row per 16 (as
-    ``MajorTile::at``). At C = 1 (A = 16384) a warp's 32 consecutive
-    points meet in one bank once (words 0 and 32): see
-    ``exchange_conflicts``."""
+    ``MajorTile::at``, and ``cluster_word`` at C = 8). At C = 1 (the
+    one-row minor blocks of 16384 points) a warp's 32 consecutive points
+    meet in one bank once (words 0 and 32): see ``exchange_conflicts``."""
     return (i + (i >> 4) << log2C) + col
+
+
+def _most_in_a_bank(words) -> int:
+    """The most distinct words one bank serves in one warp access."""
+    banks: dict[int, set[int]] = {}
+    for a in words:
+        banks.setdefault(int(a) % BANKS, set()).add(int(a))
+    return max(len(x) for x in banks.values())
+
+
+def cluster_conflicts(log2A: int) -> int:
+    """The most words one bank serves in one warp access of the cluster
+    passes' own shared-memory accesses (A ≥ 8192): the forward's sends
+    (each warp's to one block) and takes of the exchange, the inverse's
+    sends, and the inverse's reads of its swizzled copy of the strip.
+    Their other accesses are A = 2048's (``exchange_conflicts``)."""
+    lk = major_cluster_log2(log2A)
+    K = 1 << lk
+    worst = 1
+    for warp in range(0, major_threads(log2A), 32):
+        tid = np.arange(warp, warp + 32)
+        col, u = tid & 7, tid >> 3
+        for r in range(PTS):
+            dest, slot = cluster_push_forward(log2A, 1, u, r)
+            assert len(set(dest.tolist())) == 1
+            accesses = [
+                major_address(col, slot, CLUSTER_LOG2C),
+                major_address(col, cluster_pull_forward(log2A, u, r),
+                              CLUSTER_LOG2C),
+                major_address(col, cluster_push_inverse(log2A, 1, u, r)[1],
+                              CLUSTER_LOG2C),
+                (cluster_inverse_raw_slot(
+                    log2A, cluster_stage_row(log2A, 0, u, r))
+                 << CLUSTER_LOG2C) + col,
+            ]
+            for words in accesses:
+                worst = max(worst, _most_in_a_bank(words))
+    assert K * (2048 // K) == 2048
+    return worst
 
 
 def exchange_conflicts(log2L: int, major: bool) -> int:
     """The most words one bank serves in a single warp access of any
     exchange of the pass (1: conflict-free), for 4-byte accesses of one
-    plane by each register of each warp of a block. 1 for every pass but
-    the one-column strips and one-row minor blocks of 16384 points, 2
-    there: their padded line, whose steps are immediates (a thread of
-    1024 has 64 registers for its 32 points and their 16 addresses)."""
+    plane by each register of each warp of a block; on a cluster (A ≥
+    8192) its block's A = 2048 exchanges and ``cluster_conflicts``. 1 for
+    every pass but the one-row minor blocks of 16384 points, 2 there: their
+    padded line, whose steps are immediates (a thread of 1024 has 64
+    registers for its 32 points and their 16 addresses)."""
+    if major and major_cluster_log2(log2L):
+        return max(exchange_conflicts(CLUSTER_BLOCK_LOG2, True),
+                   cluster_conflicts(log2L))
     T = 1 << (log2L - LOG2_PTS)
     log2C = major_strip_log2(log2L) if major else 0
     threads = major_threads(log2L) if major else minor_threads(log2L)
@@ -288,14 +446,16 @@ def twiddle_table_plain(L: int, device=None) -> torch.Tensor:
     return tw.to(torch.float32).to(device)
 
 
-def cross_root_plain(k, log2n: int, sign: float) -> np.ndarray:
+def cross_root_plain(k, log2n: int, sign: float,
+                     split: bool | None = None) -> np.ndarray:
     """The kernels' cross twiddle exp(sign·2πi·k/n) for integer exponents
     ``k`` < n = 2^log2n, as complex64, the way ``root`` in fft_passes.cuh
     forms it: one ``sincospif`` of k·2^(1 - log2n) up to n = 2^24, where
     every k is exact in f32; above, k = hi·2^12 + lo, one ``sincospif`` of
     each part (both exact in f32 after the power-of-two scale) and one f32
     complex product. Each ``sincospif`` is taken as float64 rounded once to
-    f32, which the device's is within an ulp of."""
+    f32, which the device's is within an ulp of. ``split`` forces the form
+    (``root<WIDE>``: the cluster passes split at every n)."""
     k = np.asarray(k, np.int64)
 
     def one(part, scale_log2):
@@ -304,7 +464,7 @@ def cross_root_plain(k, log2n: int, sign: float) -> np.ndarray:
         ang = np.pi * arg.astype(np.float64)
         return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
-    if log2n <= EXACT_LOG2N:
+    if not (log2n > EXACT_LOG2N if split is None else split):
         c, s = one(k, 1 - log2n)
         return (c + 1j * s).astype(np.complex64)
     c1, s1 = one(k >> 12, 13 - log2n)

@@ -66,7 +66,15 @@ holds every kernel against its plain PyTorch version:
    plants found in timed runs (p50 of 5 up to 2^25, of 2 above), and the
    peak ``torch.cuda.max_memory_allocated`` of those runs. The numbers of the
    new factor modes (2^25 - 2^28) are rows of the kernels line of their
-   own. Then ``ShardedScanner`` at 2^25 with 4 queries (the sweep's Q):
+   own; kernels 6 and 4 at 2^26 - 2^28 beside their times before the
+   cluster passes (BEFORE_REDESIGN_MS). Then the cluster passes' forward
+   modes (A = 8192 and 16384): the clusters the card holds for every
+   cluster pass (``cudaOccupancyMaxActiveClusters``), and at 2^26 - 2^28
+   kernel 1 and kernel 4's forward mode on 2 windows of the episode
+   against plain, timed (rows of their own), launched by a
+   ``ShardedScanner`` scan at 2 queries and by ``SnippetMatcher`` on
+   ``vpu`` + ``jnp``, both finding the plants. Then ``ShardedScanner`` at
+   2^25 with 4 queries (the sweep's Q):
    kernels 1-5 against plain at its slab, one scan with every kernel
    launched and query 0's plants found; and ``matcher_cli.run
    --chunk-size 600`` with the default ``--fft-impl auto``, on the card
@@ -147,9 +155,10 @@ move (each input read once, each output written once) over the H100's
 3.35 TB/s and its FP32 operations (10 per radix-2 butterfly, 6 per
 complex product) over 67 TFLOP/s, at the shapes it was timed at, and the
 FFT passes beside their times when every radix-2 stage was one round trip
-through shared memory (RADIX2_CHAIN_MS); the four rows redesigned after
-that (the wire passes and both block reductions) also beside their times
-before that redesign (BEFORE_REDESIGN_MS), and the two reductions beside
+through shared memory (RADIX2_CHAIN_MS); the rows redesigned after that
+(the wire passes, both block reductions, kernels 6 and 4 at A = 8192 and
+16384) also beside their times before that redesign
+(BEFORE_REDESIGN_MS), and the two reductions beside
 one ``torch.amax`` over the same planes, a plain streaming read's time on
 this card (not the same function, so not a library time). Every path's launch counts are set to 0 just before the run that is read and
 read just after it. The run uses one card: only the first visible
@@ -261,6 +270,9 @@ LARGE_CHUNKS = (120.0, 240.0, 600.0, 1200.0, 3000.0, 3100.0)
 WIDE_CHUNK = 600.0  # 2^25: the ShardedScanner and matcher CLI runs
 WIDE_REPEATS = 2  # timed repeats of each size above 2^25
 WIDE_QUERIES = 4  # the sweep's queries, in the ShardedScanner run
+CLUSTER_CHUNKS = (1200.0, 3000.0, 3100.0)  # 2^26 - 2^28: A on clusters
+CLUSTER_QUERIES = 2  # kernel 1's scan there: ShardedScanner at Q = 2
+CLUSTER_PLANES = 2  # kernel-level rows of kernels 1 and 4's forward mode
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 # The FFT passes' times before the stage-group design, when every stage was
 # one round trip through shared memory: this script at commit 0c3e91a on an
@@ -271,12 +283,22 @@ RADIX2_CHAIN_MS = {
     "fft_major_fwd_wire2": 0.440, "fft_major_forward": 0.842,
     "ifft_minor": 0.799,
 }
-# The times of the wire passes and the block reductions before their
-# redesign: this script at commit 28b7f84 on an NVIDIA H100 80GB HBM3 at
-# 700 W, at the shapes timed here.
+# The times of the rows redesigned after the stage groups, before their
+# redesign, and the commit this script ran at for them, on an NVIDIA H100
+# 80GB HBM3 at 700 W, at the shapes timed here: the wire passes and the
+# block reductions (28b7f84); kernels 6 and 4's inverse at A = 8192 and
+# 16384 before the cluster passes (c1b428b).
 BEFORE_REDESIGN_MS = {
-    "fft_major_fwd_wire": 0.261, "local_max_block_reduce_packed": 3.467,
-    "fft_major_fwd_wire2": 0.196, "local_max_block_reduce": 0.475,
+    "fft_major_fwd_wire": (0.261, "28b7f84"),
+    "local_max_block_reduce_packed": (3.467, "28b7f84"),
+    "fft_major_fwd_wire2": (0.196, "28b7f84"),
+    "local_max_block_reduce": (0.475, "28b7f84"),
+    "fft_major_fwd_wire2 (fft_len 2^26)": (12.015, "c1b428b"),
+    "fft_major_fwd_wire2 (fft_len 2^27)": (23.656, "c1b428b"),
+    "fft_major_fwd_wire2 (fft_len 2^28)": (93.774, "c1b428b"),
+    "fft_major (fft_len 2^26)": (8.176, "c1b428b"),
+    "fft_major (fft_len 2^27)": (20.481, "c1b428b"),
+    "fft_major (fft_len 2^28)": (78.470, "c1b428b"),
 }
 FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 # The archive sweep: config #3's episode length and query count (the
@@ -449,13 +471,14 @@ def ptxas_report(log):
     if not seen:
         print("  no ptxas report: the library was built before this run")
     for fn, info in seen.items():
-        m = re.search(r"\d((?:major|minor)_pass|twiddle_table|block_reduce)"
-                      r"(I\w*?EE)?", fn)
+        m = re.search(r"\d((?:major|minor|cluster)_pass|twiddle_table|"
+                      r"block_reduce)(I\w*?EE)?", fn)
         print(f"  {m[1] + (m[2] or '') if m else fn[:56]}: "
               f"{info.get('registers')} registers, {info.get('stack')} B "
               f"stack, {info.get('spill')} B spilled")
     spills = [fn for fn, info in seen.items()
-              if re.search(r"major_pass|minor_pass|block_reduce", fn)
+              if re.search(r"major_pass|minor_pass|cluster_pass|block_reduce",
+                           fn)
               and info.get("spill", 0)]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
@@ -480,9 +503,9 @@ def timed(name, kernel, plain, row=None, work=None, library=None):
     if before is not None:
         extra += (f"; radix-2 chain {before:.3f} ms, {before / ms:.2f}x "
                   f"faster now")
-    before = BEFORE_REDESIGN_MS.get(name_of)
+    before, commit = BEFORE_REDESIGN_MS.get(name_of, (None, None))
     if before is not None:
-        extra += (f"; before redesign (28b7f84) {before:.3f} ms, "
+        extra += (f"; before redesign ({commit}) {before:.3f} ms, "
                   f"{before / ms:.2f}x faster now")
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra}")
 
@@ -1179,6 +1202,94 @@ def large_fft(config, device, rows):
         for name, row in (record or {}).items():
             row["launches"] = launches[name]
         del matcher
+        torch.cuda.empty_cache()
+
+
+def cluster_modes(config, device, rows):
+    """Path 7, the forward modes of the major pass on clusters (A = 8192
+    and 16384): the clusters the card holds for every cluster pass; at
+    fft_len 2^26 - 2^28 kernel 1 on CLUSTER_PLANES windows of config #2's
+    episode and kernel 4's forward mode on those windows as f32 planes
+    against plain, timed (rows of their own); kernel 1's launches from a
+    ``ShardedScanner`` scan at CLUSTER_QUERIES queries, kernel 4's forward
+    mode's from ``SnippetMatcher(fft_impl="vpu", peaks_impl="jnp")``, both
+    finding query 0's plants."""
+    for A in (8192, 16384):
+        got = {k.__name__: F.major_clusters(k, A, torch.uint8, device)
+               for k in (F.fft_major_fwd_wire, F.fft_major_fwd_wire2,
+                         F.fft_major_forward, F.fft_major)}
+        print(f"A = {A}: clusters of {A // 2048} blocks the card holds "
+              f"(cudaOccupancyMaxActiveClusters; mu-law wire): {got}; "
+              f"{CARD['line']}")
+    snippets, offsets, episode = make_bench_inputs(CLUSTER_QUERIES,
+                                                   SINGLE_EPISODE_SECS)
+    episode_wire = quantize_wire(episode, config.transfer_dtype)
+    P = CLUSTER_PLANES
+    for chunk_secs in CLUSTER_CHUNKS:
+        cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
+        scanner = ShardedScanner(snippets, SR, cfg, device=device)
+        n, W, chunk = scanner.fft_len, scanner.window, scanner.chunk
+        log2n = n.bit_length() - 1
+        A, M = F.split_factors(n)
+        record = wide_rows(rows, (F.fft_major_fwd_wire, F.fft_major_forward),
+                           log2n, f", P = {P}")
+        staged, _, _ = scanner.stage_resident([episode_wire])
+        ep = pad_wire_on_device(staged[0],
+                                (P + window_rows(W, chunk)) * chunk)
+        win = windows_from_episode(ep, 0, P, chunk, W)
+        label = f" (fft_len 2^{log2n}, A = {A}, M = {M}, P = {P})"
+        X = F.fft_major_fwd_wire(win, A, n, W)
+        row = record["fft_major_fwd_wire"]
+        row["max_abs_err"] = compare_planes(
+            "fft_major_fwd_wire" + label, X,
+            F.fft_major_fwd_wire_plain(win, A, n, W))
+        timed("fft_major_fwd_wire" + label,
+              lambda: F.fft_major_fwd_wire(win, A, n, W, out=X),
+              lambda: F.fft_major_fwd_wire_plain(win, A, n, W), row,
+              (P * min(W, n) * win.element_size() + 8 * P * n,
+               fft_flops(P * M, A) + 6 * P * n))
+        xr = torch.nn.functional.pad(dequant_to_f32(win), (0, n - W))
+        planes = (xr.view(P, A, M), torch.zeros_like(xr).view(P, A, M))
+        del X, staged, ep, win, xr
+        Y = F.fft_major_forward(*planes, A, n)
+        row = record["fft_major_forward"]
+        row["max_abs_err"] = compare_planes(
+            "fft_major_forward" + label, Y,
+            F.fft_major_forward_plain(*planes, A, n))
+        timed("fft_major_forward" + label,
+              lambda: F.fft_major_forward(*planes, A, n, out=Y),
+              lambda: F.fft_major_forward_plain(*planes, A, n), row,
+              (16 * P * n, fft_flops(P * M, A) + 6 * P * n),
+              fft_along(planes, 1))
+        del Y, planes
+        torch.cuda.empty_cache()
+        peaks, launches, t_stage, t_scan = scan_times(
+            scanner, [episode_wire], BATCH_PATH)
+        check_plants([per_query[0] for per_query in peaks], offsets,
+                     cfg.distance_secs)
+        record["fft_major_fwd_wire"]["launches"] = launches[
+            "fft_major_fwd_wire"]
+        del scanner
+        torch.cuda.empty_cache()
+        matcher = SnippetMatcher(snippets[0], SR,
+                                 dataclasses.replace(cfg, peaks_impl="jnp"),
+                                 device=device)
+        staged = matcher.stage(episode_wire)
+        matcher.match_staged(staged)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, jnp_launches = counted(lambda: matcher.match_staged(staged),
+                                    JNP_PATH)
+        torch.cuda.synchronize()
+        t_jnp = time.perf_counter() - t0
+        check_plants([got], offsets, cfg.distance_secs)
+        row["launches"] = jnp_launches["fft_major_forward"]
+        print(f"fft_len 2^{log2n}: ShardedScanner at {CLUSTER_QUERIES} "
+              f"queries stage {t_stage:.3f} s, scan {t_scan:.3f} s, "
+              f"launches {launches}; SnippetMatcher vpu + jnp scan "
+              f"{t_jnp:.4f} s, launches {jnp_launches}; plants of query 0 "
+              f"found within {PLANT_TOL} sample; {CARD['line']}")
+        del matcher, staged
         torch.cuda.empty_cache()
 
 
@@ -2121,7 +2232,8 @@ def main() -> int:
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
-                  jnp_scan, single_query_jnp, large_fft, wide_scan,
+                  jnp_scan, single_query_jnp, large_fft, cluster_modes,
+                  wide_scan,
                   wide_cli, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run, sharded_scan, mesh_dryrun,

@@ -46,9 +46,12 @@ def test_no_plan_outside_the_factors(b):
 @pytest.mark.parametrize("major", [False, True])
 @pytest.mark.parametrize("b", LOG2S)
 def test_exchange_tiles_have_no_bank_conflicts(b, major):
-    """Conflict-free up to 8192 points a line; at 16384 (the padded
+    """Conflict-free up to 8192 points a line and in every major pass (at
+    A = 8192 and 16384 the cluster blocks' A = 2048 tiles and the
+    cluster's own accesses); the minor pass's one row of 16384 (the padded
     one-column line, one of 32 words in a shared bank) at most 2-way."""
-    assert P.exchange_conflicts(b, major) == (1 if b < P.MAX_LOG2 else 2)
+    assert P.exchange_conflicts(b, major) == (
+        1 if b < P.MAX_LOG2 or major else 2)
 
 
 @pytest.mark.parametrize("b", LOG2S)
@@ -57,14 +60,15 @@ def test_tiles_fit_the_block_and_hold_every_point_once(b):
     log2C = P.major_strip_log2(b)
     C = 1 << log2C
     assert P.major_threads(b) <= 1024 and P.major_threads(b) % 32 == 0
-    # 4 to 32 columns up to A = 4096; the block's 2^14 points above
-    assert 1 <= C <= 32 and (C >= 4 or b > P.WIDE_LOG2)
-    assert C * A == 1 << P.MAJOR_TILE_LOG2 or C in (4, 32)
+    # 4 to 32 columns up to A = 4096; 8 on a cluster's 2048 rows a block
+    B = 1 << P.major_block_log2(b)
+    assert 4 <= C <= 32 and B << P.major_cluster_log2(b) == A
+    assert C * B == 1 << P.MAJOR_TILE_LOG2 or C in (4, 32)
     assert P.major_smem_bytes(b) <= P.MAX_SMEM
     assert P.major_smem_bytes(b, planes=True) <= P.MAX_SMEM
-    words = {P.major_address(c, i, log2C) for c in range(C) for i in range(A)}
-    assert len(words) == C * A
-    assert max(words) < (A + A // 16) * C
+    words = {P.major_address(c, i, log2C) for c in range(C) for i in range(B)}
+    assert len(words) == C * B
+    assert max(words) < (B + B // 16) * C
     threads = P.minor_threads(b)
     assert threads <= 1024 and threads % 32 == 0
     if b <= P.WIDE_LOG2:  # several blocks an SM
@@ -196,7 +200,8 @@ def test_wire_copy_covers_the_row_bytes_exactly(size, start):
 
 @pytest.mark.parametrize("size,start", WIRE_STARTS)
 def test_wire_copy_of_narrow_strips(size, start):
-    """The 1- and 2-column strips of A = 8192 and 16384: f32 pieces (4 or
+    """Strips of 1 and 2 columns (the copy rule at every piece; no pass
+    takes them since A = 8192 and 16384 run on clusters): f32 pieces (4 or
     8 bytes) copied exactly in chunks no longer than the piece; u8 and
     int16 pieces (1 to 4 bytes) in the 4-byte words they touch, which fit
     the row's slot."""
@@ -216,11 +221,15 @@ def test_wire_copy_of_narrow_strips(size, start):
 
 
 def test_wide_factors_take_narrow_strips_and_one_row_blocks():
-    """A = 8192 and 16384 take strips of 2 and 1 columns, no TMA stores
-    (a box row must be 16 bytes), and M = 8192 and 16384 one row of 512
-    and 1024 threads a block; the product mode at M = 16384 keeps no
-    window row beside its two padded tiles."""
-    assert [P.major_strip_log2(b) for b in (13, 14)] == [1, 0]
+    """A = 8192 and 16384 take strips of 8 columns (whole 32-byte sectors
+    of a row) on clusters of 4 and 8 blocks of 2048 rows and 1024 threads,
+    no TMA stores (the threads store whole sectors), and M = 8192 and
+    16384 one row of 512 and 1024 threads a block; the product mode at M =
+    16384 keeps no window row beside its two padded tiles."""
+    assert [P.major_strip_log2(b) for b in (13, 14)] == [3, 3]
+    assert [P.major_cluster_log2(b) for b in (12, 13, 14)] == [0, 2, 3]
+    assert [P.major_block_log2(b) for b in (12, 13, 14)] == [12, 11, 11]
+    assert [P.major_threads(b) for b in (13, 14)] == [1024, 1024]
     assert [P.minor_threads(b) for b in (12, 13, 14)] == [256, 512, 1024]
     for b in (13, 14):
         for size in (1, 2, 4):
@@ -273,14 +282,14 @@ def test_wire_passes_fit_and_read_without_bank_conflicts(b, pair):
                     banks: dict[int, set[int]] = {}
                     for tid in range(warp, warp + 32):
                         col, u = tid % C, tid >> log2C
-                        a = u + r * ((1 << b) // P.PTS)
+                        a = u + r * ((1 << P.major_block_log2(b)) // P.PTS)
                         word = (a * lay["stride"] + lead + col * size) // 4
                         banks.setdefault(word % P.BANKS, set()).add(word)
                     assert max(len(w) for w in banks.values()) == 1
 
 
 @pytest.mark.parametrize(
-    "b", [b for b in LOG2S if P.major_strip_log2(b) >= P.MAJOR_MIN_LOG2C])
+    "b", [b for b in LOG2S if not P.major_cluster_log2(b)])
 def test_wire_output_staging_fills_the_boxes_without_bank_conflicts(b):
     """The TMA output of a strip: each warp's writes at each step fall in
     32 banks, the block's writes fill the dense [A, C] plane once, and the
@@ -302,3 +311,181 @@ def test_wire_output_staging_fills_the_boxes_without_bank_conflicts(b):
               for a0 in range(0, A, box)]
     assert len(starts) == 2 * A // box and A // box <= 32
     assert all(x % 128 == 0 for x in starts) and box <= 256
+
+
+# ------------------------------------------------------ the cluster passes
+CLUSTER_LOG2S = [13, 14]  # A = 8192 and 16384
+SIM_LOG2M = 7  # M = 128: n = 2^20 and 2^21, small enough for numpy
+
+
+def _sim_input(log2A, planes, seed):
+    rng = np.random.default_rng(seed)
+    shape = (planes, 1 << log2A, 1 << SIM_LOG2M)
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _threads():
+    """Thread u (v) and register r of a cluster block, as [128, 16]."""
+    return np.arange(128)[:, None], np.arange(P.PTS)[None, :]
+
+
+def _inner(log2A, b, sign):
+    """The inner twiddle of position (u << 4) | r of block b, as the
+    kernels form it: it[u] * it[128 + brev_4(r)] (``build_inner``)."""
+    u, r = _threads()
+    base = P.cross_root_plain(b * P.brev(u << 4, 11), log2A, sign, False)
+    tab = P.cross_root_plain(b * (np.arange(P.PTS) << 7), log2A, sign, False)
+    return (base * tab[P.brev(r, 4)]).astype(np.complex64)
+
+
+def _cross(log2A, b, sign):
+    """The cross twiddle of register r of thread v of block b in the
+    K-point stage, column c: base(v, c) * ct[c][r], [128, 16, M]."""
+    v, r = _threads()
+    lk = P.major_cluster_log2(log2A)
+    log2n = log2A + SIM_LOG2M
+    c = np.arange(1 << SIM_LOG2M)
+    base = P.cross_root_plain(
+        P.brev((b << (11 - lk)) + v, 11) * c[None, :], log2n, sign, True)
+    tab = P.cross_root_plain(
+        P.cluster_cross_exponent(log2A, r)[0][:, None] * c[None, :], log2n,
+        sign, True)
+    return (base[:, None, :] * tab[None, :, :]).astype(np.complex64)
+
+
+def _simulate_forward(x, log2A):
+    """The forward cluster pass on complex64 [planes, A, M] with numpy,
+    through fft_plan's index maps: each block's 2048-point DIF (position
+    r1 holds k1 = brev(r1)), the inner twiddle, the sends and takes of the
+    exchange, the K-point DIF in registers, the cross twiddle, the
+    stores."""
+    planes, A, M = x.shape
+    lk = P.major_cluster_log2(log2A)
+    K = 1 << lk
+    u, r = _threads()
+    tiles = np.zeros((K, 2048, planes, M), np.complex64)
+    for b in range(K):
+        rows = P.cluster_forward_row(log2A, b, np.arange(2048))
+        Y = np.fft.fft(x[:, rows, :], axis=1)[:, P.brev(np.arange(2048), 11)]
+        Y = Y[:, (u << 4) | r, :] * _inner(log2A, b, -1.0)[None, :, :, None]
+        dest, slot = P.cluster_push_forward(log2A, b, u, r)
+        tiles[dest, slot] = Y.transpose(1, 2, 0, 3)
+    out = np.zeros_like(x)
+    for b in range(K):
+        z = tiles[b][P.cluster_pull_forward(log2A, u, r)]  # [128, 16, p, M]
+        z = z.reshape(128, P.PTS >> lk, K, planes, M)
+        z = np.fft.fft(z, axis=2)[:, :, P.brev(np.arange(K), lk)]
+        z = z.reshape(128, P.PTS, planes, M) * _cross(log2A, b, -1.0)[
+            :, :, None, :]
+        out[:, P.cluster_stage_row(log2A, b, u, r), :] = z.transpose(
+            2, 0, 1, 3)
+    return out
+
+
+def _simulate_inverse(x, log2A, a_crop):
+    """The inverse cluster pass with numpy through fft_plan's maps: the
+    swizzled copy of each block's 2048 physical rows, the conjugate cross
+    twiddle, the K-point inverse, the exchange, the conjugate inner
+    twiddle, the 2048-point inverse and the cropped stores."""
+    planes, A, M = x.shape
+    lk = P.major_cluster_log2(log2A)
+    K = 1 << lk
+    u, r = _threads()
+    tiles = np.zeros((K, 2048, planes, M), np.complex64)
+    for b in range(K):
+        rho = np.arange(2048)
+        raw = np.empty((2048, planes, M), np.complex64)
+        raw[P.cluster_inverse_raw_slot(log2A, rho)] = x[
+            :, (b << 11) + rho, :].transpose(1, 0, 2)
+        rows = P.cluster_stage_row(log2A, b, u, r) - (b << 11)
+        z = raw[P.cluster_inverse_raw_slot(log2A, rows)]  # [128, 16, p, M]
+        z = z * _cross(log2A, b, 1.0)[:, :, None, :]
+        z = z.reshape(128, P.PTS >> lk, K, planes, M)
+        z = z[:, :, P.brev(np.arange(K), lk)]  # natural k2
+        z = np.fft.ifft(z, axis=2, norm="forward")
+        dest, slot = P.cluster_push_inverse(log2A, b, u, r)
+        tiles[dest, slot] = z.reshape(128, P.PTS, planes, M)
+    out = np.zeros((planes, a_crop, M), np.complex64)
+    for b in range(K):
+        V = tiles[b][(u << 4) | r] * _inner(log2A, b, 1.0)[:, :, None, None]
+        line = np.empty((2048, planes, M), np.complex64)
+        line[P.brev((u << 4) | r, 11)] = V  # position p holds brev(p)
+        y = np.fft.ifft(line, axis=0, norm="forward")
+        rows = P.cluster_inverse_row(log2A, b, u, r)
+        keep = rows < a_crop
+        out[:, rows[keep], :] = y[(u + (r << 7))[keep]].transpose(1, 0, 2)
+    return out
+
+
+@pytest.mark.parametrize("log2A", CLUSTER_LOG2S)
+def test_cluster_forward_decomposition_matches_plain(log2A):
+    """The cluster decomposition at A = 8192 and 16384 (M = 128) gives
+    ``fft_major_forward_plain``'s scrambled rows: within 1e-5 of the
+    largest value, the kernels' tolerance against their plain versions
+    (two f32 FFT algorithms on the same input)."""
+    x = _sim_input(log2A, 2, log2A)
+    got = _simulate_forward(x, log2A)
+    A, M = x.shape[1:]
+    yr, yi = F.fft_major_forward_plain(
+        torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()),
+        A, A * M)
+    want = yr.numpy() + 1j * yi.numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("a_crop", ["1", "half", "all"])
+@pytest.mark.parametrize("log2A", CLUSTER_LOG2S)
+def test_cluster_inverse_decomposition_matches_plain(log2A, a_crop):
+    """The inverse cluster decomposition, cropped to a_crop = 1, A/2 + 8
+    and A rows, gives ``fft_major_plain``'s rows within 1e-5 of the
+    largest value (as the forward's)."""
+    x = _sim_input(log2A, 1, log2A + 100)
+    A, M = x.shape[1:]
+    crop = {"1": 1, "half": A // 2 + 8, "all": A}[a_crop]
+    got = _simulate_inverse(x, log2A, crop)
+    yr, yi = F.fft_major_plain(
+        torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()),
+        A, A * M, crop)
+    want = yr.numpy() + 1j * yi.numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("log2A", CLUSTER_LOG2S)
+def test_cluster_maps_move_every_point_once_in_whole_sectors(log2A):
+    """Every block's copy reads each of its rows once (all A rows over the
+    cluster), the exchange fills each slot of each block's tile once each
+    way, the K-point stage holds each physical row once, the inverse
+    writes each natural row once, and a warp's stores at each register are
+    whole 32-byte row pieces (8 columns of 4 rows)."""
+    lk = P.major_cluster_log2(log2A)
+    K, A = 1 << lk, 1 << log2A
+    u, r = _threads()
+    fwd_rows = np.concatenate([P.cluster_forward_row(log2A, b, np.arange(
+        2048)) for b in range(K)])
+    assert sorted(fwd_rows.tolist()) == list(range(A))
+    assert sorted(P.cluster_inverse_raw_slot(
+        log2A, np.arange(2048)).tolist()) == list(range(2048))
+    for push in (P.cluster_push_forward, P.cluster_push_inverse):
+        seen = np.zeros((K, 2048), int)
+        for b in range(K):
+            dest, slot = push(log2A, b, u, r)
+            np.add.at(seen, (np.broadcast_to(dest, slot.shape), slot), 1)
+        assert (seen == 1).all()
+    for b in range(K):
+        pulled = P.cluster_pull_forward(log2A, u, r)
+        assert sorted(pulled.ravel().tolist()) == list(range(2048))
+    stage = np.concatenate([P.cluster_stage_row(log2A, b, u, r).ravel()
+                            for b in range(K)])
+    assert sorted(stage.tolist()) == list(range(A))
+    natural = np.concatenate([P.cluster_inverse_row(log2A, b, u, r).ravel()
+                              for b in range(K)])
+    assert sorted(natural.tolist()) == list(range(A))
+    for warp in range(0, 1024, 32):
+        tid = np.arange(warp, warp + 32)
+        for reg in range(P.PTS):
+            rows = P.cluster_stage_row(log2A, 1, tid >> 3, reg)
+            words = (rows << SIM_LOG2M) + (tid & 7)  # c0 = 0
+            sectors = {w // 8 for w in words.tolist()}
+            assert len(sectors) == 4 and len(set(words.tolist())) == 32

@@ -49,7 +49,7 @@ def _close(got, want):
 # every factor 128 .. 4096: A = M at even log2 n, M = 2A at odd
 SIZES = [1 << e for e in range(14, 25)]
 # factors 8192 and 16384: the minor pass's one-row blocks, the major pass's
-# strips of 2 and 1 columns, the cross twiddle's split exponent
+# clusters of 4 and 8 blocks, the cross twiddle's split exponent
 WIDE_SIZES = [1 << e for e in range(25, 29)]
 
 
@@ -118,18 +118,20 @@ def test_new_modes_match_plain(dev, n):
     _close(back, (xr.view(P, n) * n, xi.view(P, n) * n))
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + WIDE_SIZES)
 @pytest.mark.parametrize("P", [1, 3])
 def test_passes_at_one_and_odd_planes_every_crop_and_twice(dev, n, P):
     """Every mode at P = 1 and an odd P, the inverse major pass at a_crop
     1, A/2 + 8 and A; a second launch of each is bitwise equal to the
-    first (no order-dependent arithmetic)."""
+    first (no order-dependent arithmetic: the cluster passes' exchange
+    too). One query pair for the product above 2^24 (memory)."""
     g = torch.Generator(device=dev).manual_seed(n + P)
     A, M = F.split_factors(n)
+    Qh = 2 if n <= 1 << 24 else 1
     xr = torch.randn(P, A, M, device=dev, generator=g)
     xi = torch.randn(P, A, M, device=dev, generator=g)
-    tr = torch.randn(2, A, M, device=dev, generator=g)
-    ti = torch.randn(2, A, M, device=dev, generator=g)
+    tr = torch.randn(Qh, A, M, device=dev, generator=g)
+    ti = torch.randn(Qh, A, M, device=dev, generator=g)
     ep = _wire_episode(dev, g, torch.uint8, P * n)
     w0, w1 = ep.view(P, n), ep.view(P, n)[: P // 2]
     cases = {
@@ -157,7 +159,50 @@ def test_passes_at_one_and_odd_planes_every_crop_and_twice(dev, n, P):
     for name, (kernel, plain) in cases.items():
         got, again = kernel(), kernel()
         assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        del again
         _close(got, plain())
+        del got
+        torch.cuda.empty_cache()
+
+
+def test_cluster_passes_fit_the_card_and_a_refused_launch_raises(
+        dev, monkeypatch):
+    """Every cluster pass (A = 8192 and 16384) gets clusters on the card
+    (``cudaOccupancyMaxActiveClusters`` at its shared memory). Where the
+    card holds none, the entry point returns cudaErrorLaunchOutOfResources
+    (701) without launching: the wrapper raises, counts no launch and
+    falls back to nothing."""
+    for A in (8192, 16384):
+        for kernel in (F.fft_major_fwd_wire, F.fft_major_fwd_wire2,
+                       F.fft_major_forward, F.fft_major):
+            for dtype in (torch.uint8, torch.int16, torch.float32):
+                assert F.major_clusters(kernel, A, dtype, dev) > 0
+    with pytest.raises(ValueError, match="clusters"):
+        F.major_clusters(F.fft_major, 4096, device=dev)
+    lib = F._build.load()
+
+    class Refused:  # the library, its cluster launches refused
+        def __getattr__(self, name):
+            if name.startswith("am_major_"):
+                return lambda *args: 701
+            return getattr(lib, name)
+
+    monkeypatch.setattr(F._build, "load", lambda: Refused())
+    n = 1 << 26
+    A, M = F.split_factors(n)
+    x = torch.zeros((1, A, M), device=dev)
+    wire = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+    for kernel, call in (
+            (F.fft_major, lambda: F.fft_major(x, x, A, n, A)),
+            (F.fft_major_forward, lambda: F.fft_major_forward(x, x, A, n)),
+            (F.fft_major_fwd_wire, lambda: F.fft_major_fwd_wire(wire, A, n,
+                                                                n)),
+            (F.fft_major_fwd_wire2, lambda: F.fft_major_fwd_wire2(
+                wire, wire, A, n, n))):
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error 701"):
+            call()
+        assert kernel.launches == before
 
 
 @pytest.mark.parametrize("L", [1 << e for e in range(7, 13)])
@@ -590,12 +635,12 @@ def _offset_windows(ep, off, rows, W, chunk):
     return ep[off:].as_strided((rows, W), (chunk, 1))
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + [1 << 26])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
 def test_wire_passes_at_every_row_alignment_match_plain(dev, n, dtype):
     """Kernels 1 and 6 on 3 windows (odd P) whose starts sit 0-15 bytes off
     a 16-byte boundary, an odd chunk apart; kernel 6 with 1 and 3 odd
-    windows."""
+    windows; at 2^26 on the clusters' copies of rows b + K·a1."""
     g = torch.Generator(device=dev).manual_seed(n + dtype.itemsize)
     A, M = F.split_factors(n)
     P, chunk = 3, int(0.6 * n) + 1
@@ -611,10 +656,11 @@ def test_wire_passes_at_every_row_alignment_match_plain(dev, n, dtype):
                    F.fft_major_fwd_wire2_plain(win, win[:p1], A, n, n - 1))
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", SIZES + [1 << 26, 1 << 28])
 def test_wire_passes_at_strip_and_row_edges_match_plain(dev, n):
     """w_len on a row edge (a * M), on a strip edge (+ C), one short of
-    it, and 5 samples: the points past it read as zero."""
+    it, and 5 samples: the points past it read as zero (on a cluster, a
+    row edge inside one block's rows b + K·a1)."""
     g = torch.Generator(device=dev).manual_seed(n + 3)
     A, M = F.split_factors(n)
     C = 1 << F.fft_plan.major_strip_log2(A.bit_length() - 1)
