@@ -47,6 +47,7 @@ SIGNATURES = {
     "am_minor_forward": (_P, _P, _P, _P, _P, _LL, _I, _P),
     "am_minor_inverse": (_P, _P, _P, _P, _P, _LL, _I, _P),
     "am_minor_product": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "am_minor_clusters": (_I, _I, _PI),
     "am_block_reduce_packed": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
     ),

@@ -169,21 +169,6 @@ __device__ __forceinline__ void store_forward(const float (&vr)[PTS],
     }
 }
 
-// cp.async of g bytes, global -> shared, with a 128-byte L2 prefetch (16
-// bytes past L1).
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    if (g == 16)
-        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else if (g == 8)
-        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n"
-                     :: "r"(d), "l"(src) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
-                     :: "r"(d), "l"(src) : "memory");
-}
-
 // Start the copy of strip s of the f32 planes (plane s / strips, columns
 // c0 .. c0 + C) into raw: both planes, in the exchange tile's layout, so a
 // thread reads its first group's points as from a tile. One commit group.
@@ -661,45 +646,6 @@ struct Cluster {
     static_assert(THREADS == 1024 && LOG2C == 3 && LOG2B == 11 && LOG2K >= 2,
                   "the cluster passes' thread map");
 };
-
-// The cluster: this block's rank, the cluster's index and count along x.
-__device__ __forceinline__ int cluster_rank() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ int cluster_index() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ int cluster_count() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
-    return (int)r;
-}
-// The cluster barrier in two halves: arrive (release: this thread's
-// accesses of shared memory before it are seen by every thread after the
-// wait) and wait (acquire) for every thread of the cluster to arrive.
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-// The shared::cluster address of p in block `rank`'s shared memory, and a
-// store there.
-__device__ __forceinline__ unsigned peer_address(const float* p, int rank) {
-    unsigned out;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                 : "=r"(out)
-                 : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
-    return out;
-}
-__device__ __forceinline__ void store_peer(unsigned address, float v) {
-    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(address), "f"(v)
-                 : "memory");
-}
 
 // The inner twiddles of block b, once a kernel: it[u] = W_A^{sign * b *
 // brev_2048(u << 4)} (u < 128) and it[128 + e] = W_A^{sign * b * 128 * e},

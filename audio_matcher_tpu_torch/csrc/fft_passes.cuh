@@ -236,7 +236,7 @@ struct MinorTile {
 };
 // The major pass's tile: rows of C = 2^LOG2C words, one padding row per 16.
 // Its steps are additions of immediates, so a window's 16 words cost one
-// base register. At C = 1 (one line: A = 16384, and the minor pass's one
+// base register. At C = 1 (one line: A = 16384, and the product mode's one
 // row of 16384) the two halves of a warp's 32 consecutive points meet in
 // one bank once (words 0 and 32): a 2-way conflict where a window holds
 // the low five index bits, the price of immediates (the minor tile's XOR
@@ -317,6 +317,63 @@ __device__ __forceinline__ void transform(float (&xr)[PTS], float (&xi)[PTS],
     run_group<FORWARD, P::w(G), P::qlo(G), P::k(G)>(xr, xi, u, tw);
     if constexpr (S + 1 < E)
         transform<FORWARD, TWO, B, S + 1, E>(xr, xi, sr, si, tile, u, tw);
+}
+
+// cp.async of g bytes, global -> shared, with a 128-byte L2 prefetch (16
+// bytes past L1).
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int g) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if (g == 16)
+        asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else if (g == 8)
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src) : "memory");
+}
+
+// ------------------------------------------------ thread-block clusters
+// What the passes on clusters (fft_major.cu's cluster_pass, fft_minor.cu's
+// minor_cluster_pass) share.
+// The cluster: this block's rank, the cluster's index and count along x.
+__device__ __forceinline__ int cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_index() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+    return (int)r;
+}
+// The cluster barrier in two halves: arrive (release: this thread's
+// accesses of shared memory before it are seen by every thread after the
+// wait) and wait (acquire) for every thread of the cluster to arrive.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of p in block `rank`'s shared memory, and a
+// store there.
+__device__ __forceinline__ unsigned peer_address(const float* p, int rank) {
+    unsigned out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(out)
+                 : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+    return out;
+}
+__device__ __forceinline__ void store_peer(unsigned address, float v) {
+    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(address), "f"(v)
+                 : "memory");
 }
 
 // The window a thread holds before the first group and after the last.

@@ -394,7 +394,9 @@ def _minor_launch(entry: str, xr, xi, M: int, out):
 def fft_minor(xr, xi, M: int, out=None):
     """Forward DIF pass over the contiguous M axis of [P, A, M] planes; the
     output row q holds frequency brev_M(q). ``out`` must not overlap the
-    input (the kernel's pointers are restrict-qualified)."""
+    input (the kernel's pointers are restrict-qualified). At M = 8192 and
+    16384 a row runs on a cluster of M/4096 blocks (:func:`minor_clusters`);
+    where the card holds none the launch is refused and raises."""
     if not on_cuda(xr, xi):
         return fft_minor_plain(xr, xi, M, out)
     got = _minor_launch("am_minor_forward", xr, xi, M, out)
@@ -417,6 +419,28 @@ def ifft_minor(xr, xi, M: int, out=None):
 
 
 ifft_minor.launches = 0
+
+
+def minor_clusters(kernel, M: int, device=None) -> int:
+    """The clusters of M / 4096 blocks the card holds at once for the
+    forward (:func:`fft_minor`) or inverse (:func:`ifft_minor`) minor pass
+    at M = 8192 or 16384, ``cudaOccupancyMaxActiveClusters``; each takes
+    one row. 0 means its launches are refused, and raise. CUDA only."""
+    log2M = _log2(M, "M")
+    if fft_plan.minor_cluster_log2(log2M) == 0:
+        raise ValueError(f"M = {M} runs on blocks, not clusters")
+    if kernel not in (fft_minor, ifft_minor):
+        raise ValueError("the forward and inverse minor passes run on "
+                         "clusters")
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError("cluster occupancy is a CUDA device's")
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.load().am_minor_clusters(
+            int(kernel is ifft_minor), log2M, ctypes.byref(got))
+    _build.check(rc, "am_minor_clusters")
+    return got.value
 
 
 # ------------------------------- pass 3: product fused into inverse minor

@@ -27,11 +27,15 @@ twiddle table; and the cross twiddle's split exponent above n = 2^24
 
 Factors run from 2^7 to 2^14 (fft_len up to 2^28). Up to 4096 a minor
 block is MINOR_THREADS threads holding 4096/M rows, and a major strip is
-C = 4 to 32 columns, one block's; at 8192 and 16384 a minor block is one
-row of M/16 threads, and a major strip of C = 8 columns is shared by a
-cluster of K = A/2048 blocks (``fft_major.cu``'s passes on clusters):
-block b transforms rows b + K·a1 over a1 as a block of A = 2048 does,
-and one exchange through the cluster runs the K-point stage.
+C = 4 to 32 columns, one block's. At 8192 and 16384 a row of the forward
+and inverse minor modes is shared by a cluster of M/4096 such blocks
+(``fft_minor.cu``'s rows on clusters, ``minor_cluster_*``: the top stage
+group across the cluster, the others on a block's 4096 points), the
+product mode's block is one row of M/16 threads, and a major strip of C
+= 8 columns is shared by a cluster of K = A/2048 blocks
+(``fft_major.cu``'s passes on clusters): block b transforms rows b + K·a1
+over a1 as a block of A = 2048 does, and one exchange through the
+cluster runs the K-point stage.
 """
 
 from __future__ import annotations
@@ -52,7 +56,10 @@ CLUSTER_BLOCK_LOG2 = 11  # a block's rows of a cluster's strip (2048) ...
 CLUSTER_LOG2C = 3  # ... of 8 columns, whole 32-byte sectors of a row
 CLUSTER_INNER = 128 + 16  # inner twiddles (float2) a cluster block keeps
 EXACT_LOG2N = 24  # f32 holds every integer exponent k < n up to here
-PADDED_MINOR_LOG2 = 13  # minor tiles above this are padded, not swizzled
+PADDED_MINOR_LOG2 = 13  # product tiles above this are padded, not swizzled
+MINOR_ROW_LOG2 = 12  # points of a row a minor block holds; wider rows of
+# the forward and inverse modes run on clusters of M / 4096 blocks ...
+MINOR_CLUSTER_BLOCKS = 4  # ... 4 of them an SM (64 registers a thread)
 MAX_SMEM = 232448  # bytes a Hopper block may use (227 KB)
 BANKS = 32
 LUT_COPIES = 16  # copies of the wire passes' mu-law table
@@ -316,17 +323,30 @@ def brev(x, bits: int):
     return out
 
 
-def minor_threads(log2M: int) -> int:
+def minor_cluster_log2(log2M: int, product: bool = False) -> int:
+    """log2 of the blocks that share a row of the minor pass: 0 up to M =
+    4096 and in the product mode; M / 4096 (2, 4) for the forward and
+    inverse modes at 8192 and 16384, a cluster (``MinorCluster``)."""
+    return 0 if product else max(0, log2M - MINOR_ROW_LOG2)
+
+
+def minor_threads(log2M: int, product: bool = False) -> int:
     """Threads of a minor block: MINOR_THREADS (4096/M rows) up to M =
-    4096; one row of M/16 threads above."""
-    return max(MINOR_THREADS, 1 << (log2M - LOG2_PTS))
+    4096, and each of a cluster's blocks (4096 points of a row) above; the
+    product mode's one row of M/16 threads above."""
+    if product:
+        return max(MINOR_THREADS, 1 << (log2M - LOG2_PTS))
+    return MINOR_THREADS
 
 
-def minor_tile_words(log2M: int) -> int:
+def minor_tile_words(log2M: int, product: bool = False) -> int:
     """Words of a plane of the minor exchange tile: minor_threads·PTS,
-    and a padding word each 16 at M = 16384 (``minor_address``)."""
-    points = minor_threads(log2M) * PTS
-    return points + points // 16 if log2M > PADDED_MINOR_LOG2 else points
+    and a padding word each 16 in the product mode at M = 16384
+    (``minor_address``)."""
+    points = minor_threads(log2M, product) * PTS
+    if product and log2M > PADDED_MINOR_LOG2:
+        return points + points // 16
+    return points
 
 
 def minor_smem_bytes(log2M: int, product: bool = False) -> int:
@@ -335,30 +355,169 @@ def minor_smem_bytes(log2M: int, product: bool = False) -> int:
     minor_threads·PTS more up to M = 8192 (at 16384 the rows and two
     tiles would pass MAX_SMEM: it reads them again for each query pair)."""
     keep = product and log2M <= PADDED_MINOR_LOG2
-    rows = 2 * minor_threads(log2M) * PTS if keep else 0
-    return 4 * (2 * minor_tile_words(log2M) + rows)
+    rows = 2 * minor_threads(log2M, product) * PTS if keep else 0
+    return 4 * (2 * minor_tile_words(log2M, product) + rows)
 
 
-def minor_address(line: int, i: int, log2M: int) -> int:
+def minor_address(line: int, i: int, log2M: int,
+                  product: bool = False) -> int:
     """Word of point i of block line ``line`` in a plane of the minor
     exchange tile: index g = line·M + i with bits 5-8 of g XORed into its
     low five bits (as ``MinorTile::at``), which keeps every exchange of
-    every M up to 8192 free of bank conflicts; at M = 16384 (one line of
-    1024 threads with 64 registers each) the padded line of
-    ``major_address`` at one column, whose steps are immediates."""
-    if log2M > PADDED_MINOR_LOG2:
+    every M up to 8192 free of bank conflicts. On a cluster (M ≥ 8192,
+    forward and inverse) i is the point's index among its block's 4096
+    (line 0). In the product mode at M = 16384 (one line of 1024 threads
+    with 64 registers each) the padded line of ``major_address`` at one
+    column, whose steps are immediates."""
+    if product and log2M > PADDED_MINOR_LOG2:
         return major_address(0, i, 0)
-    g = (line << log2M) + i
+    g = (line << min(log2M, MINOR_ROW_LOG2)) + i
     return g ^ ((g >> 5 & 1) | (g >> 6 & 1) << 1 | (g >> 7 & 1) << 3
                 | (g >> 8 & 1) * 20)
+
+
+# ------------------------------- the minor pass's rows on clusters
+# M = K·4096 (K = 2, 4), forward and inverse: block b of a row's cluster,
+# thread t < 256, register r < 16. The top stage group (window [W0, W0 +
+# 4), W0 = log2 M - 4) runs on thread U = 256·b + t of the cluster; every
+# other group on block b's points 4096·b .. 4096·b + 4095 as at M = 4096.
+# The exchange between the two layouts goes through each block's tile
+# unswizzled (word = slot). Each map takes numpy arrays (or ints) and is
+# the kernel's formula.
+def _minor_windows(log2M: int) -> tuple[int, int]:
+    """(W0, W1): the windows of the top group and of the next one."""
+    groups = stage_groups(log2M)
+    return groups[0][0], groups[1][0]
+
+
+def minor_cluster_top(log2M: int, b, t, r):
+    """The index in its row of register r of thread t of block b in the
+    top group: U + 2^W0·r, U = 256·b + t (the forward's loads, the
+    inverse's stores)."""
+    w0, _ = _minor_windows(log2M)
+    return (np.asarray(b) << 8 | np.asarray(t)) + (np.asarray(r) << w0)
+
+
+def minor_cluster_point(log2M: int, b, t, r):
+    """The index in its row of register r of thread t of block b at the
+    next group's window W1: 4096·b + position(t, r, W1) (the forward's
+    takes, the inverse's sends)."""
+    _, w1 = _minor_windows(log2M)
+    return (np.asarray(b) << MINOR_ROW_LOG2) + position(
+        np.asarray(t), np.asarray(r), w1)
+
+
+def minor_cluster_send_forward(log2M: int, b, t, r):
+    """Where the forward sends register r of thread t of block b after the
+    top group, as (block, word): point g = U + 2^W0·r goes to block r >>
+    (4 - log2 K), word U + 2^W0·(r mod 2^(4 - log2 K)): g >> 12, g mod
+    4096 (``send_forward``)."""
+    w0, _ = _minor_windows(log2M)
+    low = LOG2_PTS - minor_cluster_log2(log2M)
+    r = np.asarray(r)
+    u = np.asarray(b) << 8 | np.asarray(t)
+    return r >> low, u + ((r & ((1 << low) - 1)) << w0)
+
+
+def minor_cluster_inverse_slot(log2M: int, g):
+    """The word of the tile of block (g >> 8) mod K where point g arrives
+    for the inverse's top group: thread g mod 256, register g >> W0,
+    (g mod 256) + 256·(g >> W0) (``inverse_slot``)."""
+    w0, _ = _minor_windows(log2M)
+    g = np.asarray(g)
+    return (g & 255) | (g >> w0) << 8
+
+
+def minor_cluster_send_inverse(log2M: int, b, t, r):
+    """Where the inverse sends register r of thread t of block b after the
+    next group, as (block, word), the way ``send_inverse`` forms them: the
+    block from the register alone, ((r << W1) >> 8) mod K, and the word
+    from the thread's base slot plus the register's."""
+    _, w1 = _minor_windows(log2M)
+    K = 1 << minor_cluster_log2(log2M)
+    r = np.asarray(r)
+    base = minor_cluster_inverse_slot(log2M, minor_cluster_point(
+        log2M, b, t, 0))
+    return ((r << w1) >> 8) & (K - 1), base + minor_cluster_inverse_slot(
+        log2M, r << w1)
+
+
+def minor_cluster_take_inverse(t, r):
+    """The word thread t reads into register r of the inverse's top group:
+    t + 256·r."""
+    return np.asarray(t) + (np.asarray(r) << 8)
+
+
+_COS16 = np.cos(np.pi * np.arange(8) / 8).astype(np.float32)
+_NSIN16 = (-np.sin(np.pi * np.arange(8) / 8)).astype(np.float32)
+
+
+def minor_cluster_twiddle(log2M: int, w: int, u, q: int, j: int
+                          ) -> np.ndarray:
+    """The twiddle W_{2^(w+q+1)}^(u mod 2^w + 2^w·j) of the pairs r0 mod
+    2^q = j of a stage on register bit q of a group at window w, as
+    ``rooted_stage`` forms it (the forward's groups, and the top group of
+    both modes): the table entry 2^(w+q) + u mod 2^w (1 at w = 0), times
+    -i exactly where 2j = 2^q, else times the f32 constant W_{2^(q+1)}^j
+    in one f32 complex product (a constant alone at w = 0), as
+    complex64."""
+    tw = twiddle_table_plain(1 << log2M).numpy()
+    if w:
+        base = tw[(1 << (w + q)) + (np.asarray(u) & ((1 << w) - 1))]
+        br, bi = base[..., 0], base[..., 1]
+    else:
+        br, bi = np.float32(1.0), np.float32(0.0)
+    if j == 0:
+        re, im = br, bi
+    elif 2 * j == 1 << q:
+        re, im = bi, -br
+    else:
+        e = j << (3 - q)
+        c, s = _COS16[e], _NSIN16[e]
+        re = (br * c - bi * s).astype(np.float32)
+        im = (br * s + bi * c).astype(np.float32)
+    return (np.asarray(re) + 1j * np.asarray(im)).astype(np.complex64)
+
+
+def minor_cluster_smem_bytes(forward: bool) -> int:
+    """A cluster block's shared memory: the tile its peers send into (two
+    planes of 4096), and for the inverse one plane more of its own for
+    the exchanges before its sends."""
+    return 4 * (2 if forward else 3) << MINOR_ROW_LOG2
+
+
+def minor_cluster_conflicts(log2M: int) -> int:
+    """The most words one bank serves in one warp access of the exchange
+    through the cluster (M ≥ 8192): the forward's sends (each warp's to
+    one block a register) and takes, the inverse's sends and takes. The
+    other exchanges are in-block (``exchange_conflicts``)."""
+    lk = minor_cluster_log2(log2M)
+    worst = 1
+    for b in range(1 << lk):
+        for warp in range(0, MINOR_THREADS, 32):
+            t = np.arange(warp, warp + 32)
+            for r in range(PTS):
+                accesses = []
+                for send in (minor_cluster_send_forward,
+                             minor_cluster_send_inverse):
+                    dest, word = send(log2M, b, t, r)
+                    assert len(set(np.broadcast_to(dest, t.shape).tolist())
+                               ) == 1
+                    accesses.append(word)
+                accesses.append(minor_cluster_point(log2M, 0, t, r))
+                accesses.append(minor_cluster_take_inverse(t, r))
+                for words in accesses:
+                    worst = max(worst, _most_in_a_bank(words))
+    return worst
 
 
 def major_address(col, i, log2C: int):
     """Word of point i of strip column ``col`` in a plane of the major
     exchange tile: rows of C words, one padding row per 16 (as
     ``MajorTile::at``, and ``cluster_word`` at C = 8). At C = 1 (the
-    one-row minor blocks of 16384 points) a warp's 32 consecutive points
-    meet in one bank once (words 0 and 32): see ``exchange_conflicts``."""
+    product mode's one-row minor blocks of 16384 points) a warp's 32
+    consecutive points meet in one bank once (words 0 and 32): see
+    ``exchange_conflicts``."""
     return (i + (i >> 4) << log2C) + col
 
 
@@ -401,22 +560,31 @@ def cluster_conflicts(log2A: int) -> int:
     return worst
 
 
-def exchange_conflicts(log2L: int, major: bool) -> int:
+def exchange_conflicts(log2L: int, major: bool,
+                       product: bool = False) -> int:
     """The most words one bank serves in a single warp access of any
     exchange of the pass (1: conflict-free), for 4-byte accesses of one
     plane by each register of each warp of a block; on a cluster (A ≥
-    8192) its block's A = 2048 exchanges and ``cluster_conflicts``. 1 for
-    every pass but the one-row minor blocks of 16384 points, 2 there: their
+    8192: its block's A = 2048 exchanges and ``cluster_conflicts``; M ≥
+    8192 forward and inverse: its block's exchanges between the groups
+    below the top one and ``minor_cluster_conflicts``). 1 for every pass
+    but the product mode's one-row blocks of 16384 points, 2 there: their
     padded line, whose steps are immediates (a thread of 1024 has 64
     registers for its 32 points and their 16 addresses)."""
     if major and major_cluster_log2(log2L):
         return max(exchange_conflicts(CLUSTER_BLOCK_LOG2, True),
                    cluster_conflicts(log2L))
-    T = 1 << (log2L - LOG2_PTS)
+    groups = stage_groups(log2L)
+    on_cluster = not major and minor_cluster_log2(log2L, product) > 0
+    if on_cluster:
+        groups = groups[1:]  # the top group's exchange goes through the
+        # cluster (minor_cluster_conflicts)
     log2C = major_strip_log2(log2L) if major else 0
-    threads = major_threads(log2L) if major else minor_threads(log2L)
-    worst = 1
-    for w, _, _ in stage_groups(log2L):
+    threads = (major_threads(log2L) if major
+               else minor_threads(log2L, product))
+    T = min(1 << (log2L - LOG2_PTS), threads)  # a minor line's threads
+    worst = minor_cluster_conflicts(log2L) if on_cluster else 1
+    for w, _, _ in groups:
         for warp in range(0, threads, 32):
             for r in range(PTS):
                 banks: dict[int, set[int]] = {}
@@ -426,7 +594,8 @@ def exchange_conflicts(log2L: int, major: bool) -> int:
                         a = major_address(col, position(u, r, w), log2C)
                     else:
                         line, u = tid // T, tid % T
-                        a = minor_address(line, position(u, r, w), log2L)
+                        a = minor_address(line, position(u, r, w), log2L,
+                                          product)
                     banks.setdefault(a % BANKS, set()).add(a)
                 worst = max(worst, max(len(s) for s in banks.values()))
     return worst

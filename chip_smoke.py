@@ -73,7 +73,15 @@ holds every kernel against its plain PyTorch version:
    kernel 1 and kernel 4's forward mode on 2 windows of the episode
    against plain, timed (rows of their own), launched by a
    ``ShardedScanner`` scan at 2 queries and by ``SnippetMatcher`` on
-   ``vpu`` + ``jnp``, both finding the plants. Then ``ShardedScanner`` at
+   ``vpu`` + ``jnp``, both finding the plants. Then the minor pass's
+   rows on clusters (M = 8192 and 16384): the clusters the card holds for
+   its forward and inverse modes, and at 2^25 - 2^28 the
+   ``fft2_scrambled`` round trip on ROUND_TRIP_PLANES random f32 planes
+   (back to n times its input), the path whose ``ifft_minor`` launches
+   are read, and ``ifft_minor`` on its spectrum against plain and
+   ``torch.fft``, timed (rows of their own); ``fft_minor``'s rows at
+   2^25 - 2^28 (kernel 2 on the fused path above) beside their times
+   before the clusters (BEFORE_REDESIGN_MS). Then ``ShardedScanner`` at
    2^25 with 4 queries (the sweep's Q):
    kernels 1-5 against plain at its slab, one scan with every kernel
    launched and query 0's plants found; and ``matcher_cli.run
@@ -157,7 +165,8 @@ complex product) over 67 TFLOP/s, at the shapes it was timed at, and the
 FFT passes beside their times when every radix-2 stage was one round trip
 through shared memory (RADIX2_CHAIN_MS); the rows redesigned after that
 (the wire passes, both block reductions, kernels 6 and 4 at A = 8192 and
-16384) also beside their times before that redesign
+16384, kernel 2 at M = 8192 and 16384) also beside their times before
+that redesign
 (BEFORE_REDESIGN_MS), and the two reductions beside
 one ``torch.amax`` over the same planes, a plain streaming read's time on
 this card (not the same function, so not a library time). Every path's launch counts are set to 0 just before the run that is read and
@@ -273,6 +282,8 @@ WIDE_QUERIES = 4  # the sweep's queries, in the ShardedScanner run
 CLUSTER_CHUNKS = (1200.0, 3000.0, 3100.0)  # 2^26 - 2^28: A on clusters
 CLUSTER_QUERIES = 2  # kernel 1's scan there: ShardedScanner at Q = 2
 CLUSTER_PLANES = 2  # kernel-level rows of kernels 1 and 4's forward mode
+ROUND_TRIP_LOG2NS = (25, 26, 27, 28)  # M = 8192 and 16384: minor clusters
+ROUND_TRIP_PLANES = 4  # config #2's slab of 4 window pairs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet)
 # The FFT passes' times before the stage-group design, when every stage was
 # one round trip through shared memory: this script at commit 0c3e91a on an
@@ -287,7 +298,10 @@ RADIX2_CHAIN_MS = {
 # redesign, and the commit this script ran at for them, on an NVIDIA H100
 # 80GB HBM3 at 700 W, at the shapes timed here: the wire passes and the
 # block reductions (28b7f84); kernels 6 and 4's inverse at A = 8192 and
-# 16384 before the cluster passes (c1b428b).
+# 16384 before the cluster passes, and kernel 2's forward mode at M = 8192
+# and 16384 before the minor pass's rows on clusters (c1b428b); its inverse
+# mode there, which this script did not time before, from
+# probe_minor_wide.py's run of 6c734cd's source (the same P = 4 planes).
 BEFORE_REDESIGN_MS = {
     "fft_major_fwd_wire": (0.261, "28b7f84"),
     "local_max_block_reduce_packed": (3.467, "28b7f84"),
@@ -299,6 +313,14 @@ BEFORE_REDESIGN_MS = {
     "fft_major (fft_len 2^26)": (8.176, "c1b428b"),
     "fft_major (fft_len 2^27)": (20.481, "c1b428b"),
     "fft_major (fft_len 2^28)": (78.470, "c1b428b"),
+    "fft_minor (fft_len 2^25)": (0.986, "c1b428b"),
+    "fft_minor (fft_len 2^26)": (1.986, "c1b428b"),
+    "fft_minor (fft_len 2^27)": (4.040, "c1b428b"),
+    "fft_minor (fft_len 2^28)": (8.068, "c1b428b"),
+    "ifft_minor (fft_len 2^25)": (0.908, "6c734cd"),
+    "ifft_minor (fft_len 2^26)": (1.768, "6c734cd"),
+    "ifft_minor (fft_len 2^27)": (3.391, "6c734cd"),
+    "ifft_minor (fft_len 2^28)": (6.755, "6c734cd"),
 }
 FP32_FLOPS = 67e12  # H100 SXM, FP32 outside the tensor cores
 # The archive sweep: config #3's episode length and query count (the
@@ -471,8 +493,8 @@ def ptxas_report(log):
     if not seen:
         print("  no ptxas report: the library was built before this run")
     for fn, info in seen.items():
-        m = re.search(r"\d((?:major|minor|cluster)_pass|twiddle_table|"
-                      r"block_reduce)(I\w*?EE)?", fn)
+        m = re.search(r"\d((?:major|minor|cluster|minor_cluster)_pass|"
+                      r"twiddle_table|block_reduce)(I\w*?EE)?", fn)
         print(f"  {m[1] + (m[2] or '') if m else fn[:56]}: "
               f"{info.get('registers')} registers, {info.get('stack')} B "
               f"stack, {info.get('spill')} B spilled")
@@ -1290,6 +1312,61 @@ def cluster_modes(config, device, rows):
               f"{t_jnp:.4f} s, launches {jnp_launches}; plants of query 0 "
               f"found within {PLANT_TOL} sample; {CARD['line']}")
         del matcher, staged
+        torch.cuda.empty_cache()
+
+
+def wide_round_trip(config, device, rows):
+    """Path 7, the minor pass's rows on clusters (M = 8192 and 16384): the
+    clusters the card holds for its forward and inverse modes; at fft_len
+    2^25 - 2^28 the ``fft2_scrambled`` round trip on ROUND_TRIP_PLANES
+    random f32 planes, which must give n times its input (the path whose
+    launches are read), then ``ifft_minor`` on the round trip's spectrum
+    against plain and ``torch.fft``, timed: rows of their own."""
+    for M in (8192, 16384):
+        got = {k.__name__: F.minor_clusters(k, M, device)
+               for k in (F.fft_minor, F.ifft_minor)}
+        print(f"M = {M}: clusters of {M // 4096} blocks the card holds "
+              f"(cudaOccupancyMaxActiveClusters): {got}; {CARD['line']}")
+    P = ROUND_TRIP_PLANES
+    for log2n in ROUND_TRIP_LOG2NS:
+        n = 1 << log2n
+        A, M = F.split_factors(n)
+        gen = torch.Generator(device=device).manual_seed(log2n)
+        xr = torch.randn((P, n), device=device, generator=gen)
+        xi = torch.randn((P, n), device=device, generator=gen)
+        work_f, work_i = {}, {}
+
+        def round_trip():
+            S = F.fft2_scrambled(xr, xi, n, work=work_f)
+            return F.fft2_scrambled(S[0], S[1], n, inverse=True, work=work_i)
+
+        back, launches = counted(round_trip, ROUND_TRIP_PATH)
+        torch.cuda.synchronize()
+        err = max((back[0] - n * xr).abs().max().item(),
+                  (back[1] - n * xi).abs().max().item())
+        rel = err / (n * max(xr.abs().max().item(), xi.abs().max().item()))
+        label = f" (fft_len 2^{log2n}, A = {A}, M = {M}, P = {P})"
+        print(f"fft2_scrambled round trip{label}: max |back - n·x| = "
+              f"{err:.3e} ({rel:.3e} of n·max|x|; tol {TOL_FFT:g}); "
+              f"launches {launches}")
+        if not rel <= TOL_FFT:
+            raise AssertionError("the fft2_scrambled round trip disagrees")
+        Y = tuple(p.view(P, A, M) for p in work_f["x2"])
+        del back, work_i, xr, xi
+        work_f.pop("x")
+        torch.cuda.empty_cache()
+        row = wide_rows(rows, (F.ifft_minor,), log2n)["ifft_minor"]
+        row["launches"] = launches["ifft_minor"]
+        Z = F.ifft_minor(Y[0], Y[1], M)
+        row["max_abs_err"] = compare_planes(
+            "ifft_minor" + label, Z, F.ifft_minor_plain(Y[0], Y[1], M))
+        torch.cuda.empty_cache()
+        timed("ifft_minor" + label,
+              lambda: F.ifft_minor(Y[0], Y[1], M, out=Z),
+              lambda: F.ifft_minor_plain(Y[0], Y[1], M), row,
+              (16 * P * n, fft_flops(P * A, M)), fft_along(Y, -1, True))
+        print(f"fft_len 2^{log2n}: {CARD['line']}")
+        del Y, Z, work_f
         torch.cuda.empty_cache()
 
 
@@ -2233,7 +2310,7 @@ def main() -> int:
             for name, (src, tpu) in KERNEL_ROWS.items()}
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
                   jnp_scan, single_query_jnp, large_fft, cluster_modes,
-                  wide_scan,
+                  wide_round_trip, wide_scan,
                   wide_cli, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run, sharded_scan, mesh_dryrun,

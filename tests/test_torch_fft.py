@@ -33,10 +33,14 @@ def _t(x):
 
 
 def _close(got, want):
-    for g, w in zip(got, want):
+    for plane, (g, w) in enumerate(zip(got, want)):
         g, w = g.numpy(), _np(w)
         assert g.shape == w.shape
-        assert np.max(np.abs(g - w)) / np.max(np.abs(w)) < TOL
+        ratio = np.max(np.abs(g - w)) / np.max(np.abs(w))
+        assert ratio < TOL, (
+            f"plane {plane}: max |port - jax| / max |jax| = {ratio:.3e} "
+            f"(tol {TOL:g}; max |jax| {np.max(np.abs(w)):.3e}, finite: "
+            f"port {np.isfinite(g).all()}, jax {np.isfinite(w).all()})")
 
 
 def _wire(rng, shape, wire):

@@ -46,12 +46,16 @@ def test_no_plan_outside_the_factors(b):
 @pytest.mark.parametrize("major", [False, True])
 @pytest.mark.parametrize("b", LOG2S)
 def test_exchange_tiles_have_no_bank_conflicts(b, major):
-    """Conflict-free up to 8192 points a line and in every major pass (at
-    A = 8192 and 16384 the cluster blocks' A = 2048 tiles and the
-    cluster's own accesses); the minor pass's one row of 16384 (the padded
-    one-column line, one of 32 words in a shared bank) at most 2-way."""
-    assert P.exchange_conflicts(b, major) == (
-        1 if b < P.MAX_LOG2 or major else 2)
+    """Conflict-free in every major pass (at A = 8192 and 16384 the
+    cluster blocks' A = 2048 tiles and the cluster's own accesses) and in
+    the forward and inverse minor modes (at M = 8192 and 16384 the cluster
+    blocks' 4096-point tiles and the exchange through the cluster); the
+    product mode's one row of 16384 (the padded one-column line, one of 32
+    words in a shared bank) at most 2-way."""
+    assert P.exchange_conflicts(b, major) == 1
+    if not major:
+        assert P.exchange_conflicts(b, False, product=True) == (
+            1 if b < P.MAX_LOG2 else 2)
 
 
 @pytest.mark.parametrize("b", LOG2S)
@@ -69,20 +73,23 @@ def test_tiles_fit_the_block_and_hold_every_point_once(b):
     words = {P.major_address(c, i, log2C) for c in range(C) for i in range(B)}
     assert len(words) == C * B
     assert max(words) < (B + B // 16) * C
-    threads = P.minor_threads(b)
-    assert threads <= 1024 and threads % 32 == 0
-    if b <= P.WIDE_LOG2:  # several blocks an SM
-        assert P.minor_smem_bytes(b) <= 48 * 1024
+    # several blocks an SM, each of a cluster's too (3 within 85 registers)
+    assert P.minor_smem_bytes(b) <= 48 * 1024
+    if b <= P.WIDE_LOG2:
         assert 3 * P.minor_smem_bytes(b, product=True) <= P.MAX_SMEM
     for product in (False, True):
+        threads = P.minor_threads(b, product)
+        assert threads <= 1024 and threads % 32 == 0
         assert P.minor_smem_bytes(b, product) <= P.MAX_SMEM
-    lines = threads * P.PTS >> b
-    got = sorted(P.minor_address(line, i, b)
-                 for line in range(lines) for i in range(A))
-    assert len(set(got)) == threads * P.PTS
-    assert got[-1] < P.minor_tile_words(b)
-    if b <= P.PADDED_MINOR_LOG2:  # the swizzle is a permutation
-        assert got == list(range(threads * P.PTS))
+        # a block's lines (on a cluster, its 4096 points of the row)
+        points = threads * P.PTS
+        lines, length = max(points >> b, 1), min(points, A)
+        got = sorted(P.minor_address(line, i, b, product)
+                     for line in range(lines) for i in range(length))
+        assert len(set(got)) == points
+        assert got[-1] < P.minor_tile_words(b, product)
+        if not product or b <= P.PADDED_MINOR_LOG2:  # a permutation
+            assert got == list(range(points))
 
 
 @pytest.mark.parametrize("L", [128, 2048, 4096, 16384])
@@ -120,25 +127,31 @@ def _emulate(x, b, forward):
             line = np.empty_like(x)
             line[:, _positions(b, groups[g - 1][0])] = v
             v = line[:, _positions(b, w)]
-        ulo = u & ((1 << w) - 1)
-        qs = range(qlo + k - 1, qlo - 1, -1) if forward else range(
-            qlo, qlo + k)
-        for q in qs:
-            half = 1 << q
-            for r0 in range(P.PTS):
-                if r0 & half:
-                    continue
-                r1 = r0 | half
-                wv = twc[(1 << (w + q)) + ulo + ((r0 & (half - 1)) << w)]
-                a, c = v[:, :, r0].copy(), v[:, :, r1].copy()
-                if forward:
-                    v[:, :, r0], v[:, :, r1] = a + c, (a - c) * wv
-                else:
-                    cw = c * np.conj(wv)
-                    v[:, :, r0], v[:, :, r1] = a + cw, a - cw
+        _run_group(v, u, (w, qlo, k), twc, forward)
     out = np.empty_like(x)
     out[:, _positions(b, groups[-1][0])] = v
     return out
+
+
+def _run_group(v, u, group, twc, forward):
+    """One stage group on v ([lines, threads, 16]) in place, thread u's
+    twiddles as ``run_group`` indexes them."""
+    w, qlo, k = group
+    ulo = np.asarray(u) & ((1 << w) - 1)
+    qs = range(qlo + k - 1, qlo - 1, -1) if forward else range(qlo, qlo + k)
+    for q in qs:
+        half = 1 << q
+        for r0 in range(P.PTS):
+            if r0 & half:
+                continue
+            r1 = r0 | half
+            wv = twc[(1 << (w + q)) + ulo + ((r0 & (half - 1)) << w)]
+            a, c = v[:, :, r0].copy(), v[:, :, r1].copy()
+            if forward:
+                v[:, :, r0], v[:, :, r1] = a + c, (a - c) * wv
+            else:
+                cw = c * np.conj(wv)
+                v[:, :, r0], v[:, :, r1] = a + cw, a - cw
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -223,21 +236,28 @@ def test_wire_copy_of_narrow_strips(size, start):
 def test_wide_factors_take_narrow_strips_and_one_row_blocks():
     """A = 8192 and 16384 take strips of 8 columns (whole 32-byte sectors
     of a row) on clusters of 4 and 8 blocks of 2048 rows and 1024 threads,
-    no TMA stores (the threads store whole sectors), and M = 8192 and
-    16384 one row of 512 and 1024 threads a block; the product mode at M =
-    16384 keeps no window row beside its two padded tiles."""
+    no TMA stores (the threads store whole sectors); the forward and
+    inverse minor modes at M = 8192 and 16384 a row on a cluster of 2 and
+    4 blocks of 256 threads and one 32 KB pair of tiles each, M = 4096's
+    block; the product mode there one row of 512 and 1024 threads a
+    block, at M = 16384 with no window row beside its two padded tiles."""
     assert [P.major_strip_log2(b) for b in (13, 14)] == [3, 3]
     assert [P.major_cluster_log2(b) for b in (12, 13, 14)] == [0, 2, 3]
     assert [P.major_block_log2(b) for b in (12, 13, 14)] == [12, 11, 11]
     assert [P.major_threads(b) for b in (13, 14)] == [1024, 1024]
-    assert [P.minor_threads(b) for b in (12, 13, 14)] == [256, 512, 1024]
+    assert [P.minor_cluster_log2(b) for b in (12, 13, 14)] == [0, 1, 2]
+    assert [P.minor_cluster_log2(b, product=True)
+            for b in (12, 13, 14)] == [0, 0, 0]
+    assert [P.minor_threads(b) for b in (12, 13, 14)] == [256, 256, 256]
+    assert [P.minor_threads(b, product=True)
+            for b in (12, 13, 14)] == [256, 512, 1024]
     for b in (13, 14):
         for size in (1, 2, 4):
             for pair in (False, True):
                 assert not P.wire_layout(b, size, pair)["tma"]
+        assert P.minor_smem_bytes(b) == P.minor_smem_bytes(12) == 4 * 2 * 4096
     assert P.minor_smem_bytes(13, product=True) == 4 * 4 * 8192
     assert P.minor_smem_bytes(14, product=True) == 4 * 2 * 17408
-    assert P.minor_smem_bytes(14) == 4 * 2 * 17408
 
 
 @pytest.mark.parametrize("log2n", [22, 24, 25, 26, 27, 28])
@@ -489,3 +509,165 @@ def test_cluster_maps_move_every_point_once_in_whole_sectors(log2A):
             words = (rows << SIM_LOG2M) + (tid & 7)  # c0 = 0
             sectors = {w // 8 for w in words.tolist()}
             assert len(sectors) == 4 and len(set(words.tolist())) == 32
+
+
+# ------------------------------------ the minor pass's rows on clusters
+MINOR_CLUSTER_LOG2S = [13, 14]  # M = 8192 and 16384
+
+
+def _emulate_minor_cluster(x, log2M, forward):
+    """The forward or inverse minor pass on a cluster, on complex64
+    [lines, M] in numpy through fft_plan's maps: the top group on thread
+    U = 256·b + t of the cluster, the sends into each block's tile and the
+    takes, and the other groups on each block's 4096 points with the
+    in-block exchanges through the swizzled tile (``minor_address``), each
+    group with the kernel's twiddles (``minor_cluster_twiddle``, the
+    inverse's lower groups the table's)."""
+    lines, M = x.shape
+    K = 1 << P.minor_cluster_log2(log2M)
+    groups = P.stage_groups(log2M)
+    tw = P.twiddle_table_plain(M).numpy()
+    twc = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    t, r = np.arange(256)[:, None], np.arange(P.PTS)[None, :]
+    tiles = np.zeros((lines, K, 4096), np.complex64)
+    out = np.empty_like(x)
+
+    def block_groups(v, order):
+        """The groups below the top one in ``order`` on a block's points,
+        an exchange through its tile between each two."""
+        for g, grp in enumerate(order):
+            if g:
+                tile = np.empty((lines, 4096), np.complex64)
+                tile[:, P.minor_address(0, P.position(
+                    t, r, order[g - 1][0]), log2M)] = v
+                v = tile[:, P.minor_address(0, P.position(t, r, grp[0]),
+                                            log2M)]
+            if forward:  # rooted twiddles; the inverse's from the table
+                _run_rooted_group(v, log2M, t[:, 0], grp, True)
+            else:
+                _run_group(v, t[:, 0], grp, twc, False)
+        return v
+
+    for b in range(K):
+        U = (b << 8) | np.arange(256)
+        if forward:
+            v = x[:, P.minor_cluster_top(log2M, b, t, r)]
+            _run_rooted_group(v, log2M, U, groups[0], True)
+            dest, word = P.minor_cluster_send_forward(log2M, b, t, r)
+        else:
+            v = x[:, (b << 12) + P.position(t, r, 0)]  # 16 consecutive
+            v = block_groups(v, groups[:0:-1])
+            dest, word = P.minor_cluster_send_inverse(log2M, b, t, r)
+        tiles[:, np.broadcast_to(dest, word.shape), word] = v
+    for b in range(K):
+        if forward:
+            v = tiles[:, b, P.minor_cluster_point(log2M, 0, t, r)]
+            v = block_groups(v, groups[1:])
+            out[:, (b << 12) + P.position(t, r, 0)] = v
+        else:
+            v = tiles[:, b, P.minor_cluster_take_inverse(t, r)]
+            _run_rooted_group(v, log2M, (b << 8) | np.arange(256),
+                              groups[0], False)
+            out[:, P.minor_cluster_top(log2M, b, t, r)] = v
+    return out
+
+
+def _run_rooted_group(v, log2M, u, group, forward):
+    """A group's stages on v ([lines, threads, 16]) in place, with the
+    twiddles ``rooted_stage`` forms (``minor_cluster_twiddle``)."""
+    w, qlo, k = group
+    qs = range(qlo + k - 1, qlo - 1, -1) if forward else range(qlo, qlo + k)
+    for q in qs:
+        half = 1 << q
+        for j in range(half):
+            wv = P.minor_cluster_twiddle(log2M, w, u, q, j)
+            for r0 in range(j, P.PTS, 2 * half):
+                r1 = r0 | half
+                a, c = v[:, :, r0].copy(), v[:, :, r1].copy()
+                if forward:
+                    v[:, :, r0], v[:, :, r1] = a + c, (a - c) * wv
+                else:
+                    cw = c * np.conj(wv)
+                    v[:, :, r0], v[:, :, r1] = a + cw, a - cw
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("log2M", MINOR_CLUSTER_LOG2S)
+def test_minor_cluster_decomposition_matches_plain(log2M, forward):
+    """The rows on clusters at M = 8192 and 16384, forward and inverse,
+    give ``fft_minor_plain`` and ``ifft_minor_plain`` within 1e-5 of the
+    largest value, the kernels' tolerance against their plain versions."""
+    rng = np.random.default_rng(log2M + 40 * forward)
+    x = (rng.standard_normal((3, 1 << log2M))
+         + 1j * rng.standard_normal((3, 1 << log2M))).astype(np.complex64)
+    got = _emulate_minor_cluster(x, log2M, forward)
+    plain = F.fft_minor_plain if forward else F.ifft_minor_plain
+    yr, yi = plain(torch.from_numpy(x.real.copy()),
+                   torch.from_numpy(x.imag.copy()), 1 << log2M)
+    want = yr.numpy() + 1j * yi.numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("log2M", MINOR_CLUSTER_LOG2S)
+def test_minor_cluster_maps_move_every_point_once(log2M):
+    """The top group's points and the blocks' points each cover the row
+    once; each send fills every word of every block's tile once; each
+    block's takes read its 4096 words once; the inverse's base-plus-
+    register form of a word is the slot of the point it sends, and its
+    block is the point's; a warp's loads and stores of the top group and
+    the forward's float4 stores are whole sectors."""
+    M = 1 << log2M
+    K = 1 << P.minor_cluster_log2(log2M)
+    t, r = np.arange(256)[:, None], np.arange(P.PTS)[None, :]
+    for index in (P.minor_cluster_top, P.minor_cluster_point):
+        got = np.concatenate([np.broadcast_to(index(log2M, b, t, r),
+                                              (256, P.PTS)).ravel()
+                              for b in range(K)])
+        assert sorted(got.tolist()) == list(range(M))
+    for send in (P.minor_cluster_send_forward, P.minor_cluster_send_inverse):
+        seen = np.zeros((K, 4096), int)
+        for b in range(K):
+            dest, word = send(log2M, b, t, r)
+            np.add.at(seen, (np.broadcast_to(dest, word.shape), word), 1)
+        assert (seen == 1).all()
+    for take in (P.minor_cluster_point(log2M, 0, t, r),
+                 P.minor_cluster_take_inverse(t, r)):
+        assert sorted(take.ravel().tolist()) == list(range(4096))
+    for b in range(K):
+        g = P.minor_cluster_point(log2M, b, t, r)
+        dest, word = P.minor_cluster_send_inverse(log2M, b, t, r)
+        assert (np.broadcast_to(dest, g.shape) == (g >> 8) % K).all()
+        assert (word == P.minor_cluster_inverse_slot(log2M, g)).all()
+        # the point arrives where its top-group thread takes it
+        top_t, top_r = g & 255, g >> (log2M - P.LOG2_PTS)
+        assert (word == P.minor_cluster_take_inverse(top_t, top_r)).all()
+        fwd_dest, fwd_word = P.minor_cluster_send_forward(log2M, b, t, r)
+        top = P.minor_cluster_top(log2M, b, t, r)
+        assert (np.broadcast_to(fwd_dest, top.shape) == top >> 12).all()
+        assert (fwd_word == top % 4096).all()
+        for warp in range(0, 256, 32):
+            words = top[warp:warp + 32]  # [32, 16]: a register's 32 lanes
+            assert all(len({w // 8 for w in words[:, k].tolist()}) == 4
+                       for k in range(P.PTS))
+
+
+@pytest.mark.parametrize("log2M", MINOR_CLUSTER_LOG2S)
+def test_minor_cluster_rooted_twiddles_and_blocks_fit(log2M):
+    """The rooted twiddles (a table entry times a constant, each rounded
+    to f32, then their rounded product) of every group of the forward and
+    of the top group are within 3·2^-24 of exp(-2πi·k/2^(w+q+1)); a
+    cluster block's shared memory lets 4 blocks share an SM (64 registers
+    a thread), the inverse's own plane included."""
+    u = np.arange(1 << (log2M - P.LOG2_PTS))
+    for w, qlo, k in P.stage_groups(log2M):
+        for q in range(qlo, qlo + k):
+            for j in range(1 << q):
+                got = P.minor_cluster_twiddle(log2M, w, u, q, j)
+                e = (u & ((1 << w) - 1)) + (j << w)
+                want = np.exp(-2j * np.pi * e / 2.0 ** (w + q + 1))
+                assert np.abs(got - want).max() <= 3 * 2.0 ** -24
+    for forward in (True, False):
+        smem = P.minor_cluster_smem_bytes(forward)
+        assert P.MINOR_CLUSTER_BLOCKS * smem <= P.MAX_SMEM
+    assert P.minor_cluster_smem_bytes(True) == P.minor_smem_bytes(log2M)
+

@@ -48,8 +48,9 @@ def _close(got, want):
 
 # every factor 128 .. 4096: A = M at even log2 n, M = 2A at odd
 SIZES = [1 << e for e in range(14, 25)]
-# factors 8192 and 16384: the minor pass's one-row blocks, the major pass's
-# clusters of 4 and 8 blocks, the cross twiddle's split exponent
+# factors 8192 and 16384: the minor pass's rows on clusters of 2 and 4
+# blocks (its product mode's one-row blocks), the major pass's clusters of 4
+# and 8 blocks, the cross twiddle's split exponent
 WIDE_SIZES = [1 << e for e in range(25, 29)]
 
 
@@ -202,6 +203,60 @@ def test_cluster_passes_fit_the_card_and_a_refused_launch_raises(
         before = kernel.launches
         with pytest.raises(RuntimeError, match="CUDA error 701"):
             call()
+        assert kernel.launches == before
+
+
+@pytest.mark.parametrize("M", [8192, 16384])
+def test_minor_rows_on_clusters_match_plain_at_every_row_count(dev, M):
+    """The forward and inverse minor modes at M = 8192 and 16384 (a row on
+    a cluster of M/4096 blocks) on 1 row, an odd number of rows and more
+    rows than twice the clusters the card holds at once, none a multiple
+    of them, against plain; a second launch bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    clusters = {k: F.minor_clusters(k, M, dev)
+                for k in (F.fft_minor, F.ifft_minor)}
+    assert min(clusters.values()) > 0
+    most = 2 * max(clusters.values()) + 1
+    for rows in (1, 3, most):
+        xr = torch.randn(rows, M, device=dev, generator=g)
+        xi = torch.randn(rows, M, device=dev, generator=g)
+        for kernel, plain in ((F.fft_minor, F.fft_minor_plain),
+                              (F.ifft_minor, F.ifft_minor_plain)):
+            before = kernel.launches
+            got, again = kernel(xr, xi, M), kernel(xr, xi, M)
+            assert kernel.launches == before + 2
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            _close(got, plain(xr, xi, M))
+
+
+def test_minor_clusters_fit_the_card_and_a_refused_launch_raises(
+        dev, monkeypatch):
+    """The minor pass's rows on clusters get clusters on the card at M =
+    8192 and 16384, none below (blocks, not clusters). Where the card
+    holds none the entry point returns cudaErrorLaunchOutOfResources
+    (701) without launching: the wrapper raises, counts no launch and
+    falls back to nothing."""
+    for M in (8192, 16384):
+        for kernel in (F.fft_minor, F.ifft_minor):
+            assert F.minor_clusters(kernel, M, dev) > 0
+    with pytest.raises(ValueError, match="clusters"):
+        F.minor_clusters(F.fft_minor, 4096, dev)
+    with pytest.raises(ValueError, match="clusters"):
+        F.minor_clusters(F.ifft_minor_product, 8192, dev)
+    lib = F._build.load()
+
+    class Refused:  # the library, its minor launches refused
+        def __getattr__(self, name):
+            if name in ("am_minor_forward", "am_minor_inverse"):
+                return lambda *args: 701
+            return getattr(lib, name)
+
+    monkeypatch.setattr(F._build, "load", lambda: Refused())
+    x = torch.zeros((2, 8192), device=dev)
+    for kernel in (F.fft_minor, F.ifft_minor):
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error 701"):
+            kernel(x, x, 8192)
         assert kernel.launches == before
 
 
