@@ -11,6 +11,7 @@ raises: there is no other route to the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -165,11 +166,41 @@ def load() -> ctypes.CDLL:
     return _Loaded.lib
 
 
+_capturing = threading.local()
+
+
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the count of its kernel's launches
-    (under a lock: the shards of a mesh launch from several threads)."""
+    (under a lock: the shards of a mesh launch from several threads). In
+    a thread inside :func:`recording_launches` the launch is recorded
+    there instead: a graph capture enqueues no kernel."""
+    recorded = getattr(_capturing, "counts", None)
+    if recorded is not None:
+        recorded[wrapper] = recorded.get(wrapper, 0) + 1
+        return
     with _Loaded.lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within, this thread's launches go to the yielded dict {wrapper:
+    count} and not to the wrappers' counts (a CUDA graph's capture: the
+    replays add them, :func:`add_launches`)."""
+    counts: dict = {}
+    _capturing.counts = counts
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
+
+
+def add_launches(counts: dict) -> None:
+    """Add a recorded {wrapper: count} to the wrappers' counts (a replay of
+    a captured graph launches them all)."""
+    with _Loaded.lock:
+        for wrapper, n in counts.items():
+            wrapper.launches += n
 
 
 def build_log() -> str:

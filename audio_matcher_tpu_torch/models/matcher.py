@@ -62,6 +62,7 @@ from ..ops.peaks import (
     pick_peaks_packed,
 )
 from ..ops.wire import dequant_to_f32, silence_code
+from ..parallel.step_graph import StepGraphs, run_step
 
 log = logging.getLogger("audio_matcher_torch.matcher")
 
@@ -330,6 +331,16 @@ def upload(host: torch.Tensor, device: torch.device):
     return staged
 
 
+def device_ints(values, device: torch.device) -> torch.Tensor:
+    """Host ints (a scalar or a sequence) as an int64 tensor on ``device``,
+    copied from pinned memory without blocking the host on a CUDA device:
+    a scan step's row lengths, which it then reads on the device."""
+    host = torch.from_numpy(np.asarray(values, np.int64))
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 def stage_rows_host(episodes, ns, n_pad: int, transfer: str, e_pad: int,
                     device):
     """Fill a fresh (pinned, for a CUDA device) host buffer with the wire
@@ -524,18 +535,21 @@ def _match_episode_resident(
     episode, n: int, sample_f, inv_ac, chunk: int, window: int, m: int,
     fft_len: int, valid_max: int, distance: int, n_peaks: int, block: int,
     slab: int, n_slabs: int, fft_impl: str = "vpu",
-    peaks_impl: str = "pallas", base0: int = 0, plain: bool = False,
+    peaks_impl: str = "pallas", plain: bool = False,
     work: dict | None = None,
 ):
     """Scan one staged episode against one query: a Python loop over
-    ``n_slabs`` slabs starting at window ``base0`` (the live path scans
-    one group of slabs per call). The episode is padded with wire silence
-    on its device to cover the windows; off the fused path it is
-    dequantized there once before windowing. Returns (pos, h, prom), each
+    ``n_slabs`` slabs from the episode's start (the live path scans one
+    group of slabs per call, on the group's slice). The episode is padded
+    with wire silence on its device to cover the windows; off the fused
+    path it is dequantized there once before windowing. ``n`` (the
+    episode's length) and ``inv_ac`` are host numbers or 0-d tensors on
+    the episode's device; with tensors no host value is read or copied,
+    so a CUDA graph can capture the scan. Returns (pos, h, prom), each
     [n_slabs·slab, n_peaks], on the episode's device."""
     k_rows = window_rows(window, chunk)
     episode = pad_wire_on_device(
-        episode, (base0 + n_slabs * slab + k_rows) * chunk
+        episode, (n_slabs * slab + k_rows) * chunk
     )
     if not is_fused(fft_impl, peaks_impl):
         episode = dequant_to_f32(episode)
@@ -545,7 +559,7 @@ def _match_episode_resident(
     work = {} if work is None else work
     outs = []
     for s in range(n_slabs):
-        base = base0 + s * slab
+        base = s * slab
         starts = (base + torch.arange(slab, device=dev)) * chunk
         windows = windows_from_episode(episode, base, slab, chunk, window)
         win_len = (n - starts).clamp(0, window)
@@ -579,6 +593,12 @@ class SnippetMatcher:
     current CUDA device; ``"cpu"`` runs every kernel's plain version).
     Construction allocates nothing on it. ``plain``: run every kernel's
     plain PyTorch version on any device (the reference path).
+    ``graphs``: on a CUDA device, replay the scans of :meth:`match_staged`
+    (one call, or each group of slabs of the live-progress path) as CUDA
+    graphs captured once per shape
+    (:class:`~..parallel.step_graph.StepGraphs`), so a matcher reused
+    across episodes, as the matcher CLI's, replays them; ``graphs=False``
+    and a ``plain`` matcher run them eagerly.
     """
 
     def __init__(
@@ -588,11 +608,13 @@ class SnippetMatcher:
         config: MatchConfig | None = None,
         device="cuda",
         plain: bool = False,
+        graphs: bool = True,
     ):
         self.sr = int(sr)
         self.config = cfg = config or MatchConfig()
         self.device = torch.device(device)
         self.plain = bool(plain)
+        self.step_graphs = StepGraphs() if graphs and not plain else None
         self.snippet: PreparedSnippet = prepare_snippet(snippet)
         overlap_secs = (
             cfg.overlap_secs if cfg.overlap_secs is not None
@@ -624,6 +646,7 @@ class SnippetMatcher:
                 cfg.distance_secs, per_chunk, cfg.max_peaks_per_chunk,
             )
         self._sample_f_cache = None
+        self._inv_tensors: dict = {}  # scale → inv_ac, 0-d on the device
 
     @property
     def _sample_f(self):
@@ -656,6 +679,28 @@ class SnippetMatcher:
 
     def _inv_ac(self, scale: bool) -> np.float32:
         return np.float32(self.snippet.inv_autocorr if scale else 1.0)
+
+    def _scan_episode(self, episode_dev, n: int, scale: bool, kw: dict):
+        """:func:`_match_episode_resident` of a staged episode with ``n``
+        and the inverse autocorrelation as tensors on its device, replayed
+        from :attr:`step_graphs` where there is one."""
+        dev = episode_dev.device
+        if scale not in self._inv_tensors:
+            self._inv_tensors[scale] = torch.tensor(
+                self._inv_ac(scale), dtype=torch.float32, device=dev)
+        spec = self._sample_f
+        paired = isinstance(spec, tuple)
+        held = tuple(spec) if paired else (spec,)
+
+        def step(episode, n_dev, inv, *spectrum):
+            return _match_episode_resident(
+                episode, n_dev, spectrum if paired else spectrum[0], inv,
+                **kw)
+
+        return run_step(
+            self.step_graphs, ("episode",) + tuple(sorted(kw.items())), step,
+            (episode_dev, device_ints(n, dev), self._inv_tensors[scale]),
+            held)
 
     def stage(self, samples: np.ndarray, n_samples: int | None = None):
         """Pad an episode to whole slabs of windows in the wire dtype and
@@ -740,30 +785,29 @@ class SnippetMatcher:
         n_windows_pad = (episode_dev.shape[0] - self.overlap) // self.chunk
         B = scan_slab(self.config, self.chunk, n, n_windows_pad)
         n_slabs = n_windows_pad // B
-        inv_ac = self._inv_ac(scale)
         if (progress and n_slabs > 1
                 and self.config.progress_slabs_per_dispatch > 0):
             return self._match_staged_live(
-                episode_dev, n, inv_ac, n_windows, n_slabs, B, progress
-            )
+                episode_dev, n, scale, n_windows, n_slabs, B, progress)
         if progress:
             for k in range(n_windows):
                 progress("start", k)
-        out = _match_episode_resident(
-            episode_dev, n, self._sample_f, inv_ac,
-            **self._scan_kwargs(B, n_slabs),
-        )
+        out = self._scan_episode(episode_dev, n, scale,
+                                 self._scan_kwargs(B, n_slabs))
         pos, h, prom = (a.cpu().numpy() for a in out)
         return self._extract_peaks(pos, h, prom, n_windows, progress)
 
     def _match_staged_live(
-        self, episode_dev, n: int, inv_ac, n_windows: int, n_slabs: int,
-        B: int, progress: Callable[[str, int], None],
+        self, episode_dev, n: int, scale: bool, n_windows: int,
+        n_slabs: int, B: int, progress: Callable[[str, int], None],
     ) -> list[Peak]:
         """Scan in groups of ``progress_slabs_per_dispatch`` slabs: a
         group's windows get "start" when its work is enqueued and
         "finish" once its results are read back, so progress follows the
-        device. Same results as the one-call path."""
+        device. Same results as the one-call path. Each group scans its
+        own slice of the episode from the slice's start, so that the full
+        groups of every episode staged with slab ``B`` share one key of
+        :attr:`step_graphs`."""
         g = self.config.progress_slabs_per_dispatch
         k_rows = window_rows(self.window, self.chunk)
         # pad once, and dequantize once off the fused path, for all groups
@@ -772,16 +816,16 @@ class SnippetMatcher:
         )
         if not is_fused(self.fft_impl, self.config.peaks_impl):
             episode_dev = dequant_to_f32(episode_dev)
-        work: dict = {}
         parts = []
         for a in range(0, n_slabs, g):
             gg = min(g, n_slabs - a)
             w_lo, w_hi = a * B, min((a + gg) * B, n_windows)
             for k in range(w_lo, w_hi):
                 progress("start", k)
-            out = _match_episode_resident(
-                episode_dev, n, self._sample_f, inv_ac, base0=a * B,
-                work=work, **self._scan_kwargs(B, gg),
+            lo = w_lo * self.chunk  # the JAX package traces a base0
+            out = self._scan_episode(
+                episode_dev[lo : (w_lo + gg * B + k_rows) * self.chunk],
+                n - lo, scale, self._scan_kwargs(B, gg),
             )
             parts.append([t.cpu().numpy() for t in out])
             for k in range(w_lo, w_hi):

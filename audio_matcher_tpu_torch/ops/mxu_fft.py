@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from .wire import f32_scalar
+
 _F32 = torch.float32
 
 
@@ -166,7 +168,7 @@ def cfft_parts(xr, xi, inverse: bool = False,
     with fp32_matmul():
         yr, yi = _cfft_rec(xr.to(_F32), xi.to(_F32), factors, sign)
     if inverse:
-        s = torch.tensor(1.0 / n, dtype=_F32, device=yr.device)
+        s = f32_scalar(1.0 / n, yr.device)
         return yr * s, yi * s
     return yr, yi
 
@@ -195,7 +197,7 @@ def icfft_scrambled_parts(yr, yi, factors: tuple[int, ...]):
     n2 = y.shape[-3] * y.shape[-2] * y.shape[-1]
     with fp32_matmul():
         x = _ifft2p_rec(y.reshape(*y.shape[:-3], n2), factors, -1)
-    s = torch.tensor(2.0 / n2, dtype=_F32, device=x.device)
+    s = f32_scalar(2.0 / n2, x.device)
     return x[..., 0, :] * s, x[..., 1, :] * s
 
 

@@ -55,6 +55,19 @@ def mel_filterbank(
 
 
 _FRAME_BLOCK = 4096  # frames per STFT block: bounds the power array
+_WINDOWS: dict = {}
+
+
+def hann_window(n_fft: int, device) -> torch.Tensor:
+    """The symmetric Hann window (``np.hanning``; ``torch.hann_window`` is
+    periodic) as f32 on ``device``, made once per (n_fft, device): a scan
+    step that reuses it copies nothing from the host."""
+    key = (int(n_fft), torch.device(device))
+    got = _WINDOWS.get(key)
+    if got is None:
+        got = _WINDOWS[key] = torch.from_numpy(
+            np.hanning(n_fft).astype(np.float32)).to(device)
+    return got
 
 
 def stft_log_mel_core(x: torch.Tensor, fb: torch.Tensor, n_fft: int,
@@ -69,9 +82,7 @@ def stft_log_mel_core(x: torch.Tensor, fb: torch.Tensor, n_fft: int,
     needed = (n_blocks * _FRAME_BLOCK - 1) * hop + n_fft
     if x.shape[-1] < needed:
         x = torch.nn.functional.pad(x, (0, needed - x.shape[-1]))
-    # np.hanning is the symmetric window (torch.hann_window is periodic)
-    window = torch.from_numpy(np.hanning(n_fft).astype(np.float32)).to(
-        x.device)
+    window = hann_window(n_fft, x.device)
     fb_t = fb.to(x.device, _F32).T  # [n_bins, n_mels]
     span_len = (_FRAME_BLOCK - 1) * hop + n_fft
     out = torch.empty((n_blocks * _FRAME_BLOCK, fb_t.shape[1]), dtype=_F32,
@@ -111,16 +122,16 @@ def log_mel(samples, sr: int, n_fft: int = 1024, hop: int = 256,
                              n_frames_of(x.shape[-1], n_fft, hop))
 
 
-def _box_sums(x: torch.Tensor, width) -> torch.Tensor:
-    """Sliding-window sums of the last axis (cumsum box filter); ``width``
-    an int, or a [Q] tensor of widths giving [Q, len - min(width) + 1]
-    (entries past a row's own range are not meaningful)."""
+def _box_sums(x: torch.Tensor, width, cols: int) -> torch.Tensor:
+    """The first ``cols`` sliding-window sums of the last axis (cumsum box
+    filter); ``width`` an int, or a [Q] tensor of widths giving [Q, cols]
+    (``cols`` ≤ len − min(width) + 1; entries past a row's own range are
+    not meaningful)."""
     csum = torch.nn.functional.pad(torch.cumsum(x, -1), (1, 0))
     if isinstance(width, int):
-        return csum[..., width:] - csum[..., :-width]
-    n = csum.shape[-1] - int(width.min())
-    idx = torch.arange(n, device=x.device)[None, :] + width[:, None]
-    return csum[idx.clamp(max=csum.shape[-1] - 1)] - csum[:n][None, :]
+        return (csum[..., width:] - csum[..., :-width])[..., :cols]
+    idx = torch.arange(cols, device=x.device)[None, :] + width[:, None]
+    return csum[idx.clamp(max=csum.shape[-1] - 1)] - csum[:cols][None, :]
 
 
 def _window_norms(seg_t: torch.Tensor, widths, cols: int) -> torch.Tensor:
@@ -129,8 +140,8 @@ def _window_norms(seg_t: torch.Tensor, widths, cols: int) -> torch.Tensor:
     of ``seg_t`` [M, T]; the box filters run in float64."""
     s1 = seg_t.sum(0, dtype=torch.float64)
     s2 = seg_t.square().sum(0, dtype=torch.float64)
-    win_sum = _box_sums(s1, widths)[..., :cols]
-    win_sq = _box_sums(s2, widths)[..., :cols]
+    win_sum = _box_sums(s1, widths, cols)
+    win_sq = _box_sums(s2, widths, cols)
     if isinstance(widths, int):
         patch = widths * seg_t.shape[0]
     else:
@@ -183,7 +194,8 @@ def ncc_frames_tiled_core(episode_fp, snippet_fp, t_s: int,
 
 
 def ncc_frames_multi_core(episode_fp, snip_fps, t_ss: tuple,
-                          tile: int = NCC_TILE) -> torch.Tensor:
+                          tile: int = NCC_TILE,
+                          widths: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-query overlap-save ZNCC sharing the episode tile spectra.
 
     episode_fp [T_e, M]; snip_fps [Q, t_max, M], zero-padded beyond each
@@ -191,7 +203,9 @@ def ncc_frames_multi_core(episode_fp, snip_fps, t_ss: tuple,
     dominant cost) are computed once for all queries; per query only the
     product, one inverse transform and the box filters remain. Returns
     [Q, T_e - min(t_ss) + 1]; entries at lags ≥ T_e - t_ss[q] + 1 are
-    garbage — mask them with each query's valid length."""
+    garbage — mask them with each query's valid length. ``widths``:
+    ``t_ss`` as an int64 tensor on the episode's device, where the caller
+    keeps one (else it is copied from the host here)."""
     t_e, n_mels = episode_fp.shape
     dev = episode_fp.device
     t_max = max(t_ss)
@@ -208,7 +222,8 @@ def ncc_frames_multi_core(episode_fp, snip_fps, t_ss: tuple,
     # view that every product would conjugate again)
     S_conj = torch.stack(spectra).conj_physical()
     snip_norm = torch.stack(norms)[:, None]
-    widths = torch.tensor(t_ss, device=dev)
+    if widths is None:
+        widths = torch.tensor(t_ss, device=dev)
     out = torch.empty((len(t_ss), n_tiles * tile), dtype=_F32, device=dev)
     for k in range(n_tiles):
         seg_t = ep[k * tile : k * tile + win].T  # [M, win]

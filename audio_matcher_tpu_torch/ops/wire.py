@@ -29,19 +29,32 @@ def silence_code(dtype: torch.dtype) -> int:
     return 128 if dtype == torch.uint8 else 0
 
 
-def _c(v: float, device) -> torch.Tensor:
-    # a 0-d f32 tensor keeps every product in f32, as the JAX decode is
-    return torch.tensor(v, dtype=_F32, device=device)
+_SCALARS: dict = {}
+
+
+def f32_scalar(v: float, device) -> torch.Tensor:
+    """``v`` as a 0-d f32 tensor on ``device``, made once per (value,
+    device) and shared: a product with it stays in f32, as the JAX decode
+    is, and a step that reuses it copies nothing from the host (a CUDA
+    graph's capture refuses such a copy). Callers never write to it."""
+    key = (float(v), torch.device(device))
+    got = _SCALARS.get(key)
+    if got is None:
+        got = _SCALARS[key] = torch.tensor(v, dtype=_F32, device=device)
+    return got
 
 
 def dequant_to_f32(x: torch.Tensor) -> torch.Tensor:
     """Wire values (int16 / uint8 / float32) → f32 reference-scale PCM."""
-    dev = x.device
+
+    def c(v):
+        return f32_scalar(v, x.device)
+
     if x.dtype == torch.int16:
-        return x.to(_F32) * _c(_I16_SCALE, dev)
+        return x.to(_F32) * c(_I16_SCALE)
     if x.dtype == torch.uint8:
-        b = x.to(torch.int32).to(_F32) * _c(_U8_STEP, dev) - _c(1.0, dev)
-        mag = torch.exp(b.abs() * _c(_LOG1P_MU, dev)) - _c(1.0, dev)
-        u = torch.where(b >= 0, mag, -mag) * _c(_INV_MU, dev)
-        return u * _c(_U8_OUT, dev)
+        b = x.to(torch.int32).to(_F32) * c(_U8_STEP) - c(1.0)
+        mag = torch.exp(b.abs() * c(_LOG1P_MU)) - c(1.0)
+        u = torch.where(b >= 0, mag, -mag) * c(_INV_MU)
+        return u * c(_U8_OUT)
     return x.to(_F32)

@@ -59,6 +59,7 @@ from ..models.matcher import (
     check_fft_len,
     correlation_crop,
     describe_path,
+    device_ints,
     fill_wire_rows,
     is_fused,
     overshadow_filter,
@@ -102,6 +103,7 @@ from ..ops.stft import (
 )
 from ..ops.wire import dequant_to_f32
 from .mesh import Mesh, make_local_mesh, process_count, process_index
+from .step_graph import StepGraphs, run_step
 
 log = logging.getLogger("audio_matcher_torch.sweep")
 
@@ -184,10 +186,12 @@ def resident_match_step(
 ):
     """The resident scan of a staged batch.
 
-    Returned fn: (episodes [E, Npad] wire, ns [E] host ints, t_r, t_i
-    (:class:`QueryState`'s spectra), inv_ac [Q], m [Q]) → (pos, h, prom)
-    each [E, Q, n_slabs·slab, S]. Episodes and slabs run in a Python loop
-    that reuses one slab's intermediate planes. ``plain=True`` runs every
+    Returned fn: (episodes [E, Npad] wire, ns [E] int64 on the episodes'
+    device (host ints are copied there), t_r, t_i (:class:`QueryState`'s
+    spectra), inv_ac [Q], m [Q]) → (pos, h, prom) each [E, Q,
+    n_slabs·slab, S]. Episodes and slabs run in a Python loop that reuses
+    one slab's intermediate planes; no host value is read from the
+    device, so a CUDA graph can capture it. ``plain=True`` runs every
     kernel's plain PyTorch version instead (the reference path).
     """
     fused = is_fused(fft_impl, peaks_impl)
@@ -233,7 +237,7 @@ def resident_match_step(
         )
         return [a.transpose(0, 1) for a in picked]
 
-    def per_episode(episode, n: int, slab_fn, spectra, inv_ac, m, work):
+    def per_episode(episode, n, slab_fn, spectra, inv_ac, m, work):
         dev = episode.device
         episode = pad_wire_on_device(episode, target)
         if not fused:
@@ -256,10 +260,10 @@ def resident_match_step(
             (t_r, t_i) if fft_impl in ("vpu", "mxu")
             else torch.complex(t_r, t_i)
         )
+        ns = torch.as_tensor(ns, dtype=torch.int64, device=episodes.device)
         work: dict = {}
         per = [
-            per_episode(episodes[e], int(ns[e]), slab_fn, spectra, inv_ac, m,
-                        work)
+            per_episode(episodes[e], ns[e], slab_fn, spectra, inv_ac, m, work)
             for e in range(episodes.shape[0])
         ]
         return tuple(torch.stack([p[i] for p in per]) for i in range(3))
@@ -319,9 +323,13 @@ class _Scanner:
 
     ``device``: one device, a list of devices or a :class:`~.mesh.Mesh`.
     On one device a group stages as one tensor and scans in one call; on
-    several, its rows shard over ``mesh.flat`` (:class:`ShardedRows`)."""
+    several, its rows shard over ``mesh.flat`` (:class:`ShardedRows`).
+    ``graphs``: on CUDA devices, replay each scan step as a CUDA graph
+    captured once per shape (:attr:`step_graphs`, a
+    :class:`~.step_graph.StepGraphs`); False runs it eagerly."""
 
-    def __init__(self, device):
+    def __init__(self, device, graphs: bool):
+        self.step_graphs = StepGraphs() if graphs else None
         if isinstance(device, Mesh):
             self.mesh = device
         elif isinstance(device, (list, tuple)):
@@ -441,7 +449,9 @@ class ShardedScanner(_Scanner):
     nothing on them. ``query_state``: a prepared :class:`QueryState` to
     scan with instead of computing the spectra from ``snippets`` (copied
     to each device of a mesh). ``plain``: run every kernel's plain PyTorch
-    version instead of the CUDA kernels (the reference path).
+    version instead of the CUDA kernels (the reference path), eagerly.
+    ``graphs``: see :class:`_Scanner` (the windows path :meth:`scan` is
+    never graphed).
     """
 
     def __init__(
@@ -452,8 +462,9 @@ class ShardedScanner(_Scanner):
         device="cuda",
         query_state: QueryState | None = None,
         plain: bool = False,
+        graphs: bool = True,
     ):
-        super().__init__(device)
+        super().__init__(device, graphs and not plain)
         self.sr = int(sr)
         self.config = cfg = config or MatchConfig()
         self.plain = bool(plain)
@@ -534,17 +545,24 @@ class ShardedScanner(_Scanner):
         """Scan staged rows on their device; ``n_max``: the longest
         episode of the whole group, which sets the slab on every shard."""
         cfg = self.config
+        dev = episodes_dev.device
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         slab = scan_slab(cfg, self.chunk, n_max, n_windows_pad)
-        step = resident_match_step(
+        static = (
             self.chunk, self.window, self.fft_len, self.valid,
             self.distance_samples, self.n_peaks, cfg.block, slab,
             n_windows_pad // slab, self.fft_impl, cfg.peaks_impl,
-            plain=self.plain,
         )
-        st = self._query_state_on(episodes_dev.device)
+        step = resident_match_step(*static, plain=self.plain)
+        st = self._query_state_on(dev)
         inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
-        return step(episodes_dev, ns, st.t_r, st.t_i, inv_ac, st.m)
+
+        def run(episodes, ns_dev, inv, t_r, t_i, m):
+            return step(episodes, ns_dev, t_r, t_i, inv, m)
+
+        return run_step(self.step_graphs, ("resident",) + static, run,
+                        (episodes_dev, device_ints(ns, dev), inv_ac),
+                        (st.t_r, st.t_i, st.m))
 
     def _peaks(self, arrays, ns, n_real) -> list[list[list[Peak]]]:
         """Rebase each window's candidates and dedup across windows."""
@@ -692,6 +710,38 @@ def spectrogram_pad_width(
     return p  # the 2^18-quantum width: bounded absolute waste
 
 
+def _row_scores(row, fb, fps, widths, n_fft: int, hop: int, t_ss: tuple):
+    """One staged wire row [Npad] → its [Q, V] NCC scores (see
+    :meth:`ShardedSpectrogramScanner.scores`)."""
+    n_frames_pad = 1 + (row.shape[0] - n_fft) // hop
+    fp = stft_log_mel_core(dequant_to_f32(row), fb, n_fft, hop, n_frames_pad)
+    return ncc_frames_multi_core(fp, fps, t_ss, widths=widths)
+
+
+def spectrogram_step(n_fft: int, hop: int, t_ss: tuple, distance: int,
+                     n_peaks: int):
+    """The spectrogram scan of a staged batch (the JAX package's
+    spectrogram step). Returned fn: (episodes [E, Npad] wire, ns [E] int64
+    on their device, fb, fps, widths (the scanner's filterbank, padded
+    query fingerprints and their frame counts, int64)) → (pos, h, prom)
+    each [E, Q, n_peaks], positions in frames. A Python loop over the
+    rows that reads no host value from the device."""
+
+    def step(episodes, ns, fb, fps, widths):
+        per = []
+        for e in range(episodes.shape[0]):
+            scores = _row_scores(episodes[e], fb, fps, widths, n_fft, hop,
+                                 t_ss)
+            n_frames = (torch.div(ns[e] - n_fft, hop, rounding_mode="floor")
+                        + 1).clamp(min=0)
+            valid = (n_frames - widths + 1).clamp(min=0)
+            per.append(pick_peaks_core(scores, valid, distance, n_peaks,
+                                       2048))
+        return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+
+    return step
+
+
 class ShardedSpectrogramScanner(_Scanner):
     """Scan groups of episodes against query snippets in the spectrogram
     domain on one device or a mesh (BASELINE config #4 at archive scale;
@@ -707,12 +757,12 @@ class ShardedSpectrogramScanner(_Scanner):
     ``query_fps``: the padded [Q, t_max, n_mels] query fingerprints to
     scan with (e.g. the JAX scanner's ``_snip_fps``) instead of computing
     them from ``snippets``. NCC scores are scale-invariant: ``scale`` is
-    accepted and ignored.
+    accepted and ignored. ``graphs``: see :class:`_Scanner`.
     """
 
     def __init__(self, snippets, sr, config=None, device="cuda",
-                 query_fps=None):
-        super().__init__(device)
+                 query_fps=None, graphs: bool = True):
+        super().__init__(device, graphs)
         self.sr = int(sr)
         self.config = cfg = config or SpectrogramConfig()
         self._snippets = [np.asarray(s, np.float32) for s in snippets]
@@ -725,7 +775,7 @@ class ShardedSpectrogramScanner(_Scanner):
         if query_fps is not None:
             self._fps = torch.from_numpy(
                 np.asarray(query_fps, np.float32)).to(self.device)
-        self._on_device: dict = {}  # (fb, fps) copied to each device
+        self._on_device: dict = {}  # (fb, fps, widths) on each device
 
     def describe(self) -> str:
         """Which path the scan runs, for the log."""
@@ -747,11 +797,12 @@ class ShardedSpectrogramScanner(_Scanner):
         return self._fps
 
     def _queries_on(self, device: torch.device):
-        """The mel filterbank and :attr:`query_fps`, built once and copied
-        to ``device``."""
+        """The mel filterbank, :attr:`query_fps` and the queries' frame
+        counts (int64), built once and copied to ``device``."""
         if device not in self._on_device:
-            self._on_device[device] = (self._fb.to(device),
-                                       self.query_fps.to(device))
+            self._on_device[device] = (
+                self._fb.to(device), self.query_fps.to(device),
+                torch.tensor(self.t_ss, dtype=torch.int64, device=device))
         return self._on_device[device]
 
     _prepare = _queries_on
@@ -764,29 +815,24 @@ class ShardedSpectrogramScanner(_Scanner):
         queries, V = frames of the row − min(t_ss) + 1 (lags past a
         query's own valid range are not meaningful)."""
         cfg = self.config
-        fb, fps = self._queries_on(row.device)
-        n_frames_pad = 1 + (row.shape[0] - cfg.n_fft) // cfg.hop
-        fp = stft_log_mel_core(dequant_to_f32(row), fb, cfg.n_fft, cfg.hop,
-                               n_frames_pad)
-        return ncc_frames_multi_core(fp, fps, self.t_ss)
+        return _row_scores(row, *self._queries_on(row.device), cfg.n_fft,
+                           cfg.hop, self.t_ss)
 
     def _scan(self, episodes_dev, ns, scale: bool, n_max: int):
         del scale, n_max  # NCC scores are scale-invariant; no slab
         cfg = self.config
+        dev = episodes_dev.device
         n_frames_pad = 1 + (episodes_dev.shape[1] - cfg.n_fft) // cfg.hop
         n_peaks = min(
             (n_frames_pad - min(self.t_ss) + 1) // self.distance_frames + 2,
             64,
         )
-        t_ss = torch.tensor(self.t_ss, device=episodes_dev.device)
-        per = []
-        for e in range(episodes_dev.shape[0]):
-            scores = self.scores(episodes_dev[e])
-            n_frames = max(1 + (int(ns[e]) - cfg.n_fft) // cfg.hop, 0)
-            valid = (n_frames - t_ss + 1).clamp(min=0)
-            per.append(pick_peaks_core(scores, valid, self.distance_frames,
-                                       n_peaks, 2048))
-        return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+        static = (cfg.n_fft, cfg.hop, self.t_ss, self.distance_frames,
+                  n_peaks)
+        return run_step(self.step_graphs, ("spectrogram",) + static,
+                        spectrogram_step(*static),
+                        (episodes_dev, device_ints(ns, dev)),
+                        self._queries_on(dev))
 
     def _peaks(self, arrays, ns, n_real) -> list[list[list[Peak]]]:
         """Finite heights ≥ ``min_score``, positions in samples, sorted."""
@@ -958,4 +1004,6 @@ def sweep_archive(
         flush(group)
     if pending:  # drain the one-group-deep pipeline
         emit(*pending.pop())
+    if scanner.step_graphs is not None:
+        log.info("sweep: step graphs %s", dict(scanner.step_graphs.stats))
     return results

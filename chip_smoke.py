@@ -157,6 +157,27 @@ holds every kernel against its plain PyTorch version:
    ``archive-scroller-torch`` (``archive_cli.main``) and a scripted REPL
    (``list -c``, ``exit``) over the archive: the series and both
    chapters listed. The seconds of each tool are printed.
+14. The scan steps as CUDA graphs (``step_graphs``, run after 7): config
+   #3, one sweep group (8 x 600 s x 4 queries, int16), config #2 through
+   ``SnippetMatcher`` at fft_len 2^22 (its one-call path and the matcher
+   CLI's live-progress path) and 2^28 and through
+   ``ShardedScanner([snippet])``, and config #4, each on one
+   staged input eager (``graphs=False``) and then graphed: p50 of
+   REPEATS scans through the entry point, the warm scans (the graphed
+   ones: first sight and capture), a profile (busy ms, idle share), the
+   turn's peak memory and the cache's captures, replays and hits; every
+   raw candidate bitwise equal (the live path: its peaks) and the peaks
+   equal between the two, the plants found (within 1 sample, one hop for
+   #4), and the staged input's device-to-device copy into the graph
+   timed. At 2^28, two graphed matchers live at once: one pool, peak
+   memory and the memory reserved while both are held.
+
+Every scanner and matcher runs with its default ``graphs=True``: a
+path's first scan of a shape runs eagerly, its second captures a CUDA
+graph and later ones replay it (``parallel/step_graph.py``), with the same
+launch counts. A path warms with WARM_SCANS untimed scans (through the
+capture) before the scans it measures; the archive sweep prints its
+cache's hit rate.
 
 Every kernel is timed beside its bound: the larger of the bytes it must
 move (each input read once, each output written once) over the H100's
@@ -179,6 +200,7 @@ second-to-last line is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import io
@@ -247,6 +269,7 @@ from audio_matcher_tpu_torch.ops.wire import dequant_to_f32  # noqa: E402
 from audio_matcher_tpu_torch.parallel.dryrun import (  # noqa: E402
     dryrun_multichip,
 )
+from audio_matcher_tpu_torch.parallel import step_graph  # noqa: E402
 from audio_matcher_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
     ShardedScanner,
@@ -266,6 +289,12 @@ SLAB = 8
 SINGLE_EPISODE_SECS = 3600  # config #2: one 1 h episode x one 10 s snippet
 ODD_SLAB = 5  # a 10-minute episode's slab: the last window pair is padded
 REPEATS = 5  # timed repeats of each config #2 entry point
+# untimed scans before a path's measured ones: a shape's first scan runs
+# eagerly, its second captures the step's CUDA graph (later ones replay)
+WARM_SCANS = 2
+# the peak device memory of one fft_len 2^28 scan before the steps were
+# graphed (35.01 GB allocated on an H100 80GB HBM3), + 5 %
+MEMORY_BOUND_GB = 36.8
 XLA_QUERIES = 8  # the xla_packed scan: 1 x 1800 s x 8 queries
 # Two f32 FFT algorithms (radix-2 butterflies in the kernels, cuFFT in the
 # plain versions) on the same inputs: measured ~3e-7 of the largest value.
@@ -711,9 +740,9 @@ def profile_run(label, run):
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
+    idle = 100 * (1 - busy_ms / (wall * 1e3))
     print(f"profile of {label}: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share "
-          f"{100 * (1 - busy_ms / (wall * 1e3)):.1f} %")
+          f"{busy_ms:.1f} ms, idle share {idle:.1f} %")
     if not spans:
         print("  no device events traced: per-kernel times not measured")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1]):
@@ -724,6 +753,7 @@ def profile_run(label, run):
     print(f"  {rest:9.2f} ms  {100 * rest / max(busy_ms, 1e-9):5.1f} %  "
           f"{sum(ms < 0.01 * busy_ms for ms in per_name.values())} other "
           f"kernels under 1 % each")
+    return wall * 1e3, busy_ms, idle
 
 
 def counted(run, kernels):
@@ -757,22 +787,22 @@ def batch_scan(config, device, rows):
     compare_paths(scanner, plain_scanner, episode_wire)
     torch.cuda.empty_cache()
 
-    # the main path: stage the batch, scan it once to warm, then the
-    # measured scan with every launch count reset just before it
+    # the main path: stage the batch, scan it to warm (and capture), then
+    # the measured scan with every launch count reset just before it
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     staged = scanner.stage_resident([episode_wire] * N_EPISODES)
     torch.cuda.synchronize()
     t_stage = time.perf_counter() - t0
     staged_mb = staged[0].numel() * staged[0].element_size() / 1e6
-    scanner.scan_staged(staged)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARM_SCANS):
+        scanner.scan_staged(staged)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     results, launches = counted(lambda: scanner.scan_staged(staged),
                                 BATCH_PATH)
     t_scan = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check_plants([per_query[0] for per_query in results], offsets,
                  config.distance_secs)
@@ -783,8 +813,8 @@ def batch_scan(config, device, rows):
     print(f"scan: {t_scan:.3f} s for {n_pairs} pairs")
     print(f"pair audio-hours/s: {hours / (t_stage + t_scan):.3f} end to "
           f"end, {hours / t_scan:.3f} device-resident")
-    print(f"torch.cuda.max_memory_allocated during the scan: "
-          f"{peak_gb:.2f} GB")
+    print(f"memory of the warm scans (eager, capture) and the scan: "
+          f"{memory()}")
     print(f"plants of query 0 found within {PLANT_TOL} sample in all "
           f"{N_EPISODES} episodes")
     print(f"launches in the config #3 scan: {launches}")
@@ -915,7 +945,7 @@ def timed_repeats(label, stage, scan, offsets, distance_secs,
     seconds, checks the plants every time, returns one run's counts
     (``path``: the kernels each run must launch)."""
     stage_s, scan_s, counts = [], [], []
-    for r in range(repeats + 1):  # the first run warms up, untimed
+    for r in range(repeats + WARM_SCANS):  # the first ones warm, untimed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         staged = stage()
@@ -924,7 +954,7 @@ def timed_repeats(label, stage, scan, offsets, distance_secs,
         peaks, launches = counted(lambda: scan(staged), path)
         t2 = time.perf_counter()
         check_plants([peaks], offsets, distance_secs)
-        if r:
+        if r >= WARM_SCANS:
             stage_s.append(t1 - t0)
             scan_s.append(t2 - t1)
             counts.append(launches)
@@ -1022,7 +1052,8 @@ def xla_packed_scan(config, device, rows):
     del x, got, want
     torch.cuda.empty_cache()
 
-    scanner.scan_resident([episode_wire])  # warm: cuFFT plans
+    for _ in range(WARM_SCANS):  # cuFFT plans, the graph
+        scanner.scan_resident([episode_wire])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results, launches = counted(
@@ -1109,20 +1140,24 @@ def jnp_scan(config, device, rows):
     print(f"vpu + jnp scan: 1 x {EPISODE_SECS} s episode, {JNP_QUERIES} "
           f"queries, {cfg.transfer_dtype}, fft_len {scanner.fft_len}")
     staged = scanner.stage_resident([episode_wire])
-    scanner.scan_dispatch(staged)  # warm
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARM_SCANS):
+        scanner.scan_dispatch(staged)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     got, launches = counted(lambda: scanner.scan_dispatch(staged), JNP_PATH)
     torch.cuda.synchronize()
     t_scan = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"vpu + jnp scan: {t_scan:.3f} s, torch.cuda.max_memory_allocated "
-          f"{peak_gb:.2f} GB; launches {launches}")
+    print(f"vpu + jnp scan: {t_scan:.3f} s; memory of the warm scans and "
+          f"the scan: {memory()}; launches {launches}")
     if launches["local_max_block_reduce_packed"] or launches[
             "local_max_block_reduce"]:
         raise AssertionError("the jnp path launched a block reduction")
     rows["fft_major_forward"]["launches"] = launches["fft_major_forward"]
+    profile_run("one vpu + jnp scan", lambda: scanner.scan_dispatch(staged))
+    # the graph's pool holds the volume's planes: free it for the plain path
+    scanner.step_graphs.clear()
+    torch.cuda.empty_cache()
     compare_raw("vpu + jnp, one episode", got[0],
                 plain.scan_dispatch(staged)[0])
     peaks = scanner.scan_collect(got)[0]
@@ -1131,7 +1166,6 @@ def jnp_scan(config, device, rows):
                            query_state=scanner.query_state)
     compare_peaks("vpu + jnp against the fused vpu + pallas scanner", peaks,
                   fused.scan_staged(staged)[0])
-    profile_run("one vpu + jnp scan", lambda: scanner.scan_dispatch(staged))
 
 
 def single_query_jnp(config, device, rows):
@@ -1190,6 +1224,16 @@ def peak_gb():
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def memory():
+    """Peak allocated and reserved device memory since the last reset. A
+    replay allocates nothing (its planes lie in the graph's pool, which is
+    reserved), so the allocated peak of a window counts the eager and
+    capture runs in it; the reserved one counts the pool."""
+    return (f"torch.cuda.max_memory_allocated {peak_gb():.2f} GB, "
+            f"max_memory_reserved "
+            f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB")
+
+
 def large_fft(config, device, rows):
     """Path 7, fft_len 2^23 to 2^28: config #2's episode through the
     fused ``SnippetMatcher`` at each of LARGE_CHUNKS; kernels 6, 2-5 on
@@ -1219,8 +1263,8 @@ def large_fft(config, device, rows):
             lambda: matcher.stage(episode_wire), matcher.match_staged,
             offsets, config.distance_secs,
             repeats=REPEATS if log2n <= 25 else WIDE_REPEATS)
-        print(f"fft_len 2^{log2n}: peak torch.cuda.max_memory_allocated of "
-              f"the timed runs {peak_gb():.2f} GB; {CARD['line']}")
+        print(f"fft_len 2^{log2n}: the timed runs (the warm ones and the "
+              f"capture too): {memory()}; {CARD['line']}")
         for name, row in (record or {}).items():
             row["launches"] = launches[name]
         del matcher
@@ -1297,7 +1341,8 @@ def cluster_modes(config, device, rows):
                                  dataclasses.replace(cfg, peaks_impl="jnp"),
                                  device=device)
         staged = matcher.stage(episode_wire)
-        matcher.match_staged(staged)  # warm
+        for _ in range(WARM_SCANS):
+            matcher.match_staged(staged)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got, jnp_launches = counted(lambda: matcher.match_staged(staged),
@@ -1396,8 +1441,7 @@ def wide_scan(config, device, rows):
         row["launches"] = launches[name]
     print(f"ShardedScanner at 2^{log2n}, {WIDE_QUERIES} queries: stage "
           f"{t_stage:.3f} s, scan {t_scan:.3f} s; plants of query 0 found "
-          f"within {PLANT_TOL} sample; launches {launches}; peak "
-          f"torch.cuda.max_memory_allocated {peak_gb():.2f} GB; "
+          f"within {PLANT_TOL} sample; launches {launches}; {memory()}; "
           f"{CARD['line']}")
 
 
@@ -1464,6 +1508,224 @@ def check_frame_plants(label, peaks, offsets, hop):
                 f"{label}, episode {e}: plants at {want}, found {got}")
 
 
+def graph_turns(label, make, stage, raw, scan, check):
+    """One path eager (``make(False)``) and then graphed (``make(True)``)
+    on the same staged input: each warmed (the graphed one through its
+    keys' first sight and their capture, both timed), then REPEATS timed
+    scans through the entry point (wall, from the call to the host's
+    peaks), a profile, the raw outputs (``raw``; None: the peaks only) and
+    the peak memory of the turn. The raw outputs must be equal bit for
+    bit and the peaks equal; ``check`` holds the graphed peaks to the
+    plants. The staged input's copy into the graph's buffer is timed on
+    its own."""
+    staged = stage()
+    got = {}
+    for graphs in (False, True):
+        runner = make(graphs)
+        mode = "graphed" if graphs else "eager"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warm = []
+        for _ in range(WARM_SCANS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scan(runner, staged)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            peaks = scan(runner, staged)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out = ([a.cpu().numpy() for a in raw(runner, staged)]
+               if raw is not None else [])
+        _, busy, idle = profile_run(f"{label}, {mode}",
+                                    lambda: scan(runner, staged))
+        stats = (dict(runner.step_graphs.stats) if graphs else {})
+        got[mode] = (out, peaks)
+        p50 = statistics.median(times)
+        print(f"{label}, {mode}: p50 of {REPEATS} {p50:.2f} ms (runs "
+              f"{', '.join(f'{t:.2f}' for t in times)}); warm scans "
+              f"{', '.join(f'{t:.2f}' for t in warm)} ms ("
+              f"{'first sight, capture' if graphs else 'eager'}); device "
+              f"busy {busy:.2f} ms, idle {idle:.1f} % of the profiled run's "
+              f"wall, {100 * (1 - busy / p50):.1f} % of the p50; "
+              f"{memory()}; captures {stats.get('captures', 0)}, replays "
+              f"{stats.get('captures', 0) + stats.get('hits', 0)}, hits "
+              f"{stats.get('hits', 0)}, eager first sights "
+              f"{stats.get('first', 0)}; {CARD['line']}")
+        del runner
+    (e_out, e_peaks), (g_out, g_peaks) = got["eager"], got["graphed"]
+    if not all(np.array_equal(a, b, equal_nan=True)
+               for a, b in zip(e_out, g_out)) or e_peaks != g_peaks:
+        raise AssertionError(f"{label}: graphed and eager scans differ")
+    check(g_peaks)
+    rows = staged[0]
+    buf = torch.empty_like(rows)
+    mb = rows.numel() * rows.element_size() / 1e6
+    what = ("positions, heights and prominences of every raw candidate "
+            "bitwise equal graphed and eager, the peaks equal"
+            if raw is not None else "the peaks (positions, heights and "
+            "prominences) bitwise equal graphed and eager")
+    print(f"{label}: {what}, plants found; the staged input's copy into "
+          f"the graph {cuda_ms(lambda: buf.copy_(rows)):.3f} ms for "
+          f"{mb:.1f} MB")
+
+
+def two_graphed_caches(label, make, stage, scan):
+    """Two graphed runners of one shape live at once (the matcher CLI
+    keeps a matcher a sample rate): each through its first sight (eager),
+    its capture and a replay. Their graphs share the device's one pool;
+    prints the peak memory (the second's eager first sight runs beside
+    the first's pool) and the memory reserved while both are held, beside
+    the single-scan bound at 2^28."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    staged = stage()
+    runners = [make(True), make(True)]
+    peaks = []
+    for runner in runners:
+        for _ in range(WARM_SCANS + 1):
+            peaks.append(scan(runner, staged))
+    if any(p != peaks[0] for p in peaks):
+        raise AssertionError(f"{label}: two graphed caches differ")
+    store = step_graph._DEVICES[staged[0].device]
+    pools = {e.graph.pool() for e in store.graphs.values()}
+    held = torch.cuda.memory_reserved() / 1e9
+    print(f"{label}, two graphed matchers live: captures "
+          f"{[r.step_graphs.stats['captures'] for r in runners]}, hits "
+          f"{[r.step_graphs.stats['hits'] for r in runners]}, "
+          f"{len(store.graphs)} graphs in {len(pools)} pool; {memory()}; "
+          f"reserved with both held {held:.2f} GB (one scan's bound at "
+          f"2^28: {MEMORY_BOUND_GB} GB); {CARD['line']}")
+
+
+def step_graphs(config, device, rows):
+    """The scan steps replayed as CUDA graphs against the eager steps, in
+    turns on one card: config #3, one sweep group, config #2 through
+    ``SnippetMatcher`` (at fft_len 2^22 and 2^28) and
+    ``ShardedScanner([snippet])``, and config #4 (``graph_turns``)."""
+    del rows
+    snippets, offsets, episode = make_bench_inputs()
+    wire = quantize_wire(episode, config.transfer_dtype)
+    state = ShardedScanner(snippets, SR, config, device=device).query_state
+
+    def batch(graphs):
+        return ShardedScanner(snippets, SR, config, device=device,
+                              query_state=state, graphs=graphs)
+
+    graph_turns(
+        f"config #3 ({N_EPISODES} x {EPISODE_SECS} s x {N_QUERIES})", batch,
+        lambda: batch(False).stage_resident([wire] * N_EPISODES),
+        lambda sc, st: sc.scan_dispatch(st)[0], ShardedScanner.scan_staged,
+        lambda peaks: check_plants([pq[0] for pq in peaks], offsets,
+                                   config.distance_secs))
+    del state, wire, episode
+    torch.cuda.empty_cache()
+
+    # one sweep group: SWEEP_GROUP rows of 600 s x 4 queries, int16
+    snippets, offsets, episode = make_bench_inputs(
+        SWEEP_QUERIES, SWEEP_EPISODE_SECS, (21.0, 521.0))
+    cfg = dataclasses.replace(config, transfer_dtype="int16")
+    wire = quantize_wire(episode, "int16")
+    state = ShardedScanner(snippets, SR, cfg, device=device).query_state
+
+    def group(graphs):
+        return ShardedScanner(snippets, SR, cfg, device=device,
+                              query_state=state, graphs=graphs)
+
+    graph_turns(
+        f"one sweep group ({SWEEP_GROUP} x {SWEEP_EPISODE_SECS} s x "
+        f"{SWEEP_QUERIES}, int16)", group,
+        lambda: group(False).stage_resident([wire] * SWEEP_GROUP),
+        lambda sc, st: sc.scan_dispatch(st)[0], ShardedScanner.scan_staged,
+        lambda peaks: check_plants([pq[0] for pq in peaks], offsets,
+                                   config.distance_secs))
+    del state, wire, episode
+    torch.cuda.empty_cache()
+
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    wire = quantize_wire(episode, config.transfer_dtype)
+    for chunk_secs in (config.chunk_secs, LARGE_CHUNKS[-1]):
+        cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
+        spectra = SnippetMatcher(snippets[0], SR, cfg,
+                                 device=device)._sample_f
+
+        def matcher(graphs, cfg=cfg, spectra=spectra):
+            m = SnippetMatcher(snippets[0], SR, cfg, device=device,
+                               graphs=graphs)
+            m._sample_f_cache = spectra
+            return m
+
+        def episode_raw(m, staged):
+            n_pad = (staged[0].shape[0] - m.overlap) // m.chunk
+            slab = scan_slab(m.config, m.chunk, staged[1], n_pad)
+            return m._scan_episode(*staged, True,
+                                   m._scan_kwargs(slab, n_pad // slab))
+
+        log2n = matcher(False).fft_len.bit_length() - 1
+        graph_turns(
+            f"config #2 at fft_len 2^{log2n} (SnippetMatcher.match_staged)",
+            matcher, lambda: matcher(False).stage(wire), episode_raw,
+            SnippetMatcher.match_staged,
+            lambda peaks: check_plants([peaks], offsets,
+                                       config.distance_secs))
+        if chunk_secs == config.chunk_secs:
+            # the matcher CLI's path: a progress callback, so a group of
+            # progress_slabs_per_dispatch slabs a call, on its own slice
+            graph_turns(
+                f"config #2 at fft_len 2^{log2n}, live path (match_staged "
+                f"with progress, the matcher CLI's)", matcher,
+                lambda: matcher(False).stage(wire), None,
+                lambda m, st: m.match_staged(st, progress=lambda p, k: None),
+                lambda peaks: check_plants([peaks], offsets,
+                                           config.distance_secs))
+        else:
+            two_graphed_caches(
+                f"config #2 at fft_len 2^{log2n}", matcher,
+                lambda: matcher(False).stage(wire),
+                SnippetMatcher.match_staged)
+        del spectra
+        torch.cuda.empty_cache()
+    state = ShardedScanner(snippets, SR, config, device=device).query_state
+
+    def single(graphs):
+        return ShardedScanner(snippets, SR, config, device=device,
+                              query_state=state, graphs=graphs)
+
+    graph_turns(
+        "config #2 (ShardedScanner([snippet]).scan_staged)", single,
+        lambda: single(False).stage_resident([wire]),
+        lambda sc, st: sc.scan_dispatch(st)[0], ShardedScanner.scan_staged,
+        lambda peaks: check_plants([peaks[0][0]], offsets,
+                                   config.distance_secs))
+    del state, wire, episode
+    torch.cuda.empty_cache()
+
+    snippets, offsets, base = make_bench_inputs(SPEC_QUERIES, EPISODE_SECS)
+    rng = np.random.default_rng(4)
+    episodes = [quantize_wire(base + rng.standard_normal(
+        len(base), dtype=np.float32) * np.float32(SPEC_NOISE), "int16")
+        for _ in range(N_EPISODES)]
+    del base
+    cfg = SpectrogramConfig(transfer_dtype="int16")
+    fps = ShardedSpectrogramScanner(snippets, SR, cfg,
+                                    device=device).query_fps.cpu()
+
+    def spec(graphs):
+        return ShardedSpectrogramScanner(snippets, SR, cfg, device=device,
+                                         query_fps=fps, graphs=graphs)
+
+    graph_turns(
+        f"config #4 ({N_EPISODES} x {EPISODE_SECS} s x {SPEC_QUERIES})",
+        spec, lambda: spec(False).stage_resident(episodes),
+        lambda sc, st: sc.scan_dispatch(st)[0],
+        ShardedSpectrogramScanner.scan_staged,
+        lambda peaks: check_frame_plants("config #4, graphed",
+                                         [r[0] for r in peaks], offsets,
+                                         cfg.hop))
+
+
 def spectrogram_batch(config, device, rows):
     """Config #4, the batch scan at the JAX bench's spectrogram shape: 4 x
     1800 s x 8 queries, int16 wire, each episode the bench's (query 0
@@ -1493,7 +1755,8 @@ def spectrogram_batch(config, device, rows):
           f"{max(scanner.t_ss)} frames, int16, n_fft {cfg.n_fft}, hop "
           f"{cfg.hop}, {cfg.n_mels} mels; staged width {staged[0].shape[1]} "
           f"({n_frames} frames a row)")
-    scanner.scan_staged(staged)  # warm: cuFFT plans, the query fingerprints
+    for _ in range(WARM_SCANS):  # cuFFT plans, query fingerprints, graph
+        scanner.scan_staged(staged)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1723,6 +1986,14 @@ def archive_sweep(config, device, rows):
             raise AssertionError(f"sweep_cli.run returned {rc}")
         print("sweep path: " + next(m for m in records.messages
                                     if m.startswith("sweep: ")))
+        stats = ast.literal_eval(next(
+            m for m in records.messages
+            if m.startswith("sweep: step graphs ")).split(" graphs ", 1)[1])
+        calls = sum(stats.get(k, 0) for k in ("first", "captures", "hits"))
+        print(f"sweep step graphs: {stats}; hit rate {stats.get('hits', 0)}"
+              f"/{calls} group scans (a key's first group runs eagerly, "
+              f"its second captures; groups of another length or row "
+              f"count are new keys: no silence rows are padded in)")
         if "sweep: files at another rate resample by device" not in (
                 records.messages):
             raise AssertionError("--resample did not resolve to the card")
@@ -1826,6 +2097,7 @@ def archive_sweep(config, device, rows):
                   f"MB int16, fill + upload into a fresh pinned buffer): "
                   f"p50 {t:.4f} s, {mb / t:.1f} MB/s; {CARD['line']}")
         staged = scanner.stage_resident(episodes)
+        scanner.scan_staged(staged)  # its second sight: the capture
         profile_run("the scan of one staged group",
                     lambda: scanner.scan_staged(staged))
         print(CARD["line"])
@@ -1984,15 +2256,16 @@ def matcher_cli_run(config, device, rows):
 
 
 def scan_times(scanner, batch, kernels):
-    """Stage ``batch`` and scan it once to warm, then the measured scan
-    with the launch counts reset just before it → (peaks, launches, stage
-    s, scan s)."""
+    """Stage ``batch`` and scan it WARM_SCANS times to warm, then the
+    measured scan with the launch counts reset just before it → (peaks,
+    launches, stage s, scan s)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     staged = scanner.stage_resident(batch)
     torch.cuda.synchronize()
     t_stage = time.perf_counter() - t0
-    scanner.scan_staged(staged)
+    for _ in range(WARM_SCANS):
+        scanner.scan_staged(staged)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     peaks, launches = counted(lambda: scanner.scan_staged(staged), kernels)
@@ -2311,7 +2584,7 @@ def main() -> int:
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
                   jnp_scan, single_query_jnp, large_fft, cluster_modes,
                   wide_round_trip, wide_scan,
-                  wide_cli, spectrogram_batch,
+                  wide_cli, step_graphs, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run, sharded_scan, mesh_dryrun,
                   worker_archive):

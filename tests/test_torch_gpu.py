@@ -24,6 +24,7 @@ from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
     quantize_wire,
+    scan_slab,
 )
 from audio_matcher_tpu_torch.ops import cuda_fft as F  # noqa: E402
 from audio_matcher_tpu_torch.ops import cuda_kernels as K  # noqa: E402
@@ -986,3 +987,219 @@ def test_matcher_cli_on_cuda_then_worker_equals_cpu_chain(dev, tmp_path,
     assert trees["cuda"] == trees["cpu"]
     assert "archive/Serie/Serie 1 Eins.mp3" in trees["cuda"]
     assert b"Serie 1.2 Eins" in trees["cuda"]["work/radio-2024_01_06.txt"]
+
+
+# ------------------------------------------------ the captured scan steps
+def _bitwise(got, want):
+    """Every output tensor identical, -inf and NaN slots included."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert np.array_equal(a.cpu().numpy(), b.cpu().numpy(),
+                              equal_nan=True)
+
+
+def _scan_case(n_queries, seed):
+    sr = 8000
+    rng = np.random.default_rng(seed)
+    snippets = [(rng.standard_normal(m) * 0.2).astype(np.float32)
+                for m in (4000, 3600, 3800)][:n_queries]
+    batches = []
+    for _ in range(2):
+        eps = [(rng.standard_normal(secs * sr) * 0.05).astype(np.float32)
+               for secs in (20, 17)]
+        for e, ep in enumerate(eps):
+            at = int((3.0 + 5 * e + rng.uniform(0, 2)) * sr)
+            ep[at : at + 4000] = snippets[0]
+        batches.append([quantize_wire(ep, "mulaw8") for ep in eps])
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="mulaw8")
+    return sr, snippets, batches, cfg
+
+
+def _launch_counts():
+    return [k.launches for k in F.KERNELS + K.KERNELS]
+
+
+@pytest.mark.parametrize("n_queries", [3, 1])
+def test_graphed_scan_equals_eager_bitwise(dev, n_queries):
+    """``resident_match_step`` replayed as a CUDA graph: every output equal
+    to the eager step's, bit for bit, on its first sight (eager), its
+    capture and a replay; two stagings of one key each get their own
+    candidates; two groups dispatched ahead (the sweep's pipeline) keep
+    theirs; each run counts the same launches as the eager scan."""
+    sr, snippets, batches, cfg = _scan_case(n_queries, 12)
+    graphed = ShardedScanner(snippets, sr, cfg, device=dev)
+    eager = ShardedScanner(snippets, sr, cfg, device=dev, graphs=False,
+                           query_state=graphed.query_state)
+    assert eager.step_graphs is None
+    staged = [graphed.stage_resident(b) for b in batches]
+    want, per_run = [], []
+    for s in staged:
+        before = _launch_counts()
+        want.append(eager.scan_dispatch(s))
+        per_run.append([a - b for a, b in zip(_launch_counts(), before)])
+    assert per_run[0] == per_run[1] and any(per_run[0])
+    for k in (0, 1, 0, 1):  # first sight, capture, two replays
+        before = _launch_counts()
+        got = graphed.scan_dispatch(staged[k])
+        assert [a - b for a, b in zip(_launch_counts(), before)] == (
+            per_run[k])
+        _bitwise(got[0], want[k][0])
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 2}
+    ahead = [graphed.scan_dispatch(s) for s in staged]  # g+1 before g read
+    for d, w in zip(ahead, want):
+        assert graphed.scan_collect(d) == eager.scan_collect(w)
+    assert graphed.scan_collect(ahead[0])[0][0]  # the plant, found
+
+
+def test_graphed_matcher_equals_eager_bitwise(dev):
+    """``SnippetMatcher.match_staged`` replayed as a CUDA graph: the raw
+    candidates and the peaks of two stagings equal the eager matcher's,
+    bit for bit, with the same launches a run."""
+    sr = 8000
+    rng = np.random.default_rng(14)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    eps = []
+    for at in (5.0, 9.5):
+        ep = (rng.standard_normal(21 * sr) * 0.05).astype(np.float32)
+        ep[int(at * sr) : int(at * sr) + 4000] = snippet
+        eps.append(ep)
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="int16")
+    graphed = SnippetMatcher(snippet, sr, cfg, device=dev)
+    eager = SnippetMatcher(snippet, sr, cfg, device=dev, graphs=False)
+    staged = [graphed.stage(ep) for ep in eps]
+    n_pad = (staged[0][0].shape[0] - graphed.overlap) // graphed.chunk
+    slab = scan_slab(cfg, graphed.chunk, staged[0][1], n_pad)
+    kw = graphed._scan_kwargs(slab, n_pad // slab)
+    for k in (0, 1, 0, 1):
+        before = _launch_counts()
+        want = eager._scan_episode(*staged[k], True, kw)
+        eager_launches = [a - b for a, b in zip(_launch_counts(), before)]
+        before = _launch_counts()
+        got = graphed._scan_episode(*staged[k], True, kw)
+        assert [a - b for a, b in zip(_launch_counts(), before)] == (
+            eager_launches)
+        _bitwise(got, want)
+        assert graphed.match_staged(staged[k]) == eager.match_staged(
+            staged[k])
+    assert graphed.step_graphs.stats["hits"] >= 2
+    assert [p.position for p in graphed.match_staged(staged[1])] == [
+        int(9.5 * sr)]
+
+
+def test_graphed_spectrogram_scan_equals_eager_bitwise(dev):
+    """The spectrogram step replayed as a CUDA graph: every output equal
+    to the eager step's, bit for bit, no kernel of ours launched."""
+    from audio_matcher_tpu_torch.models.spectrogram import SpectrogramConfig
+    from audio_matcher_tpu_torch.parallel.sweep import (
+        ShardedSpectrogramScanner)
+
+    sr = 44100
+    rng = np.random.default_rng(15)
+    snippet = (rng.standard_normal(10 * sr) * 0.15).astype(np.float32)
+    episodes = []
+    for at in (30.0, 200.0):
+        x = (rng.standard_normal(300 * sr) * 0.05).astype(np.float32)
+        x[int(at * sr) : int(at * sr) + len(snippet)] += snippet
+        episodes.append(x)
+    cfg = SpectrogramConfig(distance_secs=60.0, transfer_dtype="int16")
+    graphed = ShardedSpectrogramScanner([snippet], sr, cfg, device=dev)
+    eager = ShardedSpectrogramScanner([snippet], sr, cfg, device=dev,
+                                      graphs=False,
+                                      query_fps=graphed.query_fps.cpu())
+    staged = graphed.stage_resident(episodes)
+    want = eager.scan_dispatch(staged)
+    before = _launch_counts()
+    for _ in range(3):
+        _bitwise(graphed.scan_dispatch(staged)[0], want[0])
+    assert _launch_counts() == before
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 1}
+    peaks = graphed.scan_resident(episodes)
+    for e, at in zip(peaks, (30.0, 200.0)):
+        assert abs(max(e[0], key=lambda p: p.height).position
+                   - int(at * sr)) <= cfg.hop
+
+
+def test_a_step_that_syncs_raises_at_capture(dev):
+    """A step that reads a value back (``.item()``) runs on its key's
+    first sight, then its capture raises, and so does every later call of
+    the key: nothing runs it eagerly in its place, no graph is kept, and
+    the card goes on working."""
+    from audio_matcher_tpu_torch.parallel import step_graph
+
+    cache = step_graph.StepGraphs()
+    entered = []
+
+    def step(x):
+        entered.append(True)
+        return (x * x.sum().item(),)
+
+    x = torch.ones(4, device=dev)
+    assert torch.equal(cache("k", step, (x,))[0].cpu(), torch.full((4,), 4.))
+    for _ in range(2):  # the caller retries: raises again
+        with pytest.raises(RuntimeError):
+            cache("k", step, (x,))
+    assert len(entered) == 3
+    assert not any(k[0] is cache._token
+                   for k in step_graph._DEVICES[dev].graphs)
+    assert dict(cache.stats) == {"first": 1}
+    assert torch.equal((x + 1).cpu(), torch.full((4,), 2.0))
+    ok = cache("j", lambda t: (t * 3,), (x,))  # later captures still work
+    ok = cache("j", lambda t: (t * 3,), (x,))
+    assert torch.equal(ok[0].cpu(), torch.full((4,), 3.0))
+    assert cache.stats["captures"] == 1
+
+
+def test_graphed_live_path_equals_eager_bitwise(dev):
+    """The live-progress path (the matcher CLI's, a group of slabs a
+    call) of one matcher over three episodes: every group after the first
+    two of each shape replays, the peaks equal the eager matcher's and the
+    one-call path's, with the same launches an episode."""
+    sr = 8000
+    rng = np.random.default_rng(16)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    eps = []
+    for at in (5.0, 31.5, 50.0):
+        ep = (rng.standard_normal(61 * sr) * 0.05).astype(np.float32)
+        ep[int(at * sr) : int(at * sr) + 4000] = snippet
+        eps.append(ep)
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0, slab=4,
+                      slab_auto=False, progress_slabs_per_dispatch=2,
+                      transfer_dtype="mulaw8")
+    graphed = SnippetMatcher(snippet, sr, cfg, device=dev)
+    eager = SnippetMatcher(snippet, sr, cfg, device=dev, graphs=False)
+    for ep, at in zip(eps, (5.0, 31.5, 50.0)):
+        before = _launch_counts()
+        want = eager.match(ep, progress=lambda p, k: None)
+        eager_launches = [a - b for a, b in zip(_launch_counts(), before)]
+        before = _launch_counts()
+        got = graphed.match(ep, progress=lambda p, k: None)
+        assert [a - b for a, b in zip(_launch_counts(), before)] == (
+            eager_launches)
+        assert got == want == eager.match(ep)
+        assert [p.position for p in got] == [int(at * sr)]
+    # 61 windows → 16 slabs of 4: 8 full groups an episode, one key
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 22}
+
+
+def test_graphed_caches_share_one_pool(dev):
+    """Two scanners' graphs on one card: one memory pool between them."""
+    from audio_matcher_tpu_torch.parallel import step_graph
+
+    sr, snippets, batches, cfg = _scan_case(3, 17)
+    a = ShardedScanner(snippets, sr, cfg, device=dev)
+    b = ShardedScanner(snippets[:1], sr, cfg, device=dev)
+    for scanner in (a, b):
+        staged = scanner.stage_resident(batches[0])
+        for _ in range(3):
+            scanner.scan_dispatch(staged)
+        assert scanner.step_graphs.stats["hits"] == 1
+    store = step_graph._DEVICES[dev]
+    mine = [e for k, e in store.graphs.items()
+            if k[0] in (a.step_graphs._token, b.step_graphs._token)]
+    assert len(mine) == 2
+    assert {e.graph.pool() for e in mine} == {store.pool}
