@@ -52,7 +52,7 @@ def match(snippet, episode, sr, device="cuda", **config_kwargs):
     """
     from .models.matcher import MatchConfig, SnippetMatcher
 
-    return SnippetMatcher(
+    return SnippetMatcher.for_call(
         snippet, sr, MatchConfig(**config_kwargs), device=device
     ).match(episode)
 

@@ -573,12 +573,14 @@ def _match_episode_resident(
 
 def _match_batch_resident(episodes, ns, sample_f, inv_ac, **kw):
     """:func:`_match_episode_resident` over the rows of a staged [E, Npad]
-    batch (``ns`` [E] host ints), sharing one set of work planes →
-    (pos, h, prom), each [E, n_slabs·slab, n_peaks]."""
+    batch, sharing one set of work planes → (pos, h, prom), each [E,
+    n_slabs·slab, n_peaks]. ``ns`` [E] int64 and ``inv_ac`` (0-d f32) are
+    tensors on the batch's device, as the JAX package passes them: no host
+    value is read or copied, so a CUDA graph can capture the scan."""
     work: dict = {}
     per = [
         _match_episode_resident(
-            episodes[e], int(ns[e]), sample_f, inv_ac, work=work, **kw
+            episodes[e], ns[e], sample_f, inv_ac, work=work, **kw
         )
         for e in range(episodes.shape[0])
     ]
@@ -594,11 +596,13 @@ class SnippetMatcher:
     Construction allocates nothing on it. ``plain``: run every kernel's
     plain PyTorch version on any device (the reference path).
     ``graphs``: on a CUDA device, replay the scans of :meth:`match_staged`
-    (one call, or each group of slabs of the live-progress path) as CUDA
-    graphs captured once per shape
+    (one call, or each group of slabs of the live-progress path) and of
+    :meth:`match_staged_batch` as CUDA graphs captured once per shape
     (:class:`~..parallel.step_graph.StepGraphs`), so a matcher reused
     across episodes, as the matcher CLI's, replays them; ``graphs=False``
-    and a ``plain`` matcher run them eagerly.
+    and a ``plain`` matcher run them eagerly. The matchers that
+    :func:`calc_chunks` and ``match()`` build share one cache instead
+    (:meth:`for_call`).
     """
 
     def __init__(
@@ -647,6 +651,19 @@ class SnippetMatcher:
             )
         self._sample_f_cache = None
         self._inv_tensors: dict = {}  # scale → inv_ac, 0-d on the device
+        self._spectrum_copied = False  # see _scan
+
+    @classmethod
+    def for_call(cls, snippet: np.ndarray, sr: int,
+                 config: MatchConfig | None = None,
+                 device="cuda") -> "SnippetMatcher":
+        """The matcher of one :func:`calc_chunks` or ``match()`` call: its
+        scans go through :data:`CALL_GRAPHS`, its spectrum copied into the
+        graph, so that every snippet of one length shares the key."""
+        matcher = cls(snippet, sr, config, device=device, graphs=False)
+        matcher.step_graphs = CALL_GRAPHS
+        matcher._spectrum_copied = True
+        return matcher
 
     @property
     def _sample_f(self):
@@ -680,27 +697,37 @@ class SnippetMatcher:
     def _inv_ac(self, scale: bool) -> np.float32:
         return np.float32(self.snippet.inv_autocorr if scale else 1.0)
 
-    def _scan_episode(self, episode_dev, n: int, scale: bool, kw: dict):
-        """:func:`_match_episode_resident` of a staged episode with ``n``
-        and the inverse autocorrelation as tensors on its device, replayed
-        from :attr:`step_graphs` where there is one."""
-        dev = episode_dev.device
+    def _scan(self, resident, name: str, staged, ns, scale: bool,
+              kw: dict):
+        """``resident`` (:func:`_match_episode_resident` or
+        :func:`_match_batch_resident`) of staged rows with the row lengths
+        ``ns`` and the inverse autocorrelation as tensors on their device,
+        replayed from :attr:`step_graphs` where there is one under the key
+        ``name`` and ``kw``. The query spectrum is held (read in place),
+        or copied into the graph in a matcher made by :meth:`for_call`."""
+        dev = staged.device
         if scale not in self._inv_tensors:
             self._inv_tensors[scale] = torch.tensor(
                 self._inv_ac(scale), dtype=torch.float32, device=dev)
         spec = self._sample_f
         paired = isinstance(spec, tuple)
-        held = tuple(spec) if paired else (spec,)
+        spectrum = tuple(spec) if paired else (spec,)
+        copied = (staged, device_ints(ns, dev), self._inv_tensors[scale])
 
-        def step(episode, n_dev, inv, *spectrum):
-            return _match_episode_resident(
-                episode, n_dev, spectrum if paired else spectrum[0], inv,
-                **kw)
+        def step(rows, ns_dev, inv, *spectrum):
+            return resident(
+                rows, ns_dev, spectrum if paired else spectrum[0], inv, **kw)
 
-        return run_step(
-            self.step_graphs, ("episode",) + tuple(sorted(kw.items())), step,
-            (episode_dev, device_ints(n, dev), self._inv_tensors[scale]),
-            held)
+        key = (name,) + tuple(sorted(kw.items()))
+        if self._spectrum_copied:
+            return run_step(self.step_graphs, key, step, copied + spectrum)
+        return run_step(self.step_graphs, key, step, copied, spectrum)
+
+    def _scan_episode(self, episode_dev, n: int, scale: bool, kw: dict):
+        """:func:`_match_episode_resident` of a staged episode, through
+        :meth:`_scan`."""
+        return self._scan(_match_episode_resident, "episode", episode_dev, n,
+                          scale, kw)
 
     def stage(self, samples: np.ndarray, n_samples: int | None = None):
         """Pad an episode to whole slabs of windows in the wire dtype and
@@ -842,10 +869,8 @@ class SnippetMatcher:
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         n_max = int(ns.max()) if len(ns) else 0
         B = scan_slab(self.config, self.chunk, n_max, n_windows_pad)
-        out = _match_batch_resident(
-            episodes_dev, ns, self._sample_f, self._inv_ac(scale),
-            **self._scan_kwargs(B, n_windows_pad // B),
-        )
+        out = self._scan(_match_batch_resident, "batch", episodes_dev, ns,
+                         scale, self._scan_kwargs(B, n_windows_pad // B))
         pos, h, prom = (a.cpu().numpy() for a in out)
         return [
             self._extract_peaks(
@@ -853,6 +878,18 @@ class SnippetMatcher:
             )
             for e in range(len(ns))
         ]
+
+
+# The scans of calc_chunks and match(), which build a matcher a call
+# (SnippetMatcher.for_call): one cache for the process, so that a second
+# call of one shape replays the graph its first two calls captured, as a
+# second call of the JAX package's jitted scan reuses its program. The
+# query spectrum is a copied input here, so that every snippet of one
+# length shares the key; the cache holds no matcher and no snippet, only
+# its graphs' own buffers. Its graphs hold their step's work planes in the
+# device's shared pool (see parallel/step_graph.py) until another cache's
+# graphs go, which takes them and the pool along, or CALL_GRAPHS.clear().
+CALL_GRAPHS = StepGraphs()
 
 
 def calc_chunks(
@@ -865,8 +902,8 @@ def calc_chunks(
     progress: Callable[[str, int], None] | None = None,
     device="cuda",
 ) -> list[Peak]:
-    """Functional entry point: one :class:`SnippetMatcher` on ``device``,
-    one :meth:`~SnippetMatcher.match`."""
-    return SnippetMatcher(snippet, sr, config, device=device).match(
+    """Functional entry point: one :meth:`SnippetMatcher.for_call` on
+    ``device``, one :meth:`~SnippetMatcher.match`."""
+    return SnippetMatcher.for_call(snippet, sr, config, device=device).match(
         samples, scale=scale, n_samples=n_samples, progress=progress
     )

@@ -16,8 +16,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.peaks import Peak, find_peaks_device
-from ..ops.stft import fingerprint_scores, log_mel, mel_filterbank
+from ..ops.peaks import (
+    Peak,
+    find_peaks_scipy,
+    find_peaks_slots,
+    peaks_from_picks,
+    pick_padded,
+)
+from ..ops.stft import fingerprint_scores, log_mel, mel_filterbank, n_frames_of
+from ..parallel.step_graph import StepGraphs, run_step
+from .matcher import device_ints, upload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,34 +59,83 @@ def describe_spectrogram_path(device: torch.device,
 
 class SpectrogramMatcher:
     """Reusable per-snippet fingerprint matcher on ``device`` (default the
-    current CUDA device; ``"cpu"`` runs the same torch ops on the host)."""
+    current CUDA device; ``"cpu"`` runs the same torch ops on the host).
+
+    :meth:`match` stages the episode's f32 samples through a pinned buffer
+    and runs one step on the device: the log-mel fingerprint, the NCC
+    scores against the snippet's, their −inf pad to the picker's width
+    and the device picker (``find_peaks_device``'s path, the JAX
+    package's), of which only the picks are read back; past
+    ``SCIPY_SLOTS`` candidate slots the step ends at the scores, which go
+    to scipy on the host, as in the JAX package. ``graphs``: on a CUDA
+    device, replay that step as a CUDA graph captured once per sample
+    count (:attr:`step_graphs`, a
+    :class:`~..parallel.step_graph.StepGraphs`), the counterpart of the
+    JAX package's jitted steps; False runs it eagerly."""
 
     def __init__(self, snippet: np.ndarray, sr: int,
-                 config: SpectrogramConfig | None = None, device="cuda"):
+                 config: SpectrogramConfig | None = None, device="cuda",
+                 graphs: bool = True):
         self.sr = int(sr)
         self.config = cfg = config or SpectrogramConfig()
         self.device = torch.device(device)
+        self.step_graphs = StepGraphs() if graphs else None
         self._fb = torch.from_numpy(
             mel_filterbank(cfg.n_mels, cfg.n_fft, self.sr)).to(self.device)
-        self.snippet_fp = self._log_mel(snippet)
+        self.snippet_fp = log_mel(
+            np.asarray(snippet, np.float32), self.sr, cfg.n_fft, cfg.hop,
+            cfg.n_mels, fb=self._fb, device=self.device)
+        # the tiled NCC's frame count on the device, made once
+        self._widths = device_ints([self.snippet_fp.shape[0]], self.device)
 
-    def _log_mel(self, samples) -> torch.Tensor:
+    def _stage(self, samples: np.ndarray) -> torch.Tensor:
+        """The f32 samples on the device: one copy from a pinned buffer on
+        a CUDA device (:func:`~.matcher.upload`)."""
+        x = torch.from_numpy(np.ascontiguousarray(samples, np.float32))
+        if self.device.type == "cuda":
+            x = x.pin_memory()
+        return upload(x, self.device)
+
+    def _picks(self, samples: np.ndarray):
+        """The step's outputs for an episode on the device: (pos, h, prom),
+        each [1, slots], or past ``SCIPY_SLOTS`` slots the [V] scores
+        alone; None for an episode shorter than the snippet."""
         cfg = self.config
-        return log_mel(np.asarray(samples, np.float32), self.sr, cfg.n_fft,
-                       cfg.hop, cfg.n_mels, fb=self._fb, device=self.device)
+        V = (n_frames_of(len(samples), cfg.n_fft, cfg.hop)
+             - self.snippet_fp.shape[0] + 1)
+        if V < 1:
+            return None
+        distance = cfg.frame_distance(self.sr)
+        slots = find_peaks_slots(V, distance)
+        sr, n_fft, hop, n_mels = self.sr, cfg.n_fft, cfg.hop, cfg.n_mels
+
+        def step(x, valid, fb, snippet_fp, widths):
+            scores = fingerprint_scores(
+                log_mel(x, sr, n_fft, hop, n_mels, fb=fb), snippet_fp,
+                widths)
+            if slots is None:
+                return (scores,)
+            return pick_padded(scores, valid, slots[1], distance, slots[0])
+
+        return run_step(
+            self.step_graphs, ("spectrogram_match", n_fft, hop, distance,
+                               slots), step,
+            (self._stage(samples), device_ints([V], self.device)),
+            (self._fb, self.snippet_fp, self._widths))
 
     def match(self, samples: np.ndarray) -> list[Peak]:
         """→ peaks with ``position`` in samples (frame-accurate) and
         ``height`` ≥ ``min_score``; an episode shorter than the snippet
         gives no matches."""
         cfg = self.config
-        episode_fp = self._log_mel(samples)
-        if episode_fp.shape[0] < self.snippet_fp.shape[0]:
+        out = self._picks(samples)
+        if out is None:
             return []
-        scores = fingerprint_scores(episode_fp, self.snippet_fp).cpu().numpy()
-        peaks = find_peaks_device(
-            scores, distance=cfg.frame_distance(self.sr), min_prominence=0.0,
-            device=self.device,
-        )
+        if len(out) == 1:
+            peaks = find_peaks_scipy(out[0].cpu().numpy(),
+                                     cfg.frame_distance(self.sr))
+        else:
+            peaks = peaks_from_picks(*(a[0].cpu().numpy() for a in out),
+                                     0.0)
         return [Peak(p.position * cfg.hop, p.height, p.prominence)
                 for p in peaks if p.height >= cfg.min_score]

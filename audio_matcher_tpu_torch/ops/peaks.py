@@ -464,6 +464,70 @@ def peaks_crop_width(valid_max: int, block: int, impl: str) -> int:
 SCIPY_SLOTS = 256  # beyond this many candidate slots, scipy on the host
 
 
+def find_peaks_slots(V: int, distance: int = 1,
+                     n_peaks: int | None = None) -> tuple[int, int] | None:
+    """The device picker's (slots, padded width) for :func:`find_peaks_device`
+    on a ``V``-long signal: the JAX package's power-of-two bucket of the
+    slot count and 4096-multiple of ``V``, which bound its compiled shapes
+    (the same buckets keep both packages' picks identical); None past
+    ``SCIPY_SLOTS`` slots, where scipy takes the signal on the host."""
+    if n_peaks is None:
+        # at most ceil(V/distance)+1 peaks can survive the suppression
+        n_peaks = min(V // max(int(distance), 1) + 2, max(V // 2, 2))
+    if n_peaks > SCIPY_SLOTS:
+        return None
+    return (1 << max(int(n_peaks) - 1, 1).bit_length(),
+            max(-(-V // 4096) * 4096, 4096))
+
+
+def find_peaks_scipy(x: np.ndarray, distance: int = 1,
+                     min_prominence: float = 0.0) -> list[Peak]:
+    """:func:`find_peaks_device`'s branch past ``SCIPY_SLOTS`` slots:
+    scipy ``find_peaks`` on the host, whose plateau handling differs from
+    the device pickers' on exactly tied values."""
+    import scipy.signal
+
+    x = np.asarray(x, np.float32)
+    logging.getLogger("audio_matcher_torch.peaks").info(
+        "find_peaks_device: more than %d candidate slots: using scipy on "
+        "the host (plateau ties differ from the device pickers)",
+        SCIPY_SLOTS,
+    )
+    kwargs = {"distance": distance} if distance and distance > 1 else {}
+    idx, props = scipy.signal.find_peaks(
+        x.astype(np.float64), prominence=(float(min_prominence), None),
+        **kwargs,
+    )
+    return [
+        Peak(int(p), float(x[p]), float(pr))
+        for p, pr in zip(idx, props["prominences"])
+    ]
+
+
+def pick_padded(x: torch.Tensor, valid_len: torch.Tensor, V_pad: int,
+                distance: int, n_peaks: int, block: int = 1024):
+    """The device half of :func:`find_peaks_device`: one signal ``x`` [V]
+    padded with −inf to ``V_pad`` on its device and picked by
+    :func:`pick_peaks_batch` with ``valid_len`` [1] (int64, on the same
+    device) → (pos, h, prom), each [1, n_peaks]. Reads nothing from the
+    host, so a CUDA graph can capture it."""
+    x = torch.nn.functional.pad(x, (0, V_pad - x.shape[-1]), value=_NEG)
+    return pick_peaks_batch(x[None], valid_len, int(distance), int(n_peaks),
+                            block)
+
+
+def peaks_from_picks(pos, h, prom, min_prominence: float) -> list[Peak]:
+    """One row's picks read back (numpy [n_peaks] each) → the finite ones
+    at or above ``min_prominence``, sorted by position."""
+    out = [
+        Peak(int(p), float(hh), float(pr))
+        for p, hh, pr in zip(pos, h, prom)
+        if np.isfinite(hh) and pr >= min_prominence
+    ]
+    out.sort(key=lambda pk: pk.position)
+    return out
+
+
 def find_peaks_device(
     x, distance: int = 1, min_prominence: float = 0.0,
     n_peaks: int | None = None, block: int = 1024, device="cuda",
@@ -474,43 +538,13 @@ def find_peaks_device(
     whose plateau handling differs on exactly tied values."""
     x = np.asarray(x, np.float32)
     V = x.shape[-1]
-    if n_peaks is None:
-        # at most ceil(V/distance)+1 peaks can survive the suppression
-        n_peaks = min(V // max(int(distance), 1) + 2, max(V // 2, 2))
-    if n_peaks > SCIPY_SLOTS:
-        import scipy.signal
-
-        logging.getLogger("audio_matcher_torch.peaks").info(
-            "find_peaks_device: %d candidate slots exceed %d: using scipy "
-            "on the host (plateau ties differ from the device pickers)",
-            n_peaks, SCIPY_SLOTS,
-        )
-        kwargs = {"distance": distance} if distance and distance > 1 else {}
-        idx, props = scipy.signal.find_peaks(
-            x.astype(np.float64), prominence=(float(min_prominence), None),
-            **kwargs,
-        )
-        return [
-            Peak(int(p), float(x[p]), float(pr))
-            for p, pr in zip(idx, props["prominences"])
-        ]
-    # the JAX package buckets V and the slot count to bound its compiled
-    # shapes; the same buckets keep both packages' picks identical
-    n_peaks = 1 << max(int(n_peaks) - 1, 1).bit_length()
-    V_pad = max(-(-V // 4096) * 4096, 4096)
-    if V_pad != V:
-        x = np.pad(x, (0, V_pad - V), constant_values=-np.inf)
+    slots = find_peaks_slots(V, distance, n_peaks)
+    if slots is None:
+        return find_peaks_scipy(x, distance, min_prominence)
+    n_peaks, V_pad = slots
     dev = torch.device(device)
-    pos, h, prom = (
-        a[0].cpu().numpy() for a in pick_peaks_batch(
-            torch.from_numpy(x)[None].to(dev),
-            torch.tensor([V], device=dev), int(distance), int(n_peaks), block,
-        )
-    )
-    out = [
-        Peak(int(p), float(hh), float(pr))
-        for p, hh, pr in zip(pos, h, prom)
-        if np.isfinite(hh) and pr >= min_prominence
-    ]
-    out.sort(key=lambda pk: pk.position)
-    return out
+    picks = pick_padded(torch.from_numpy(x).to(dev),
+                        torch.tensor([V], device=dev), V_pad, distance,
+                        n_peaks, block)
+    return peaks_from_picks(*(a[0].cpu().numpy() for a in picks),
+                            min_prominence)

@@ -179,18 +179,21 @@ NCC_TILE = 1 << 16
 
 
 def ncc_frames_tiled_core(episode_fp, snippet_fp, t_s: int,
-                          tile: int = NCC_TILE) -> torch.Tensor:
+                          tile: int = NCC_TILE,
+                          widths: torch.Tensor | None = None) -> torch.Tensor:
     """Overlap-save ZNCC over frames: ``tile``-frame chunks with a
     ``t_s - 1`` halo, so one [M, tile + t_s - 1] spectrum exists at a time
     however long the episode is. The same scores as the single-shot path
-    (correlation is linear; the window statistics are window-local)."""
+    (correlation is linear; the window statistics are window-local).
+    ``widths``: ``[t_s]`` int64 on the episode's device, where the caller
+    keeps one (see :func:`ncc_frames_multi_core`)."""
     t_e = episode_fp.shape[0]
     valid_total = t_e - t_s + 1
     if valid_total <= tile:
         return ncc_frames_core(episode_fp, snippet_fp,
                                fft_length(t_e + t_s - 1), t_s)
     return ncc_frames_multi_core(episode_fp, snippet_fp[None], (t_s,),
-                                 tile)[0]
+                                 tile, widths)[0]
 
 
 def ncc_frames_multi_core(episode_fp, snip_fps, t_ss: tuple,
@@ -234,13 +237,16 @@ def ncc_frames_multi_core(episode_fp, snip_fps, t_ss: tuple,
     return out[:, :valid_total]
 
 
-def fingerprint_scores(episode_fp, snippet_fp) -> torch.Tensor:
+def fingerprint_scores(episode_fp, snippet_fp,
+                       widths: torch.Tensor | None = None) -> torch.Tensor:
     """Zero-mean NCC scores per frame lag (window-local statistics); long
-    episodes take the overlap-save tiled path."""
+    episodes take the overlap-save tiled path (``widths``: see
+    :func:`ncc_frames_tiled_core`)."""
     t_e, t_s = episode_fp.shape[0], snippet_fp.shape[0]
     if t_e < t_s:
         raise ValueError("episode shorter than snippet")
     if t_e - t_s + 1 > NCC_TILE:
-        return ncc_frames_tiled_core(episode_fp, snippet_fp, t_s)
+        return ncc_frames_tiled_core(episode_fp, snippet_fp, t_s, NCC_TILE,
+                                     widths)
     return ncc_frames_core(episode_fp, snippet_fp,
                            fft_length(t_e + t_s - 1), t_s)

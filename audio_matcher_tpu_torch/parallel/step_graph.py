@@ -29,11 +29,17 @@ capture is added to its wrapper's count on every replay.
 The graphs of every cache of the process on one device share one memory
 pool, and at most :data:`GRAPHS_PER_DEVICE` of them are kept a device
 (the least recently used is dropped, its blocks going back to the pool):
-a replay only writes the pool's blocks, and its outputs are copied out
-before any other replay on that device can be issued (the device's one
-stream), so the process holds about one step's work planes however many
-scanners and matchers it keeps, as the eager steps share the allocator's
-cache. A cache's graphs go when it is cleared or dropped.
+a replay only writes the pool's blocks, and a device's replays are issued
+one at a time on its current stream, each from the copy of its inputs to
+the copy of its outputs, so the process holds about one step's work
+planes however many scanners and matchers it keeps, as the eager steps
+share the allocator's cache. Threads may call one cache on one device
+if they share that device's stream. A live pool keeps every block any
+graph was captured into, and the allocator can take them back only when
+no graph of the pool is left: so when a cache's graphs go (it is cleared
+or dropped), the device's other graphs go with them and the pool with
+them; their keys are kept as seen, so each captures again on its next
+call.
 
 A capture that fails raises, and so does every later call of its key;
 nothing falls back to the eager step. Tensors on a device that is not
@@ -129,6 +135,9 @@ class _Device:
         default_factory=collections.OrderedDict)
     failed: set = dataclasses.field(default_factory=set)
     pool: object = None  # the memory pool the device's graphs share
+    # held from a replay's input copies to its output copies
+    replaying: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock)
 
 
 _LOCK = threading.Lock()  # guards _DEVICES and every _Device in it
@@ -153,18 +162,27 @@ def _locked():
 
 def _drop(token) -> None:
     for dev in _DEVICES.values():
+        had_graphs = any(k[0] is token for k in dev.graphs)
         for keys in (dev.graphs, dev.seen):
             for full in [k for k in keys if k[0] is token]:
                 del keys[full]
         dev.failed = {k for k in dev.failed if k[0] is not token}
+        if had_graphs:
+            # the pool's blocks go back only with its last graph
+            for full in dev.graphs:
+                dev.seen[full] = True
+            dev.graphs.clear()
+            while len(dev.seen) > SEEN_PER_DEVICE:
+                dev.seen.popitem(last=False)
         if not dev.graphs:
             dev.pool = None
 
 
 def _forget(token) -> None:
-    """Drop the graphs and keys of the cache ``token``; a device left with
-    no graph lets its pool go. A cache's finalizer calls it, possibly in
-    a thread that holds the lock: then it is left to :func:`_locked`."""
+    """Drop the graphs and keys of the cache ``token``; on a device where
+    it had graphs, the other graphs go too (their keys kept as seen), and
+    the pool with them. A cache's finalizer calls it, possibly in a
+    thread that holds the lock: then it is left to :func:`_locked`."""
     if getattr(_HOLDING, "inside", False):
         _DROPPED.append(token)
         return
@@ -203,8 +221,10 @@ class StepGraphs:
 
     def clear(self) -> None:
         """Drop this cache's graphs and the keys it has seen, which frees
-        their buffers, and the device's pool once no graph is left; the
-        next call of a key runs eagerly again."""
+        their buffers; on a device where it had graphs, the other caches'
+        graphs go too (each captures again on its next call), and the
+        device's pool with them. The next call of this cache's keys runs
+        eagerly again."""
         _forget(self._token)
 
     def __call__(self, key, step: Callable[..., tuple],
@@ -236,7 +256,7 @@ class StepGraphs:
             entry = self._capture(dev, full, device, step, inputs, held)
         else:
             self.stats["hits"] += 1
-        return self._replay(entry, inputs)
+        return self._replay(dev, entry, inputs)
 
     def _capture(self, dev: _Device, full, device, step, inputs,
                  held) -> _Graph:
@@ -268,12 +288,15 @@ class StepGraphs:
         return entry
 
     @staticmethod
-    def _replay(entry: _Graph, inputs) -> tuple:
-        for buffer, t in zip(entry.inputs, inputs):
-            buffer.copy_(t)
-        entry.graph.replay()
-        _build.add_launches(entry.launches)
-        return tuple(o.clone() for o in entry.outputs)
+    def _replay(dev: _Device, entry: _Graph, inputs) -> tuple:
+        """Copy ``inputs`` into the graph's buffers, replay it and copy its
+        outputs out, with no other replay of the device issued between."""
+        with dev.replaying:
+            for buffer, t in zip(entry.inputs, inputs):
+                buffer.copy_(t)
+            entry.graph.replay()
+            _build.add_launches(entry.launches)
+            return tuple(o.clone() for o in entry.outputs)
 
 
 def run_step(graphs: StepGraphs | None, key, step: Callable[..., tuple],

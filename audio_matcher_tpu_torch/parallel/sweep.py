@@ -450,8 +450,8 @@ class ShardedScanner(_Scanner):
     scan with instead of computing the spectra from ``snippets`` (copied
     to each device of a mesh). ``plain``: run every kernel's plain PyTorch
     version instead of the CUDA kernels (the reference path), eagerly.
-    ``graphs``: see :class:`_Scanner` (the windows path :meth:`scan` is
-    never graphed).
+    ``graphs``: see :class:`_Scanner`; the windows path :meth:`scan`
+    replays each block's step too.
     """
 
     def __init__(
@@ -627,21 +627,34 @@ class ShardedScanner(_Scanner):
 
     def _windows_step(self, windows, valid, scale: bool):
         """One block of windows [e, c, W] and lengths [e, c] on its
-        device → (pos, h, prom), each [e, Q, c, S]: rfft, the product with
-        the conjugate query spectra, irfft cropped to the valid range, the
-        scale, then the multi-pass picker per (episode, query, window)."""
+        device → (pos, h, prom), each [e, Q, c, S] (the JAX package's
+        ``sharded_match_step``): rfft, the product with the conjugate query
+        spectra, irfft cropped to the valid range, the scale, then the
+        multi-pass picker per (episode, query, window). Replayed from
+        :attr:`step_graphs` where there is one: the windows, lengths and
+        scales are copied into the graph, the query spectra and lengths
+        held."""
         st = self._rfft_state_on(windows.device)
         inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
-        x = torch.fft.rfft(windows, n=self.fft_len)  # [e, c, F]
-        spec = x[:, :, None, :] * torch.complex(st.t_r, -st.t_i)[None, None]
-        c = torch.fft.irfft(spec, n=self.fft_len)[..., : self.valid]
-        c = (c * inv_ac[None, None, :, None]).transpose(1, 2)  # [e, Q, c, V]
-        vq = (valid[:, None, :] - st.m[None, :, None] + 1).clamp(min=0)
-        picked = pick_peaks_core(
-            c.reshape(-1, c.shape[-1]), vq.reshape(-1),
-            self.distance_samples, self.n_peaks, self.config.block,
-        )
-        return [a.reshape(*c.shape[:3], -1) for a in picked]
+        fft_len, crop = self.fft_len, self.valid
+        distance, n_peaks = self.distance_samples, self.n_peaks
+        block = self.config.block
+
+        def step(windows, valid, inv_ac, t_r, t_i, m):
+            x = torch.fft.rfft(windows, n=fft_len)  # [e, c, F]
+            spec = x[:, :, None, :] * torch.complex(t_r, -t_i)[None, None]
+            c = torch.fft.irfft(spec, n=fft_len)[..., :crop]
+            c = (c * inv_ac[None, None, :, None]).transpose(1, 2)
+            vq = (valid[:, None, :] - m[None, :, None] + 1).clamp(min=0)
+            picked = pick_peaks_core(c.reshape(-1, c.shape[-1]),
+                                     vq.reshape(-1), distance, n_peaks,
+                                     block)
+            return tuple(a.reshape(*c.shape[:3], -1) for a in picked)
+
+        return run_step(
+            self.step_graphs,
+            ("windows", fft_len, crop, distance, n_peaks, block), step,
+            (windows, valid, inv_ac), (st.t_r, st.t_i, st.m))
 
     def scan(
         self, episodes: Sequence[np.ndarray], scale: bool = True

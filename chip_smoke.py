@@ -118,7 +118,8 @@ holds every kernel against its plain PyTorch version:
    ``ShardedSpectrogramScanner``: every plant within one hop, the first
    episode's [Q, V] scores within TOL_SPEC of the port's CPU path on the
    same staged row, stage and scan times, pair audio-hours/s and a
-   profile. Then ``SpectrogramMatcher`` on config #2's pair, p50 of 5.
+   profile. Then ``SpectrogramMatcher`` on config #2's pair, p50 of 5
+   replays.
 11. The device resampler: 600 s of 22.05 kHz and of 48 kHz noise to
    44.1 kHz through ``hostio.decode.resample(impl="device")``, within
    TOL_RESAMPLE of scipy's float64 ``resample_poly`` (the int16 wire
@@ -161,15 +162,22 @@ holds every kernel against its plain PyTorch version:
    #3, one sweep group (8 x 600 s x 4 queries, int16), config #2 through
    ``SnippetMatcher`` at fft_len 2^22 (its one-call path and the matcher
    CLI's live-progress path) and 2^28 and through
-   ``ShardedScanner([snippet])``, and config #4, each on one
-   staged input eager (``graphs=False``) and then graphed: p50 of
+   ``ShardedScanner([snippet])``, ``match()`` on config #2 at 2^22 and
+   2^28 (a matcher a call: eager, against the cache such calls share,
+   timed from the third call), ``SpectrogramMatcher.match`` on config
+   #2's pair, ``SnippetMatcher.match_staged_batch`` on 4 x 1800 s and one
+   10 s snippet, the windows path ``ShardedScanner.scan()`` on 1 x 1800 s
+   x 8 queries, and config #4, each on one
+   input eager (``graphs=False``) and then graphed: p50 of
    REPEATS scans through the entry point, the warm scans (the graphed
    ones: first sight and capture), a profile (busy ms, idle share), the
    turn's peak memory and the cache's captures, replays and hits; every
    raw candidate bitwise equal (the live path: its peaks) and the peaks
    equal between the two, the plants found (within 1 sample, one hop for
-   #4), and the staged input's device-to-device copy into the graph
-   timed. At 2^28, two graphed matchers live at once: one pool, peak
+   #4), the graphed turn replaying, and each input a replay copies into
+   the graph (the staged rows; for ``match()`` also the query spectrum's
+   two planes) timed device to device. At 2^28, two graphed matchers
+   live at once: one pool, peak
    memory and the memory reserved while both are held.
 
 Every scanner and matcher runs with its default ``graphs=True``: a
@@ -201,6 +209,7 @@ second-to-last line is a JSON object of the kernels; the last line is
 from __future__ import annotations
 
 import ast
+import collections
 import contextlib
 import dataclasses
 import io
@@ -244,9 +253,11 @@ from audio_matcher_tpu_torch.models.spectrogram import (  # noqa: E402
     SpectrogramConfig,
     SpectrogramMatcher,
 )
+from audio_matcher_tpu_torch.models import matcher as matcher_mod  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
+    _match_batch_resident,
     _match_episode_resident,
     correlation_crop,
     effective_slab,
@@ -1184,6 +1195,9 @@ def single_query_jnp(config, device, rows):
     timed_repeats("config #2, vpu + jnp, SnippetMatcher.stage + match_staged",
                   lambda: matcher.stage(episode_wire), matcher.match_staged,
                   offsets, config.distance_secs, JNP_PATH)
+    # the kept matcher goes first (its graph with every other), so that
+    # match()'s graphs below are still alive when large_fft starts
+    del matcher, plain
     ref = SnippetMatcher(snippet, SR, config, device=device).match(
         episode_wire)
     for fft_impl, peaks_impl, path in (
@@ -1204,6 +1218,9 @@ def single_query_jnp(config, device, rows):
         compare_peaks(label + " against vpu + pallas", [peaks], [ref])
         print(f"{label}: {t_run:.3f} s end to end; kernel launches "
               f"{ {k: v for k, v in launches.items() if v} }")
+    # match()'s graphs stay in the process-wide cache until large_fft's
+    # first matcher goes
+    print(f"match()'s shared cache: {dict(matcher_mod.CALL_GRAPHS.stats)}")
 
 
 def wide_rows(rows, kernels, log2n, label=""):
@@ -1234,6 +1251,17 @@ def memory():
             f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB")
 
 
+def store_line(device):
+    """The graphs the device's store keeps (match()'s among them) and the
+    memory the allocator holds."""
+    store = step_graph._DEVICES.get(torch.device(device))
+    kept = list(store.graphs) if store is not None else []
+    ours = sum(k[0] is matcher_mod.CALL_GRAPHS._token for k in kept)
+    return (f"{len(kept)} graphs in the device's store ({ours} of match()'s), "
+            f"torch.cuda.memory_reserved "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+
+
 def large_fft(config, device, rows):
     """Path 7, fft_len 2^23 to 2^28: config #2's episode through the
     fused ``SnippetMatcher`` at each of LARGE_CHUNKS; kernels 6, 2-5 on
@@ -1241,6 +1269,7 @@ def large_fft(config, device, rows):
     the new factor modes' numbers kept as rows of their own."""
     snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
     episode_wire = quantize_wire(episode, config.transfer_dtype)
+    print(f"before the large sizes: {store_line(device)}")
     for chunk_secs in LARGE_CHUNKS:
         cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
         matcher = SnippetMatcher(snippets[0], SR, cfg, device=device)
@@ -1267,8 +1296,11 @@ def large_fft(config, device, rows):
               f"capture too): {memory()}; {CARD['line']}")
         for name, row in (record or {}).items():
             row["launches"] = launches[name]
+        print(f"fft_len 2^{log2n}: with the matcher: {store_line(device)}")
         del matcher
         torch.cuda.empty_cache()
+        print(f"fft_len 2^{log2n}: the matcher gone, its graphs and the "
+              f"others with them: {store_line(device)}")
 
 
 def cluster_modes(config, device, rows):
@@ -1508,7 +1540,7 @@ def check_frame_plants(label, peaks, offsets, hop):
                 f"{label}, episode {e}: plants at {want}, found {got}")
 
 
-def graph_turns(label, make, stage, raw, scan, check):
+def graph_turns(label, make, stage, raw, scan, check, copies=None):
     """One path eager (``make(False)``) and then graphed (``make(True)``)
     on the same staged input: each warmed (the graphed one through its
     keys' first sight and their capture, both timed), then REPEATS timed
@@ -1516,13 +1548,18 @@ def graph_turns(label, make, stage, raw, scan, check):
     peaks), a profile, the raw outputs (``raw``; None: the peaks only) and
     the peak memory of the turn. The raw outputs must be equal bit for
     bit and the peaks equal; ``check`` holds the graphed peaks to the
-    plants. The staged input's copy into the graph's buffer is timed on
-    its own."""
+    plants. The inputs a replay copies into the graph's buffers
+    (``copies(runner, staged)``, named tensors on the card; by default the
+    staged rows) are timed on their own. The cache's counts are those of
+    the turn (a cache that outlives the runner, ``match()``'s, counted
+    from the turn's start)."""
     staged = stage()
     got = {}
     for graphs in (False, True):
         runner = make(graphs)
         mode = "graphed" if graphs else "eager"
+        before = (collections.Counter(runner.step_graphs.stats) if graphs
+                  else collections.Counter())
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         warm = []
@@ -1541,7 +1578,9 @@ def graph_turns(label, make, stage, raw, scan, check):
                if raw is not None else [])
         _, busy, idle = profile_run(f"{label}, {mode}",
                                     lambda: scan(runner, staged))
-        stats = (dict(runner.step_graphs.stats) if graphs else {})
+        stats = (runner.step_graphs.stats - before if graphs else {})
+        if graphs and not stats.get("hits"):
+            raise AssertionError(f"{label}: the graphed turn replayed nothing")
         got[mode] = (out, peaks)
         p50 = statistics.median(times)
         print(f"{label}, {mode}: p50 of {REPEATS} {p50:.2f} ms (runs "
@@ -1554,22 +1593,28 @@ def graph_turns(label, make, stage, raw, scan, check):
               f"{stats.get('captures', 0) + stats.get('hits', 0)}, hits "
               f"{stats.get('hits', 0)}, eager first sights "
               f"{stats.get('first', 0)}; {CARD['line']}")
+        if graphs:
+            inputs = (copies(runner, staged) if copies is not None
+                      else [("staged rows", staged[0])])
         del runner
     (e_out, e_peaks), (g_out, g_peaks) = got["eager"], got["graphed"]
     if not all(np.array_equal(a, b, equal_nan=True)
                for a, b in zip(e_out, g_out)) or e_peaks != g_peaks:
         raise AssertionError(f"{label}: graphed and eager scans differ")
     check(g_peaks)
-    rows = staged[0]
-    buf = torch.empty_like(rows)
-    mb = rows.numel() * rows.element_size() / 1e6
     what = ("positions, heights and prominences of every raw candidate "
             "bitwise equal graphed and eager, the peaks equal"
             if raw is not None else "the peaks (positions, heights and "
             "prominences) bitwise equal graphed and eager")
-    print(f"{label}: {what}, plants found; the staged input's copy into "
-          f"the graph {cuda_ms(lambda: buf.copy_(rows)):.3f} ms for "
-          f"{mb:.1f} MB")
+    timed_copies = []
+    for name, t in inputs:
+        buf = torch.empty_like(t)
+        timed_copies.append(
+            f"{name} {cuda_ms(lambda: buf.copy_(t)):.3f} ms for "
+            f"{t.numel() * t.element_size() / 1e6:.1f} MB")
+        del buf
+    print(f"{label}: {what}, plants found; each replay's copies into the "
+          f"graph: {', '.join(timed_copies)}; {CARD['line']}")
 
 
 def two_graphed_caches(label, make, stage, scan):
@@ -1600,11 +1645,156 @@ def two_graphed_caches(label, make, stage, scan):
           f"2^28: {MEMORY_BOUND_GB} GB); {CARD['line']}")
 
 
+class OneCall:
+    """``match()`` as a runner of ``graph_turns``: a matcher a call,
+    graphed through the cache all such calls share (``CALL_GRAPHS``), or
+    eager (``SnippetMatcher(graphs=False)``, as every call ran before)."""
+
+    def __init__(self, snippet, config, device, graphs):
+        self.snippet, self.config, self.device = snippet, config, device
+        self.step_graphs = matcher_mod.CALL_GRAPHS if graphs else None
+
+    def matcher(self):
+        if self.step_graphs is not None:
+            return SnippetMatcher.for_call(self.snippet, SR, self.config,
+                                           self.device)
+        return SnippetMatcher(self.snippet, SR, self.config,
+                              device=self.device, graphs=False)
+
+    def match(self, episode):
+        if self.step_graphs is not None:
+            return match(self.snippet, episode, SR, device=self.device,
+                         **dataclasses.asdict(self.config))
+        return self.matcher().match(episode)
+
+    def raw(self, episode):
+        m = self.matcher()
+        staged = m.stage(episode)
+        n_pad = (staged[0].shape[0] - m.overlap) // m.chunk
+        slab = scan_slab(m.config, m.chunk, staged[1], n_pad)
+        return m._scan_episode(*staged, True,
+                               m._scan_kwargs(slab, n_pad // slab))
+
+    def copies(self, episode):
+        m = self.matcher()
+        s_r, s_i = m._sample_f
+        return [("staged row", m.stage(episode)[0]),
+                ("query spectrum (real plane)", s_r),
+                ("query spectrum (imaginary plane)", s_i)]
+
+
+def one_call_turns(config, device, snippet, offsets, episode):
+    """``match()`` on config #2 (3600 s x one 10 s snippet, mulaw8) at
+    fft_len 2^22 and 2^28, eager (a matcher a call) against graphed (the
+    shared cache, the query spectrum copied into the graph), timed from
+    the third call; the spectrum's copy into the graph and the peak
+    memory of the turn. ``episode`` is given in the wire dtype, so that
+    the host's quantization of f32 samples, which takes longer than the
+    scan, does not hide it. The shared cache keeps its graphs."""
+    for chunk_secs in (config.chunk_secs, LARGE_CHUNKS[-1]):
+        cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
+        log2n = SnippetMatcher(snippet, SR, cfg,
+                               device=device).fft_len.bit_length() - 1
+        graph_turns(
+            f"config #2 at fft_len 2^{log2n} (match(), a matcher a call)",
+            lambda graphs, cfg=cfg: OneCall(snippet, cfg, device, graphs),
+            lambda: (episode,), lambda r, st: r.raw(st[0]),
+            lambda r, st: r.match(st[0]),
+            lambda peaks: check_plants([peaks], offsets,
+                                       config.distance_secs),
+            copies=lambda r, st: r.copies(st[0]))
+        torch.cuda.empty_cache()
+
+
+def spectrogram_matcher_turn(device, snippet, offsets, episode):
+    """``SpectrogramMatcher.match`` on config #2's pair (3600 s x one 10 s
+    snippet, from the host's f32 samples), eager against graphed: the
+    step's picks bitwise, the peaks, the plants within one hop."""
+    cfg = SpectrogramConfig()
+    graph_turns(
+        f"config #4 single pair (SpectrogramMatcher.match, 1 x "
+        f"{SINGLE_EPISODE_SECS} s x one {SNIPPET_SECS:g} s snippet)",
+        lambda graphs: SpectrogramMatcher(snippet, SR, cfg, device=device,
+                                          graphs=graphs),
+        lambda: (episode,), lambda m, st: m._picks(st[0]),
+        lambda m, st: m.match(st[0]),
+        lambda peaks: check_frame_plants("config #4 single pair", [peaks],
+                                         offsets, cfg.hop),
+        copies=lambda m, st: [("f32 samples", m._stage(st[0]))])
+
+
+def batch_matcher_turn(config, device):
+    """``SnippetMatcher.match_staged_batch`` on 4 x 1800 s episodes
+    (mulaw8) and one 10 s snippet, eager against graphed."""
+    snippets, offsets, episode = make_bench_inputs(1, EPISODE_SECS)
+    wire = quantize_wire(episode, config.transfer_dtype)
+    del episode
+    spectra = SnippetMatcher(snippets[0], SR, config,
+                             device=device)._sample_f
+
+    def matcher(graphs):
+        m = SnippetMatcher(snippets[0], SR, config, device=device,
+                           graphs=graphs)
+        m._sample_f_cache = spectra
+        return m
+
+    def batch_raw(m, staged):
+        rows, ns = staged
+        n_pad = (rows.shape[1] - m.overlap) // m.chunk
+        slab = scan_slab(m.config, m.chunk, int(ns.max()), n_pad)
+        return m._scan(_match_batch_resident, "batch", rows, ns, True,
+                       m._scan_kwargs(slab, n_pad // slab))
+
+    graph_turns(
+        f"config #2 batch ({N_EPISODES} x {EPISODE_SECS} s x one "
+        f"{SNIPPET_SECS:g} s snippet, SnippetMatcher.match_staged_batch)",
+        matcher, lambda: matcher(False).stage_batch([wire] * N_EPISODES),
+        batch_raw, SnippetMatcher.match_staged_batch,
+        lambda peaks: check_plants(peaks, offsets, config.distance_secs))
+    torch.cuda.empty_cache()
+
+
+def windows_turn(config, device):
+    """The windows path ``ShardedScanner.scan()`` (the JAX package's
+    equivalence reference, f32 windows from the host, torch ops) on 1 x
+    1800 s x XLA_QUERIES queries, eager against graphed."""
+    snippets, offsets, episode = make_bench_inputs(XLA_QUERIES, EPISODE_SECS)
+    state = ShardedScanner(snippets, SR, config, device=device)
+
+    def scanner(graphs):
+        sc = ShardedScanner(snippets, SR, config, device=device,
+                            graphs=graphs)
+        sc._rfft_states = state._rfft_states
+        return sc
+
+    def windows(sc, staged):
+        C = -(-len(staged[0]) // sc.chunk)
+        host, valid = sc._windows(staged, C)
+        return [("f32 windows", torch.from_numpy(host).to(device)),
+                ("window lengths", torch.from_numpy(valid).to(device))]
+
+    def windows_raw(sc, staged):
+        (_, w), (_, v) = windows(sc, staged)
+        return sc._windows_step(w, v, True)
+
+    state._rfft_state_on(device)
+    graph_turns(
+        f"windows path (ShardedScanner.scan(), 1 x {EPISODE_SECS} s x "
+        f"{XLA_QUERIES})", scanner, lambda: [episode], windows_raw,
+        ShardedScanner.scan,
+        lambda peaks: check_plants([peaks[0][0]], offsets,
+                                   config.distance_secs),
+        copies=windows)
+    torch.cuda.empty_cache()
+
+
 def step_graphs(config, device, rows):
     """The scan steps replayed as CUDA graphs against the eager steps, in
-    turns on one card: config #3, one sweep group, config #2 through
-    ``SnippetMatcher`` (at fft_len 2^22 and 2^28) and
-    ``ShardedScanner([snippet])``, and config #4 (``graph_turns``)."""
+    turns on one card (``graph_turns``): config #3, one sweep group,
+    config #2 through ``SnippetMatcher`` (at fft_len 2^22 and 2^28),
+    ``ShardedScanner([snippet])``, ``match()`` (at 2^22 and 2^28) and
+    ``SpectrogramMatcher``, ``match_staged_batch`` on 4 x 1800 s, the
+    windows path ``scan()`` and config #4."""
     del rows
     snippets, offsets, episode = make_bench_inputs()
     wire = quantize_wire(episode, config.transfer_dtype)
@@ -1699,8 +1889,13 @@ def step_graphs(config, device, rows):
         lambda sc, st: sc.scan_dispatch(st)[0], ShardedScanner.scan_staged,
         lambda peaks: check_plants([peaks[0][0]], offsets,
                                    config.distance_secs))
-    del state, wire, episode
+    del state
     torch.cuda.empty_cache()
+    one_call_turns(config, device, snippets[0], offsets, wire)
+    spectrogram_matcher_turn(device, snippets[0], offsets, episode)
+    del episode, wire
+    batch_matcher_turn(config, device)
+    windows_turn(config, device)
 
     snippets, offsets, base = make_bench_inputs(SPEC_QUERIES, EPISODE_SECS)
     rng = np.random.default_rng(4)
@@ -1800,14 +1995,16 @@ def spectrogram_batch(config, device, rows):
 
 
 def spectrogram_single(config, device, rows):
-    """Config #4 on one pair: ``SpectrogramMatcher`` on the config #2
-    episode (3600 s, plants at 21 s and 1980 s) and its 10 s snippet, p50
-    of REPEATS warm runs from the host's f32 samples; the plants within
-    one hop."""
+    """Config #4 on one pair: ``SpectrogramMatcher`` (graphed, the
+    default) on the config #2 episode (3600 s, plants at 21 s and 1980 s)
+    and its 10 s snippet, p50 of REPEATS replays from the host's f32
+    samples after WARM_SCANS warm runs (first sight, capture); the plants
+    within one hop."""
     del config, rows
     snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
     matcher = SpectrogramMatcher(snippets[0], SR, device=device)
-    matcher.match(episode)  # warm
+    for _ in range(WARM_SCANS):
+        matcher.match(episode)
     times = []
     for _ in range(REPEATS):
         torch.cuda.synchronize()
@@ -1820,7 +2017,8 @@ def spectrogram_single(config, device, rows):
                        matcher.config.hop)
     print(f"config #4 single pair (1 x {SINGLE_EPISODE_SECS} s x one "
           f"{SNIPPET_SECS:g} s snippet, SpectrogramMatcher.match from f32 "
-          f"host samples: upload, log-mel, NCC, readback, peaks): p50 of "
+          f"host samples: pinned upload, log-mel, NCC, picks, readback; "
+          f"graphed, step cache {dict(matcher.step_graphs.stats)}): p50 of "
           f"{REPEATS} {statistics.median(times):.4f} s (runs "
           f"{', '.join(f'{t:.4f}' for t in times)}); plants "
           f"{[(p.position, round(p.height, 4)) for p in peaks]} within one "

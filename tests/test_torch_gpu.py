@@ -1203,3 +1203,297 @@ def test_graphed_caches_share_one_pool(dev):
             if k[0] in (a.step_graphs._token, b.step_graphs._token)]
     assert len(mine) == 2
     assert {e.graph.pool() for e in mine} == {store.pool}
+
+
+def _refusing_graph(monkeypatch):
+    """Every capture of the step cache refuses, as a capture that meets a
+    host read does."""
+    from audio_matcher_tpu_torch.parallel import step_graph
+
+    class Refusing(step_graph.CudaGraph):
+        def capture(self, run, device, pool):
+            raise RuntimeError("operation not permitted when capturing")
+
+    monkeypatch.setattr(step_graph, "CudaGraph", Refusing)
+
+
+def _fresh_call_graphs(monkeypatch):
+    """A cache of its own for ``match()`` and ``calc_chunks``."""
+    from audio_matcher_tpu_torch.models import matcher as TM
+    from audio_matcher_tpu_torch.parallel.step_graph import StepGraphs
+
+    cache = StepGraphs()
+    monkeypatch.setattr(TM, "CALL_GRAPHS", cache)
+    return cache
+
+
+def _single_case(seed, secs=21, plants=(5.0, 9.5)):
+    sr = 8000
+    rng = np.random.default_rng(seed)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    eps = []
+    for at in plants:
+        ep = (rng.standard_normal(secs * sr) * 0.05).astype(np.float32)
+        ep[int(at * sr) : int(at * sr) + 4000] = snippet
+        eps.append(ep)
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0,
+                      transfer_dtype="mulaw8")
+    return sr, snippet, eps, cfg
+
+
+def test_graphed_batch_matcher_equals_eager_bitwise(dev):
+    """``SnippetMatcher.match_staged_batch`` replayed as a CUDA graph: the
+    raw candidates and the peaks of two stagings of one shape equal the
+    eager matcher's, bit for bit, with the same launches a run."""
+    from audio_matcher_tpu_torch.models.matcher import _match_batch_resident
+
+    sr, snippet, eps, cfg = _single_case(18, plants=(5.0, 9.5, 14.0, 3.0))
+    graphed = SnippetMatcher(snippet, sr, cfg, device=dev)
+    eager = SnippetMatcher(snippet, sr, cfg, device=dev, graphs=False)
+    staged = [graphed.stage_batch(eps[:2]), graphed.stage_batch(eps[2:])]
+    n_pad = (staged[0][0].shape[1] - graphed.overlap) // graphed.chunk
+    slab = scan_slab(cfg, graphed.chunk, int(staged[0][1].max()), n_pad)
+    kw = graphed._scan_kwargs(slab, n_pad // slab)
+
+    def raw(m, s):
+        return m._scan(_match_batch_resident, "batch", *s, True, kw)
+
+    for k in (0, 1, 0, 1):
+        before = _launch_counts()
+        want = raw(eager, staged[k])
+        eager_launches = [a - b for a, b in zip(_launch_counts(), before)]
+        before = _launch_counts()
+        got = raw(graphed, staged[k])
+        assert [a - b for a, b in zip(_launch_counts(), before)] == (
+            eager_launches)
+        _bitwise(got, want)
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 2}
+    got = graphed.match_staged_batch(staged[1])
+    assert got == eager.match_staged_batch(staged[1])
+    assert [[p.position for p in e if p.height > 0.5] for e in got] == [
+        [14 * sr], [3 * sr]]
+
+
+def test_repeated_match_replays_on_the_shared_cache(dev, monkeypatch):
+    """``match()`` and ``calc_chunks`` build a matcher a call; from the
+    third call of one shape on they replay the shared cache's graph, with
+    the eager matcher's peaks bit for bit, also for another snippet of
+    the same length (the spectrum is copied into the graph)."""
+    from audio_matcher_tpu_torch.models.matcher import calc_chunks
+
+    cache = _fresh_call_graphs(monkeypatch)
+    sr, snippet, eps, cfg = _single_case(19)
+    other = (np.random.default_rng(24).standard_normal(4000) * 0.2).astype(
+        np.float32)  # another snippet of the same length
+    ep = eps[0].copy()
+    ep[int(14.0 * sr) : int(14.0 * sr) + 4000] = other
+    kw = dict(chunk_secs=1.0, distance_secs=2.0, transfer_dtype="mulaw8")
+    for k, snip in enumerate((snippet, snippet, snippet, other, snippet)):
+        want = SnippetMatcher(snip, sr, MatchConfig(**kw), device=dev,
+                              graphs=False).match(ep)
+        got = (calc_chunks(sr, ep, snip, config=MatchConfig(**kw),
+                           device=dev) if k % 2
+               else port.match(snip, ep, sr, device=dev, **kw))
+        assert got == want
+        assert cache.stats["hits"] == max(k - 1, 0)
+        assert [p.position for p in got if p.height > 0.5] == [
+            int((14.0 if snip is other else 5.0) * sr)]
+    assert dict(cache.stats) == {"first": 1, "captures": 1, "hits": 3}
+
+
+def _spectrogram_case(seed, secs=300, plants=(40.0, 200.0)):
+    sr = 8000
+    rng = np.random.default_rng(seed)
+    t = np.arange(3 * sr) / sr  # test_torch_spectrogram.py's snippet
+    env = np.minimum(1.0, 10 * t) * np.minimum(1.0, 10 * (3 - t))
+    snippet = (0.2 * env * sum(np.sin(2 * np.pi * f * t + p) for f, p in
+                               [(220, 0.1), (523, 1.0), (1397, 2.0)])
+               ).astype(np.float32)
+    episode = (rng.standard_normal(secs * sr) * 0.05).astype(np.float32)
+    for at in plants:
+        episode[int(at * sr) : int(at * sr) + len(snippet)] += snippet
+    return sr, snippet, episode
+
+
+@pytest.mark.parametrize("tile,distance", [(None, 60.0), (2048, 60.0),
+                                           (None, 0.01)],
+                         ids=["whole", "tiled", "scipy"])
+def test_graphed_spectrogram_matcher_equals_eager_bitwise(dev, monkeypatch,
+                                                          tile, distance):
+    """``SpectrogramMatcher.match`` replayed as a CUDA graph: the step's
+    outputs (the picks, or past 256 slots the scores) and the peaks equal
+    the eager matcher's, bit for bit, over first sight, capture and
+    replay, with the NCC whole and tiled (``NCC_TILE`` made small: the
+    tiled path's frame count comes from the device); no kernel of ours
+    launched."""
+    from audio_matcher_tpu_torch.models.spectrogram import (
+        SpectrogramConfig, SpectrogramMatcher)
+    from audio_matcher_tpu_torch.ops import stft
+
+    if tile is not None:
+        monkeypatch.setattr(stft, "NCC_TILE", tile)
+    sr, snippet, episode = _spectrogram_case(20)
+    cfg = SpectrogramConfig(distance_secs=distance, min_score=0.5)
+    graphed = SpectrogramMatcher(snippet, sr, cfg, device=dev)
+    eager = SpectrogramMatcher(snippet, sr, cfg, device=dev, graphs=False)
+    assert eager.step_graphs is None
+    before = _launch_counts()
+    want = eager._picks(episode)
+    assert len(want) == (1 if distance < 1 else 3)
+    for _ in range(3):
+        _bitwise(graphed._picks(episode), want)
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 1}
+    peaks = graphed.match(episode)
+    assert peaks == eager.match(episode)
+    assert _launch_counts() == before
+    for at in (40.0, 200.0):
+        assert any(abs(p.position - int(at * sr)) <= cfg.hop for p in peaks)
+
+
+def test_graphed_windows_scan_equals_eager_bitwise(dev):
+    """The windows path ``scan()`` replayed as a CUDA graph a block: each
+    block's outputs and the peaks equal the eager scanner's, bit for bit,
+    scaled and unscaled (one graph: the scales are copied in)."""
+    sr, snippets, batches, cfg = _scan_case(3, 21)
+    eps = [np.asarray(e, np.float32) for e in batches[0]]
+    graphed = ShardedScanner(snippets, sr, cfg, device=dev)
+    eager = ShardedScanner(snippets, sr, cfg, device=dev, graphs=False)
+    windows, valid = graphed._windows(eps, 20)
+    windows = torch.from_numpy(windows).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    for scale in (True, True, False, True):
+        _bitwise(graphed._windows_step(windows, valid, scale),
+                 eager._windows_step(windows, valid, scale))
+    assert dict(graphed.step_graphs.stats) == {"first": 1, "captures": 1,
+                                               "hits": 2}
+    got = graphed.scan(eps)
+    assert got == eager.scan(eps)
+    assert got[0][0]  # the plant, found
+
+
+@pytest.mark.parametrize("path", ["batch", "match", "spectrogram",
+                                  "windows"])
+def test_a_refused_capture_raises_on_every_new_path(dev, monkeypatch, path):
+    """A capture that fails on one of the paths graphed here raises on
+    that call and on the next; neither runs the step eagerly in its
+    place."""
+    from audio_matcher_tpu_torch.models.spectrogram import (
+        SpectrogramConfig, SpectrogramMatcher)
+
+    sr, snippet, eps, cfg = _single_case(22)
+    cache = None
+    if path == "batch":
+        m = SnippetMatcher(snippet, sr, cfg, device=dev)
+        staged = m.stage_batch(eps)
+
+        def call():
+            return m.match_staged_batch(staged)
+    elif path == "match":
+        cache = _fresh_call_graphs(monkeypatch)
+
+        def call():
+            return port.match(snippet, eps[0], sr, device=dev,
+                              chunk_secs=1.0, distance_secs=2.0)
+    elif path == "spectrogram":
+        sr, snip, episode = _spectrogram_case(23, 120, (40.0,))
+        m = SpectrogramMatcher(snip, sr, SpectrogramConfig(
+            distance_secs=30.0), device=dev)
+
+        def call():
+            return m.match(episode)
+    else:
+        m = ShardedScanner([snippet], sr, cfg, device=dev)
+
+        def call():
+            return m.scan(eps)
+    cache = cache or m.step_graphs
+    call()  # first sight: eager
+    _refusing_graph(monkeypatch)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capturing"):
+            call()
+    assert dict(cache.stats) == {"first": 1}
+
+
+def test_a_dropped_cache_lets_the_shared_pool_go(dev, monkeypatch):
+    """``match()``'s graph lives on in the shared cache; a kept matcher of
+    a larger fft_len (2^23) captures into the same pool and is dropped:
+    both graphs go, and the allocator takes the pool's blocks back (a
+    pool kept by a live graph would keep them all)."""
+    from audio_matcher_tpu_torch.parallel import step_graph
+
+    cache = _fresh_call_graphs(monkeypatch)
+    sr, snippet, eps, cfg = _single_case(25)
+    kw = dict(chunk_secs=1.0, distance_secs=2.0, transfer_dtype="mulaw8")
+    for _ in range(3):
+        port.match(snippet, eps[0], sr, device=dev, **kw)
+    assert cache.stats["hits"] == 1
+    big_cfg = MatchConfig(chunk_secs=600.0, distance_secs=2.0,
+                          transfer_dtype="mulaw8")
+    long_ep = np.tile(eps[0], 6)
+    # the device constants of the larger size (twiddle tables, ...) are
+    # built first, so that what the process holds after is the pool's
+    SnippetMatcher(snippet, sr, big_cfg, device=dev,
+                   graphs=False).match(long_ep)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    small = torch.cuda.memory_reserved(dev)
+    big = SnippetMatcher(snippet, sr, big_cfg, device=dev)
+    for _ in range(3):
+        big.match(long_ep)
+    assert big.step_graphs.stats["hits"] == 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with_big = torch.cuda.memory_reserved(dev)
+    assert with_big > small
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert not step_graph._DEVICES[torch.device(dev)].graphs
+    freed = with_big - torch.cuda.memory_reserved(dev)
+    assert freed >= 0.9 * (with_big - small)
+    got = port.match(snippet, eps[0], sr, device=dev, **kw)  # captures
+    assert got == SnippetMatcher(snippet, sr, MatchConfig(**kw), device=dev,
+                                 graphs=False).match(eps[0])
+    assert dict(cache.stats) == {"first": 1, "captures": 2, "hits": 1}
+
+
+def test_match_from_two_threads_returns_each_snippets_peaks(dev,
+                                                            monkeypatch):
+    """Two threads call ``match()`` at once with two snippets of one length
+    (one graph of the shared cache): every call returns its own snippet's
+    peaks, those of the eager matcher."""
+    import threading
+
+    cache = _fresh_call_graphs(monkeypatch)
+    sr, snippet, eps, cfg = _single_case(26)
+    other = (np.random.default_rng(27).standard_normal(4000) * 0.2).astype(
+        np.float32)
+    ep = eps[0].copy()
+    ep[int(14.0 * sr) : int(14.0 * sr) + 4000] = other
+    kw = dict(chunk_secs=1.0, distance_secs=2.0, transfer_dtype="mulaw8")
+    want = {id(s): SnippetMatcher(s, sr, MatchConfig(**kw), device=dev,
+                                  graphs=False).match(ep)
+            for s in (snippet, other)}
+    for _ in range(2):
+        port.match(snippet, ep, sr, device=dev, **kw)  # first, capture
+    start = threading.Barrier(2)
+    wrong = []
+
+    def calls(snip):
+        start.wait()
+        for _ in range(10):
+            got = port.match(snip, ep, sr, device=dev, **kw)
+            if got != want[id(snip)]:
+                wrong.append(got)
+
+    threads = [threading.Thread(target=calls, args=(s,))
+               for s in (snippet, other)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not wrong
+    assert dict(cache.stats) == {"first": 1, "captures": 1, "hits": 20}

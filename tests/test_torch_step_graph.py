@@ -16,6 +16,8 @@ hold the real graphs against the eager steps, bitwise.
 """
 
 import gc
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -256,8 +258,10 @@ def test_caches_of_a_process_share_one_store_a_device(stub, monkeypatch):
     """Every cache of the process keeps its graphs in one store a device:
     one pool, at most ``GRAPHS_PER_DEVICE`` graphs in all (the least
     recently used of any cache goes), one key of two caches two graphs;
-    a cache's graphs and keys go when it is dropped, and the pool when
-    no graph is left."""
+    a cache's graphs and keys go when it is dropped, and with them the
+    device's other graphs (a live pool keeps every block captured into
+    it) and the pool; their keys are kept as seen, so each captures again
+    on its next call."""
     monkeypatch.setattr(step_graph, "GRAPHS_PER_DEVICE", 3)
     a, b = StepGraphs(), StepGraphs()
     step = _launching_step(_fake_wrapper(), 1.0)
@@ -274,10 +278,63 @@ def test_caches_of_a_process_share_one_store_a_device(stub, monkeypatch):
     b("x", step, (torch.ones(2),), (y,))  # seen once, kept as seen
     del b, cache
     gc.collect()
-    assert len(dev.graphs) == 1 and len(dev.seen) == 0
-    assert dev.pool is pool  # a's graph still holds it
+    assert not dev.graphs and dev.pool is None
+    assert [k[0] for k in dev.seen] == [a._token]
+    a("j", step, (torch.ones(2),), (y,))
+    assert (a.stats["first"], a.stats["captures"]) == (2, 3)
+    assert _graphs_kept(a) == 1 and dev.pool is not pool
     a.clear()
     assert not dev.graphs and dev.pool is None
+
+
+def test_a_cache_that_kept_no_graph_leaves_the_others_when_it_goes(stub):
+    """A cache dropped with no graph on the device (its keys seen once,
+    or none) takes no other cache's graph, nor the pool."""
+    a, b = StepGraphs(), StepGraphs()
+    step = _launching_step(_fake_wrapper(), 1.0)
+    y = torch.zeros(2)
+    for _ in range(2):
+        a("k", step, (torch.ones(2),), (y,))
+    b("k", step, (torch.ones(2),), (y,))  # seen once: no graph
+    pool = _store().pool
+    del b
+    gc.collect()
+    assert _graphs_kept(a) == 1 and _store().pool is pool
+    a("k", step, (torch.ones(2),), (y,))
+    assert dict(a.stats) == {"first": 1, "captures": 1, "hits": 1}
+
+
+def test_threads_calling_one_graph_each_get_their_own_outputs(stub):
+    """Two threads replay one graph of one cache at once, each with inputs
+    of its own: every call returns the step of its own inputs, since a
+    replay's input copies, the replay and its output copies are issued
+    with no other replay of the device between."""
+    cache = StepGraphs()
+
+    def step(x, y):
+        time.sleep(1e-4)  # room for the other thread between the copies
+        return (x + y,)
+
+    y = torch.zeros(3)
+    for _ in range(2):
+        cache("k", step, (torch.zeros(3),), (y,))
+    start = threading.Barrier(2)
+    wrong = []
+
+    def calls(value):
+        start.wait()
+        for _ in range(40):
+            (got,) = cache("k", step, (torch.full((3,), value),), (y,))
+            if not torch.equal(got, torch.full((3,), value)):
+                wrong.append((value, got.tolist()))
+
+    threads = [threading.Thread(target=calls, args=(v,)) for v in (1.0, 2.0)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not wrong
+    assert dict(cache.stats) == {"first": 1, "captures": 1, "hits": 80}
 
 
 def test_a_cache_dropped_inside_the_store_lock_goes_after_it(stub):
