@@ -62,7 +62,7 @@ from ..ops.peaks import (
     pick_peaks_packed,
 )
 from ..ops.wire import dequant_to_f32, silence_code
-from ..parallel.step_graph import StepGraphs, run_step
+from ..parallel.step_graph import StepGraphs, releasing, run_step
 
 log = logging.getLogger("audio_matcher_torch.matcher")
 
@@ -319,12 +319,14 @@ def upload(host: torch.Tensor, device: torch.device):
     queued on the current stream. The current stream waits for the copy,
     and the copied tensor is marked as used there (it was allocated on the
     side stream, and the caching allocator must not hand its memory out
-    while the scan still reads it)."""
+    while the scan still reads it). The device's graphs give way to it
+    (:func:`~..parallel.step_graph.releasing`)."""
     if device.type != "cuda":
         return host.to(device)
     side = side_stream(device)
     with torch.cuda.stream(side):
-        staged = host.to(device, non_blocking=True)
+        staged = releasing(device,
+                           lambda: host.to(device, non_blocking=True))
     main = torch.cuda.current_stream(device)
     main.wait_stream(side)
     staged.record_stream(main)
@@ -668,21 +670,23 @@ class SnippetMatcher:
     @property
     def _sample_f(self):
         """The query spectrum on the matcher's device, computed on first
-        use, in the form :func:`single_query_slab` takes for
-        :attr:`fft_impl`."""
+        use (the device's graphs giving way to it, see
+        :func:`~..parallel.step_graph.releasing`), in the form
+        :func:`single_query_slab` takes for :attr:`fft_impl`."""
         if self._sample_f_cache is None:
-            snip = torch.from_numpy(self.snippet.data).to(self.device)
-            n = self.fft_len
-            if self.fft_impl == "vpu":
-                spec = scrambled_query_spectra(snip[None], n, False)
-            elif self.fft_impl == "mxu":
-                spec = scrambled_spectra_parts(snip[None], n)
-            elif self.fft_impl == "xla_packed":
-                spec = query_spectrum(snip, n)
-            else:
-                spec = torch.fft.rfft(snip, n=n)
-            self._sample_f_cache = spec
+            self._sample_f_cache = releasing(self.device, self._spectrum)
         return self._sample_f_cache
+
+    def _spectrum(self):
+        snip = torch.from_numpy(self.snippet.data).to(self.device)
+        n = self.fft_len
+        if self.fft_impl == "vpu":
+            return scrambled_query_spectra(snip[None], n, False)
+        if self.fft_impl == "mxu":
+            return scrambled_spectra_parts(snip[None], n)
+        if self.fft_impl == "xla_packed":
+            return query_spectrum(snip, n)
+        return torch.fft.rfft(snip, n=n)
 
     def _scan_kwargs(self, slab: int, n_slabs: int) -> dict:
         return dict(
@@ -887,8 +891,10 @@ class SnippetMatcher:
 # query spectrum is a copied input here, so that every snippet of one
 # length shares the key; the cache holds no matcher and no snippet, only
 # its graphs' own buffers. Its graphs hold their step's work planes in the
-# device's shared pool (see parallel/step_graph.py) until another cache's
-# graphs go, which takes them and the pool along, or CALL_GRAPHS.clear().
+# device's shared pool (see parallel/step_graph.py), which gives way to
+# any other step that does not fit beside it: released with every graph
+# of the device, their keys kept, when a capture finds the store full or
+# a call runs out of memory.
 CALL_GRAPHS = StepGraphs()
 
 

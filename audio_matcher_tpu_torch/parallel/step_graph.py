@@ -18,32 +18,51 @@ is a function of tensors that returns a tuple of tensors:
   it; later calls replay.
 
 Copied inputs (the staged rows, the row lengths, a scale) are copied into
-the graph's own buffers before each replay, one device-to-device copy
-each. Held inputs (the query state) are read in place: they are part of
-the key and the graph keeps them alive, so their addresses cannot be
-reused. A replay's outputs are copied out behind it, so that the next
-replay of the same graph cannot overwrite outputs not yet read back (the
-sweep dispatches one group ahead). Every kernel launch counted during the
-capture is added to its wrapper's count on every replay.
+the graph's own buffers, which lie in its pool, before each replay, one
+device-to-device copy each. Held inputs (the query state) are read in
+place: they are part of the key and the graph keeps them alive, so their
+addresses cannot be reused. A replay's outputs are copied out behind it,
+so that the next replay of the same graph cannot overwrite outputs not
+yet read back (the sweep dispatches one group ahead). Every kernel launch
+counted during the capture is added to its wrapper's count on every
+replay.
 
 The graphs of every cache of the process on one device share one memory
-pool, and at most :data:`GRAPHS_PER_DEVICE` of them are kept a device
-(the least recently used is dropped, its blocks going back to the pool):
-a replay only writes the pool's blocks, and a device's replays are issued
+pool, and at most :data:`GRAPHS_PER_DEVICE` of them are kept a device. A
+replay only writes the pool's blocks, and a device's replays are issued
 one at a time on its current stream, each from the copy of its inputs to
-the copy of its outputs, so the process holds about one step's work
-planes however many scanners and matchers it keeps, as the eager steps
-share the allocator's cache. Threads may call one cache on one device
-if they share that device's stream. A live pool keeps every block any
-graph was captured into, and the allocator can take them back only when
-no graph of the pool is left: so when a cache's graphs go (it is cleared
-or dropped), the device's other graphs go with them and the pool with
-them; their keys are kept as seen, so each captures again on its next
-call.
+the copy of its outputs, so the live graphs hold about the largest
+step's work planes however many scanners and matchers keep them.
+Threads may call one cache on one device if they share that device's
+stream.
+
+A live pool keeps every block any graph was captured into; the allocator
+takes them back only when no graph of the pool is left. So graphs leave a
+device's store all together, and the pool with them: when a capture finds
+the store full (an eviction), when a cache that kept a graph there is
+cleared or dropped, and when a call runs out of device memory beside them
+(below). Their keys are kept as seen, so each captures again on its next
+call. The pool's memory is then the allocator's: :meth:`StepGraphs.clear`
+and every capture empty its cache.
+
+A step that fits on the card alone also runs after any other has been
+graphed, as the JAX package's jitted steps, which hold no memory between
+calls: a key's first sight, a capture, and the device allocation of a
+scan's inputs (the staged rows, the query spectra) go through
+:func:`releasing`. If one of them runs out of device memory while the
+device holds graphs, the device's graphs and pool are released as above
+and the call runs once more, the same step on the same device; a second
+error, or one with no graph held, raises. This is the caching
+allocator's own rule (it frees its cached blocks and tries again before
+it raises), extended to the pool. Routing the eager first sights into
+the pool instead would let a later replay write the blocks of any eager
+tensor that outlived its step, with no error.
 
 A capture that fails raises, and so does every later call of its key;
-nothing falls back to the eager step. Tensors on a device that is not
-graphed (the CPU) run the step eagerly.
+nothing falls back to the eager step. One that ran out of memory has not
+failed: its key stays seen. A first sight that raises leaves its key
+unseen. Tensors on a device that is not graphed (the CPU) run the step
+eagerly.
 """
 
 from __future__ import annotations
@@ -51,6 +70,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import logging
 import threading
 import weakref
 from typing import Callable, Sequence
@@ -64,10 +84,13 @@ from .. import _build
 # mulaw8 group, 1.09 GB for fft_len 2^28's episode) on top of the shared
 # pool, whose size is the largest step's work (8.6 GB of product planes
 # at config #3, ~30 GB at fft_len 2^28); four covers the full and last
-# groups of two staged shapes, or the matcher CLI's two at two rates.
+# groups of two staged shapes, or the matcher CLI's two at two rates. A
+# capture that finds four releases them all (see the module's text).
 GRAPHS_PER_DEVICE = 4
 SEEN_PER_DEVICE = 64  # keys remembered as seen once (an eager run each)
 GRAPHED_DEVICE_TYPES = ("cuda",)  # steps on other devices run eagerly
+
+log = logging.getLogger("audio_matcher_torch.step_graph")
 
 # one capture at a time in the process: a capture's set-up synchronizes
 # the device and empties the allocator's cache, which another thread's
@@ -86,16 +109,12 @@ class CudaGraph:
 
     def capture(self, run: Callable[[], tuple], device: torch.device, pool):
         """``run()`` captured on ``device``'s capture stream into ``pool``
-        (None: a new pool) → its outputs. The device is synchronized and
-        the allocator's cached blocks released first, so that the eager
-        warm-up's blocks are not held beside the capture's. An error in
-        ``run`` ends the capture and propagates."""
+        (None: a new pool) → its outputs. An error in ``run`` ends the
+        capture and propagates."""
         with torch.cuda.device(device):
             stream = self._streams.get(device)
             if stream is None:
                 stream = self._streams[device] = torch.cuda.Stream(device)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
             with torch.cuda.stream(stream):
                 self._graph.capture_begin(
                     pool, capture_error_mode="thread_local")
@@ -135,6 +154,7 @@ class _Device:
         default_factory=collections.OrderedDict)
     failed: set = dataclasses.field(default_factory=set)
     pool: object = None  # the memory pool the device's graphs share
+    released: int = 0  # releases of its graphs by calls out of memory
     # held from a replay's input copies to its output copies
     replaying: threading.Lock = dataclasses.field(
         default_factory=threading.Lock)
@@ -160,6 +180,39 @@ def _locked():
             _HOLDING.inside = False
 
 
+def _release(dev: _Device) -> int:
+    """Let every graph of ``dev`` go, and the pool with them (a pool's
+    blocks go back only with its last graph), keeping their keys as seen;
+    → how many went. The caller holds ``_LOCK``."""
+    n = len(dev.graphs)
+    for full in dev.graphs:
+        dev.seen[full] = True
+    dev.graphs.clear()
+    while len(dev.seen) > SEEN_PER_DEVICE:
+        dev.seen.popitem(last=False)
+    dev.pool = None
+    return n
+
+
+def _empty_cache() -> None:
+    """Hand the allocator's free blocks, a released pool's among them, back
+    to the device; not while another thread captures (its set-up
+    empties the cache too, see :func:`_settle`)."""
+    with _CAPTURE_LOCK:
+        torch.cuda.empty_cache()
+
+
+def _settle(device: torch.device) -> None:
+    """Before a capture: synchronize a CUDA ``device`` and hand the
+    allocator's free blocks back, so that the graph's buffers and pool are
+    not carved out of segments that the warm-up or an older pool left
+    cached (a segment goes back only when all of it is free)."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+
 def _drop(token) -> None:
     for dev in _DEVICES.values():
         had_graphs = any(k[0] is token for k in dev.graphs)
@@ -168,14 +221,7 @@ def _drop(token) -> None:
                 del keys[full]
         dev.failed = {k for k in dev.failed if k[0] is not token}
         if had_graphs:
-            # the pool's blocks go back only with its last graph
-            for full in dev.graphs:
-                dev.seen[full] = True
-            dev.graphs.clear()
-            while len(dev.seen) > SEEN_PER_DEVICE:
-                dev.seen.popitem(last=False)
-        if not dev.graphs:
-            dev.pool = None
+            _release(dev)
 
 
 def _forget(token) -> None:
@@ -188,6 +234,35 @@ def _forget(token) -> None:
         return
     with _locked():
         _drop(token)
+
+
+def releasing(device, run: Callable[[], object], stats=None):
+    """``run()``; if it runs out of device memory while ``device``'s store
+    holds graphs, they are released with their pool (their keys kept as
+    seen), the allocator's cache emptied, and ``run()`` runs once more. A
+    second error raises, and so does one with no graph held. The release
+    is counted in ``stats["released"]`` (a cache's counts), if given, and
+    logged."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return run()
+    except torch.cuda.OutOfMemoryError:
+        with _locked():
+            dev = _DEVICES.get(device)
+            if dev is None or not dev.graphs:
+                raise
+            n = _release(dev)
+            dev.released += 1
+    # out of the handler: the failed run's frames, and the tensors they
+    # held, are gone before the cache is emptied
+    _empty_cache()
+    if stats is not None:
+        stats["released"] += 1
+    log.warning("%s ran out of memory beside %d graphs: released them and "
+                "their pool, running again", device, n)
+    return run()
 
 
 def _signature(t: torch.Tensor) -> tuple:
@@ -223,9 +298,10 @@ class StepGraphs:
         """Drop this cache's graphs and the keys it has seen, which frees
         their buffers; on a device where it had graphs, the other caches'
         graphs go too (each captures again on its next call), and the
-        device's pool with them. The next call of this cache's keys runs
-        eagerly again."""
+        device's pool with them, back to the device. The next call of this
+        cache's keys runs eagerly again."""
         _forget(self._token)
+        _empty_cache()
 
     def __call__(self, key, step: Callable[..., tuple],
                  inputs: Sequence[torch.Tensor],
@@ -233,7 +309,8 @@ class StepGraphs:
         """``step(*inputs, *held)`` → a tuple of tensors: eagerly on a
         device that is not graphed and on a key's first sight, else by a
         replay of its graph (captured on its second sight; a key whose
-        capture failed tries again, and raises again)."""
+        capture failed tries again, and raises again). A first sight and a
+        capture run through :func:`releasing`."""
         device = inputs[0].device
         if device.type not in GRAPHED_DEVICE_TYPES:
             return tuple(step(*inputs, *held))
@@ -251,39 +328,60 @@ class StepGraphs:
                     dev.seen.popitem(last=False)
         if first:
             self.stats["first"] += 1
-            return tuple(step(*inputs, *held))
+            try:
+                return releasing(device, lambda: tuple(step(*inputs, *held)),
+                                 self.stats)
+            except BaseException:
+                with _locked():  # no warm-up ran: the next call is a first
+                    dev.seen.pop(full, None)
+                raise
         if entry is None:
-            entry = self._capture(dev, full, device, step, inputs, held)
+            entry = releasing(device, lambda: self._capture(
+                dev, full, device, step, inputs, held), self.stats)
         else:
             self.stats["hits"] += 1
         return self._replay(dev, entry, inputs)
 
     def _capture(self, dev: _Device, full, device, step, inputs,
                  held) -> _Graph:
-        """Capture ``step`` reading copies of ``inputs`` made for the graph,
-        into the device's pool, recording its launches, and store it."""
-        buffers = tuple(t.clone() for t in inputs)
+        """Capture ``step`` reading buffers of ``inputs``' shapes made for
+        the graph, into the device's pool, recording its launches, and
+        store it. A full store is released first (an eviction) and the
+        device settled, so that the old pool goes back first. The buffers
+        are allocated inside the capture (no kernel is recorded for them):
+        they lie in the pool and go back with it, and a replay's input
+        copies fill them."""
         graph = CudaGraph()
-        try:
-            with _CAPTURE_LOCK, _build.recording_launches() as launches:
-                with _locked():
-                    pool = dev.pool
-                outputs = tuple(graph.capture(
-                    lambda: step(*buffers, *held), device, pool))
-        except BaseException:
+        buffers = []
+
+        def run():
+            if not buffers:  # once: a stub graph reruns ``run`` to replay
+                buffers.extend(torch.empty_like(t) for t in inputs)
+            return step(*buffers, *held)
+
+        with _CAPTURE_LOCK:
             with _locked():
-                dev.failed.add(full)
-            raise
-        entry = _Graph(graph, buffers, tuple(held), outputs, dict(launches))
-        with _locked():
-            if dev.pool is None:
-                dev.pool = graph.pool()
-            dev.seen.pop(full, None)
-            dev.failed.discard(full)
-            dev.graphs[full] = entry
-            while len(dev.graphs) > GRAPHS_PER_DEVICE:
-                dev.graphs.popitem(last=False)
-                self.stats["evicted"] += 1
+                if len(dev.graphs) >= GRAPHS_PER_DEVICE:
+                    self.stats["evicted"] += _release(dev)
+                pool = dev.pool
+            _settle(device)
+            try:
+                with _build.recording_launches() as launches:
+                    outputs = tuple(graph.capture(run, device, pool))
+            except torch.cuda.OutOfMemoryError:
+                raise  # not a failed capture: its key stays seen
+            except BaseException:
+                with _locked():
+                    dev.failed.add(full)
+                raise
+            entry = _Graph(graph, tuple(buffers), tuple(held), outputs,
+                           dict(launches))
+            with _locked():
+                if dev.pool is None:
+                    dev.pool = graph.pool()
+                dev.seen.pop(full, None)
+                dev.failed.discard(full)
+                dev.graphs[full] = entry
         self.stats["captures"] += 1
         return entry
 
@@ -303,7 +401,9 @@ def run_step(graphs: StepGraphs | None, key, step: Callable[..., tuple],
              inputs: Sequence[torch.Tensor],
              held: Sequence[torch.Tensor] = ()) -> tuple:
     """``step(*inputs, *held)`` through ``graphs``, or eagerly where the
-    caller keeps no cache (``graphs=False``, the plain paths)."""
+    caller keeps no cache (``graphs=False``, the plain paths), through
+    :func:`releasing`: other caches' graphs give way to it too."""
     if graphs is None:
-        return tuple(step(*inputs, *held))
+        return releasing(inputs[0].device,
+                         lambda: tuple(step(*inputs, *held)))
     return graphs(key, step, inputs, held)

@@ -103,7 +103,7 @@ from ..ops.stft import (
 )
 from ..ops.wire import dequant_to_f32
 from .mesh import Mesh, make_local_mesh, process_count, process_index
-from .step_graph import StepGraphs, run_step
+from .step_graph import StepGraphs, releasing, run_step
 
 log = logging.getLogger("audio_matcher_torch.sweep")
 
@@ -504,21 +504,26 @@ class ShardedScanner(_Scanner):
     @property
     def query_state(self) -> QueryState:
         """The query-pair spectra of :attr:`fft_impl` and the per-query
-        constants on the scan's device, computed on first use."""
+        constants on the scan's device, computed on first use (the
+        device's graphs giving way to them, see
+        :func:`~.step_graph.releasing`)."""
         if self._state is None:
-            padded = torch.from_numpy(self._sample_padded).to(self.device)
-            n = self.fft_len
-            if self.fft_impl == "vpu":
-                t_r, t_i = scrambled_query_spectra(padded, n, True)
-            elif self.fft_impl == "mxu":
-                t_r, t_i = scrambled_spectra_parts(padded, n)
-            else:
-                T = (packed_query_spectra(padded, n)
-                     if self.fft_impl == "xla_packed"
-                     else torch.fft.rfft(padded, n=n))
-                t_r, t_i = T.real.contiguous(), T.imag.contiguous()
-            self._state = QueryState(t_r, t_i, *self._constants())
+            self._state = releasing(self.device, self._query_spectra)
         return self._state
+
+    def _query_spectra(self) -> QueryState:
+        padded = torch.from_numpy(self._sample_padded).to(self.device)
+        n = self.fft_len
+        if self.fft_impl == "vpu":
+            t_r, t_i = scrambled_query_spectra(padded, n, True)
+        elif self.fft_impl == "mxu":
+            t_r, t_i = scrambled_spectra_parts(padded, n)
+        else:
+            T = (packed_query_spectra(padded, n)
+                 if self.fft_impl == "xla_packed"
+                 else torch.fft.rfft(padded, n=n))
+            t_r, t_i = T.real.contiguous(), T.imag.contiguous()
+        return QueryState(t_r, t_i, *self._constants())
 
     def _constants(self):
         """The inverse autocorrelations [Q] f32 and the snippet lengths

@@ -179,6 +179,16 @@ holds every kernel against its plain PyTorch version:
    two planes) timed device to device. At 2^28, two graphed matchers
    live at once: one pool, peak
    memory and the memory reserved while both are held.
+15. The graphs' device memory (``graph_memory``, after 14), public calls
+   in one process with no cache cleared: ``match()`` three times at
+   fft_len 2^28, then twice at each of four other shapes (2^22 - 2^23),
+   whose fourth capture evicts every graph, the 2^28 one with them: the
+   reserved memory must then be within GRAPH_MEMORY_SLACK_GB of that
+   last graph's captured alone in a fresh process (this script with
+   ``--graph-alone CHUNK``). ``match()`` at 2^28 twice again, and with
+   its graph live the ``vpu`` + ``jnp`` scan of 6 (1 x 1800 s x 64 queries,
+   ~47 GB alone): its warm scans and a scan, the peaks equal to 6's,
+   the plants found; the device's graphs give way to it.
 
 Every scanner and matcher runs with its default ``graphs=True``: a
 path's first scan of a shape runs eagerly, its second captures a CUDA
@@ -314,12 +324,20 @@ TOL_SCAN = 1.2e-5  # the reference's oracle tolerance (tests/test_correlate.py)
 PLANT_TOL = 1  # samples
 NAME_CHARS = 96  # kernel names printed by the profile phases
 JNP_QUERIES = 64  # the vpu + jnp scan: 1 x 1800 s x 64 queries
+JNP_RESULT: dict = {}  # that scan's peaks and memory, for graph_memory
 # chunk_secs giving fft_len 2^23 .. 2^28 for config #2's 10 s snippet
 LARGE_CHUNKS = (120.0, 240.0, 600.0, 1200.0, 3000.0, 3100.0)
 WIDE_CHUNK = 600.0  # 2^25: the ShardedScanner and matcher CLI runs
 WIDE_REPEATS = 2  # timed repeats of each size above 2^25
 WIDE_QUERIES = 4  # the sweep's queries, in the ShardedScanner run
 CLUSTER_CHUNKS = (1200.0, 3000.0, 3100.0)  # 2^26 - 2^28: A on clusters
+# graph_memory's match() shapes besides 2^28: fft_len 2^22, 2^22, 2^23 and
+# 2^23 for config #2's 10 s snippet, none of step_graphs' (chunk 60 s),
+# so that the fourth's capture finds the store full
+GRAPH_MEMORY_CHUNKS = (45.0, 70.0, 120.0, 150.0)
+# the device's reserved memory after the eviction against the same graph
+# captured alone in a fresh process
+GRAPH_MEMORY_SLACK_GB = 1.0
 CLUSTER_QUERIES = 2  # kernel 1's scan there: ShardedScanner at Q = 2
 CLUSTER_PLANES = 2  # kernel-level rows of kernels 1 and 4's forward mode
 ROUND_TRIP_LOG2NS = (25, 26, 27, 28)  # M = 8192 and 16384: minor clusters
@@ -1165,13 +1183,14 @@ def jnp_scan(config, device, rows):
             "local_max_block_reduce"]:
         raise AssertionError("the jnp path launched a block reduction")
     rows["fft_major_forward"]["launches"] = launches["fft_major_forward"]
+    JNP_RESULT["memory"] = memory()
     profile_run("one vpu + jnp scan", lambda: scanner.scan_dispatch(staged))
     # the graph's pool holds the volume's planes: free it for the plain path
     scanner.step_graphs.clear()
     torch.cuda.empty_cache()
     compare_raw("vpu + jnp, one episode", got[0],
                 plain.scan_dispatch(staged)[0])
-    peaks = scanner.scan_collect(got)[0]
+    peaks = JNP_RESULT["peaks"] = scanner.scan_collect(got)[0]
     check_plants([peaks[0]], offsets, cfg.distance_secs)
     fused = ShardedScanner(snippets, SR, config, device=device,
                            query_state=scanner.query_state)
@@ -1196,7 +1215,7 @@ def single_query_jnp(config, device, rows):
                   lambda: matcher.stage(episode_wire), matcher.match_staged,
                   offsets, config.distance_secs, JNP_PATH)
     # the kept matcher goes first (its graph with every other), so that
-    # match()'s graphs below are still alive when large_fft starts
+    # large_fft starts with match()'s graphs below alive
     del matcher, plain
     ref = SnippetMatcher(snippet, SR, config, device=device).match(
         episode_wire)
@@ -1919,6 +1938,127 @@ def step_graphs(config, device, rows):
         lambda peaks: check_frame_plants("config #4, graphed",
                                          [r[0] for r in peaks], offsets,
                                          cfg.hop))
+
+
+def call_graph_sizes(device):
+    """log2 fft_len of each of match()'s graphs in the device's store."""
+    store = step_graph._DEVICES[torch.device(device)]
+    return sorted(dict(k[1][0][1:])["fft_len"].bit_length() - 1
+                  for k in store.graphs
+                  if k[0] is matcher_mod.CALL_GRAPHS._token)
+
+
+def graph_alone(config, chunk_secs):
+    """``torch.cuda.memory_reserved`` in GB with ``match()``'s graph of
+    config #2 at ``chunk_secs`` the only graph of the process: two calls
+    (first sight, capture), then the allocator's cache emptied."""
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    wire = quantize_wire(episode, config.transfer_dtype)
+    del episode
+    kw = dict(dataclasses.asdict(config), chunk_secs=chunk_secs)
+    for _ in range(2):
+        peaks = match(snippets[0], wire, SR, device="cuda", **kw)
+        check_plants([peaks], offsets, config.distance_secs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def fresh_graph_alone(chunk_secs):
+    """:func:`graph_alone` in a fresh process of this script."""
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--graph-alone",
+         repr(chunk_secs)], capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise RuntimeError(f"--graph-alone: {run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])["reserved_gb"]
+
+
+def graph_memory(config, device, rows, alone=fresh_graph_alone):
+    """The steps' device memory under the graphs, through public calls in
+    one process with no cache cleared by the script: ``match()`` three
+    times at fft_len 2^28; at each of GRAPH_MEMORY_CHUNKS twice (first
+    sight, capture), so that the fourth's capture finds the store full and
+    evicts every graph, the 2^28 one with them: the reserved memory must
+    then be within GRAPH_MEMORY_SLACK_GB of the last of those graphs
+    captured alone in a fresh process (``alone``); ``match()`` at 2^28
+    twice again, so that its graph is live, then the ``jnp_scan`` phase's
+    shape (1 x 1800 s x 64 queries, ``vpu`` + ``jnp``): its warm scans and
+    a scan, whose peaks must equal that phase's, every plant found. Each
+    ``match()`` call finds config #2's plants. A check that fails is
+    raised at the end, after the sequence has run."""
+    del rows
+    snippets, offsets, episode = make_bench_inputs(1, SINGLE_EPISODE_SECS)
+    wire = quantize_wire(episode, config.transfer_dtype)
+    del episode
+
+    def call(chunk_secs):
+        kw = dict(dataclasses.asdict(config), chunk_secs=chunk_secs)
+        peaks = match(snippets[0], wire, SR, device="cuda", **kw)
+        check_plants([peaks], offsets, config.distance_secs)
+
+    big = SnippetMatcher(
+        snippets[0], SR, dataclasses.replace(config, chunk_secs=LARGE_CHUNKS[
+            -1]), device=device).fft_len.bit_length() - 1  # 28
+    before = collections.Counter(matcher_mod.CALL_GRAPHS.stats)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        call(LARGE_CHUNKS[-1])
+    print(f"graph memory: match() three times at fft_len 2^{big}: "
+          f"{store_line(device)}; {memory()}")
+    for chunk_secs in GRAPH_MEMORY_CHUNKS:
+        for _ in range(2):
+            call(chunk_secs)
+    sizes = call_graph_sizes(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 1e9
+    print(f"graph memory: match() at chunks {GRAPH_MEMORY_CHUNKS} s, twice "
+          f"each: match()'s graphs live at fft_len 2^{sizes}; "
+          f"{store_line(device)}; cache "
+          f"{dict(matcher_mod.CALL_GRAPHS.stats - before)}")
+    failed = []
+    if big in sizes:
+        failed.append(f"the 2^{big} graph was not evicted")
+    alone_gb = alone(GRAPH_MEMORY_CHUNKS[-1])
+    print(f"graph memory: after the eviction torch.cuda.memory_reserved "
+          f"{held:.2f} GB; the same graph captured alone in a fresh "
+          f"process: {alone_gb:.2f} GB; {CARD['line']}")
+    if abs(held - alone_gb) > GRAPH_MEMORY_SLACK_GB:
+        failed.append(f"{held:.2f} GB reserved after the eviction, "
+                      f"{alone_gb:.2f} GB for the same graph alone")
+    for _ in range(2):
+        call(LARGE_CHUNKS[-1])
+    if big not in call_graph_sizes(device):
+        failed.append(f"match() at 2^{big} kept no graph")
+    print(f"graph memory: match() at fft_len 2^{big} twice again: "
+          f"{store_line(device)}")
+
+    snippets, offsets, episode = make_bench_inputs(JNP_QUERIES, EPISODE_SECS)
+    cfg = dataclasses.replace(config, peaks_impl="jnp")
+    scanner = ShardedScanner(snippets, SR, cfg, device=device)
+    staged = scanner.stage_resident(
+        [quantize_wire(episode, cfg.transfer_dtype)])
+    del episode
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARM_SCANS):
+        scanner.scan_dispatch(staged)
+    got, launches = counted(lambda: scanner.scan_dispatch(staged), JNP_PATH)
+    peaks = scanner.scan_collect(got)[0]
+    store = step_graph._DEVICES[torch.device(device)]
+    print(f"graph memory: vpu + jnp scan (1 x {EPISODE_SECS} s x "
+          f"{JNP_QUERIES}) with match()'s 2^{big} graph captured before it: "
+          f"{memory()} (alone, in jnp_scan: {JNP_RESULT['memory']}); its "
+          f"cache {dict(scanner.step_graphs.stats)}; releases of the "
+          f"device's graphs {getattr(store, 'released', 'not counted')}; "
+          f"{store_line(device)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {CARD['line']}")
+    if peaks != JNP_RESULT["peaks"]:
+        failed.append("the vpu + jnp scan's peaks differ from the jnp_scan "
+                      "phase's")
+    check_plants([peaks[0]], offsets, cfg.distance_secs)
+    if failed:
+        raise AssertionError(f"graph memory: {'; '.join(failed)}")
 
 
 def spectrogram_batch(config, device, rows):
@@ -2754,6 +2894,10 @@ def two_process_sweep(root, labels, device):
           f"{CARD['line']}")
 
 
+def smoke_config() -> MatchConfig:
+    return MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -2774,7 +2918,7 @@ def main() -> int:
           f"(nvcc {_build.build_seconds():.2f} s)")
     ptxas_report(_build.build_log())
 
-    config = MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
+    config = smoke_config()
     dev = torch.device("cuda", 0)
     rows = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": tpu}
@@ -2782,7 +2926,7 @@ def main() -> int:
     for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
                   jnp_scan, single_query_jnp, large_fft, cluster_modes,
                   wide_round_trip, wide_scan,
-                  wide_cli, step_graphs, spectrogram_batch,
+                  wide_cli, step_graphs, graph_memory, spectrogram_batch,
                   spectrogram_single, device_resample, archive_sweep,
                   matcher_cli_run, sharded_scan, mesh_dryrun,
                   worker_archive):
@@ -2806,4 +2950,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--graph-alone"]:  # graph_memory's fresh process
+        _build.load()
+        print(json.dumps({"reserved_gb": graph_alone(
+            smoke_config(), float(sys.argv[2]))}))
+        raise SystemExit(0)
     raise SystemExit(main())

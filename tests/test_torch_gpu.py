@@ -1460,6 +1460,85 @@ def test_a_dropped_cache_lets_the_shared_pool_go(dev, monkeypatch):
     assert dict(cache.stats) == {"first": 1, "captures": 2, "hits": 1}
 
 
+def test_graphed_pool_gives_way_to_a_step_that_fits_alone(dev, monkeypatch):
+    """A graphed matcher's pool (fft_len 2^24) is held, and the card's limit
+    (``set_per_process_memory_fraction``) set so that a matcher at 2^25
+    fits only without that pool: its first sight runs out of memory,
+    releases the device's graphs and runs once more; then, the limit
+    lifted, it captures and replays. Every call's peaks equal the eager
+    matcher's. An eviction
+    hands the evicted pool back: a small graph's capture in a store full
+    with the 2^25 graph lowers the reserved memory by most of that step's
+    own."""
+    from audio_matcher_tpu_torch.parallel import step_graph
+
+    monkeypatch.setattr(step_graph, "_DEVICES", {})
+    sr = 8000
+    rng = np.random.default_rng(28)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    episode = (rng.standard_normal(3200 * sr) * 0.05).astype(np.float32)
+    for at in (100, 2500):
+        episode[at * sr : at * sr + 4000] = snippet
+    wire = quantize_wire(episode, "mulaw8")
+
+    def matcher(chunk_secs, graphs=True):
+        return SnippetMatcher(snippet, sr, MatchConfig(
+            chunk_secs=chunk_secs, distance_secs=60.0,
+            transfer_dtype="mulaw8", slab=2, slab_auto=False), device=dev,
+            graphs=graphs)
+
+    def reserved():
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    small, large, eager = matcher(1500.0), matcher(3000.0), matcher(
+        3000.0, graphs=False)
+    assert (small.fft_len, large.fft_len) == (1 << 24, 1 << 25)
+    large._sample_f_cache = eager._sample_f  # one spectrum for both
+    staged = eager.stage(wire)
+    want = eager.match_staged(staged)  # the size's plans and constants
+    base = reserved()
+    torch.cuda.reset_peak_memory_stats(dev)
+    assert eager.match_staged(staged) == want
+    need = torch.cuda.max_memory_reserved(dev) - base  # the step's own
+    assert sorted(p.position for p in want if p.height > 0.5) == [
+        100 * sr, 2500 * sr]
+    staged_small = small.stage(wire)
+    small.match_staged(staged_small)  # first sight
+    before = reserved()
+    small.match_staged(staged_small)  # capture
+    held = reserved()
+    pool = held - before
+    assert pool > 0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(
+        (held + need - pool // 2) / total, dev)
+    try:
+        got = [large.match_staged(staged)]  # first sight
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    got += [large.match_staged(staged) for _ in range(2)]  # capture, replay
+    assert all(g == want for g in got)
+    assert dict(large.step_graphs.stats) == {
+        "first": 1, "released": 1, "captures": 1, "hits": 1}
+    store = step_graph._DEVICES[torch.device(dev)]
+    assert store.released == 1
+    assert [k[0] for k in store.graphs] == [large.step_graphs._token]
+    assert [k[0] for k in store.seen].count(small.step_graphs._token) == 1
+
+    monkeypatch.setattr(step_graph, "GRAPHS_PER_DEVICE", 1)
+    tiny = matcher(10.0)
+    staged_tiny = tiny.stage(wire)
+    tiny.match_staged(staged_tiny)  # first sight
+    with_large = reserved()
+    got = tiny.match_staged(staged_tiny)  # capture: the 2^25 graph goes
+    assert tiny.step_graphs.stats["evicted"] == 1
+    assert with_large - reserved() >= need // 2
+    assert sorted(p.position for p in got if p.height > 0.5) == [
+        100 * sr, 2500 * sr]
+
+
 def test_match_from_two_threads_returns_each_snippets_peaks(dev,
                                                             monkeypatch):
     """Two threads call ``match()`` at once with two snippets of one length

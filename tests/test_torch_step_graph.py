@@ -6,7 +6,9 @@ stub graph that "captures" by running the step once and "replays" by
 running it again into the captured outputs, with the CPU graphed (the
 ``stub`` fixture): the key, the first-sight eager run, the capture, the
 copied inputs and outputs, the launch counts of a replay, a failed
-capture, the eviction and the store the caches of a process share. Then the steps as the graphs capture them (row lengths,
+capture, the eviction, the store the caches of a process share and the
+release of a device's graphs for a call that ran out of memory beside
+them. Then the steps as the graphs capture them (row lengths,
 scales and frame counts as tensors, nothing read from the host) against
 the JAX package on the CPU at ``test_torch_scan.py``'s and
 ``test_torch_spectrogram.py``'s small sizes, with their tolerances:
@@ -230,58 +232,72 @@ def test_two_groups_dispatched_ahead_keep_their_own_outputs(stub):
 
 def test_eviction_keeps_the_most_recent_graphs_and_one_pool(stub,
                                                             monkeypatch):
-    """At ``GRAPHS_PER_DEVICE`` graphs a device the least recently used
-    goes; a key that was evicted starts again from its first sight. The
-    graphs of a device share one pool."""
+    """The graphs of a device share one pool. At ``GRAPHS_PER_DEVICE``
+    graphs a device, a capture first lets every graph of the device go
+    with the pool (a live pool keeps every block captured into it), their
+    keys kept as seen: the store keeps the most recent graph, and a key
+    that was evicted captures again on its next call, with no eager first
+    sight."""
     monkeypatch.setattr(step_graph, "GRAPHS_PER_DEVICE", 2)
     cache = StepGraphs()
     step = _launching_step(_fake_wrapper(), 1.0)
     y = torch.zeros(2)
-    for key in ("a", "b", "a", "c"):
+    for key in ("a", "b", "a"):
         for _ in range(2):
             cache(key, step, (torch.ones(2),), (y,))
-    # a: first, capture; b: first, capture; a: 2 hits; c: first, capture
-    assert dict(cache.stats) == {"first": 3, "captures": 3, "hits": 2,
-                                 "evicted": 1}
     dev = _store()
-    assert [k[1][0] for k in dev.graphs] == ["a", "c"]
     assert len({e.graph.pool() for e in dev.graphs.values()}) == 1
+    pool = dev.pool
+    for _ in range(2):
+        cache("c", step, (torch.ones(2),), (y,))
+    # a: first, capture; b: first, capture; a: 2 hits; c: first, capture
+    # (a and b go)
+    assert dict(cache.stats) == {"first": 3, "captures": 3, "hits": 2,
+                                 "evicted": 2}
+    assert [k[1][0] for k in dev.graphs] == ["c"] and dev.pool is not pool
+    assert {k[1][0] for k in dev.seen} == {"a", "b"}
     cache("b", step, (torch.ones(2),), (y,))
-    assert cache.stats["first"] == 4
+    assert (cache.stats["first"], cache.stats["captures"]) == (3, 4)
+    assert [k[1][0] for k in dev.graphs] == ["c", "b"]
     cache.clear()
     assert _graphs_kept(cache) == 0 and dev.pool is None
     cache("a", step, (torch.ones(2),), (y,))
-    assert cache.stats["first"] == 5
+    assert cache.stats["first"] == 4
 
 
 def test_caches_of_a_process_share_one_store_a_device(stub, monkeypatch):
     """Every cache of the process keeps its graphs in one store a device:
-    one pool, at most ``GRAPHS_PER_DEVICE`` graphs in all (the least
-    recently used of any cache goes), one key of two caches two graphs;
-    a cache's graphs and keys go when it is dropped, and with them the
-    device's other graphs (a live pool keeps every block captured into
-    it) and the pool; their keys are kept as seen, so each captures again
-    on its next call."""
+    one pool, at most ``GRAPHS_PER_DEVICE`` graphs in all (a capture of
+    any cache that finds them there releases every cache's graphs, their
+    keys kept as seen), one key of two caches two graphs; a cache's graphs
+    and keys go when it is dropped, and with them the device's other
+    graphs (a live pool keeps every block captured into it) and the pool;
+    their keys are kept as seen, so each captures again on its next
+    call."""
     monkeypatch.setattr(step_graph, "GRAPHS_PER_DEVICE", 3)
     a, b = StepGraphs(), StepGraphs()
     step = _launching_step(_fake_wrapper(), 1.0)
     y = torch.zeros(2)
-    for cache in (a, b):
-        for key in ("k", "j"):
-            for _ in range(2):
-                cache(key, step, (torch.ones(2),), (y,))
+    for cache, key in ((a, "k"), (a, "j"), (b, "k")):
+        for _ in range(2):
+            cache(key, step, (torch.ones(2),), (y,))
     dev = _store()
-    assert (_graphs_kept(a), _graphs_kept(b)) == (1, 2)
-    assert b.stats["evicted"] == 1 and not a.stats["evicted"]
+    assert (_graphs_kept(a), _graphs_kept(b)) == (2, 1)
     assert len({e.graph.pool() for e in dev.graphs.values()}) == 1
+    for _ in range(2):
+        b("j", step, (torch.ones(2),), (y,))
+    assert (_graphs_kept(a), _graphs_kept(b)) == (0, 1)
+    assert b.stats["evicted"] == 3 and not a.stats["evicted"]
+    a("j", step, (torch.ones(2),), (y,))  # kept as seen: captured
+    assert (_graphs_kept(a), _graphs_kept(b)) == (1, 1)
     pool = dev.pool
     b("x", step, (torch.ones(2),), (y,))  # seen once, kept as seen
     del b, cache
     gc.collect()
     assert not dev.graphs and dev.pool is None
-    assert [k[0] for k in dev.seen] == [a._token]
-    a("j", step, (torch.ones(2),), (y,))
-    assert (a.stats["first"], a.stats["captures"]) == (2, 3)
+    assert [k[0] for k in dev.seen] == [a._token, a._token]
+    a("k", step, (torch.ones(2),), (y,))
+    assert (a.stats["first"], a.stats["captures"]) == (2, 4)
     assert _graphs_kept(a) == 1 and dev.pool is not pool
     a.clear()
     assert not dev.graphs and dev.pool is None
@@ -387,6 +403,126 @@ def test_a_failed_capture_raises_on_every_later_call(stub, monkeypatch):
         cache("k", step, (x,))
     assert cache.stats["captures"] == 1
     assert len(ran) == step_graph.SEEN_PER_DEVICE + 5
+
+
+class _RunsOutOfMemory:
+    """``step`` that raises out of device memory on the runs numbered in
+    ``fail`` (from 0), as an allocation in an eager run or a capture
+    does."""
+
+    def __init__(self, step, fail=()):
+        self.step, self.fail, self.runs = step, set(fail), 0
+
+    def __call__(self, *args):
+        self.runs += 1
+        if self.runs - 1 in self.fail:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (stub)")
+        return self.step(*args)
+
+
+def _hold_a_graph(cache, y):
+    for _ in range(2):
+        cache("held", _launching_step(_fake_wrapper(), 1.0),
+              (torch.ones(3),), (y,))
+
+
+@pytest.mark.parametrize("errors", [1, 2])
+@pytest.mark.parametrize("where", ["first sight", "capture"])
+def test_out_of_memory_beside_a_graph_releases_it_and_runs_again(
+        stub, where, errors):
+    """A key's first sight or capture that runs out of device memory while
+    the device holds a graph (another key's): the device's graphs go with
+    their pool, their keys kept as seen, the release counted in the
+    cache's and the device's counts, and the call runs once more, with
+    the outputs of a call that had room. A second error raises. Neither
+    marks the key failed: a capture that succeeded on its second run is
+    replayed, one that did not captures again on the next call, as does a
+    key whose first sight ran on its second run; a first sight that did
+    not run is a first sight again."""
+    cache = StepGraphs()
+    y = torch.zeros(3)
+    _hold_a_graph(cache, y)
+    dev = _store()
+    pool = dev.pool
+    plain = _launching_step(_fake_wrapper(), 2.0)
+    start = 0 if where == "first sight" else 1
+    step = _RunsOutOfMemory(plain, range(start, start + errors))
+    x = torch.full((2, 3), 3.0)
+    want = plain(x, y)
+    if where == "capture":
+        cache("k", step, (x,), (y,))  # first sight
+    full = (cache._token, cache.key("k", (x,), (y,)))
+    if errors == 2:
+        with pytest.raises(torch.cuda.OutOfMemoryError, match="stub"):
+            cache("k", step, (x,), (y,))
+    else:
+        got = cache("k", step, (x,), (y,))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    replayed = where == "capture" and errors == 1  # the stub's replay runs
+    unseen = where == "first sight" and errors == 2
+    assert step.runs == start + 2 + replayed
+    assert cache.stats["released"] == 1 and dev.released == 1
+    assert full not in dev.failed
+    held = [k for k in dev.seen if k[1][0] == "held"]
+    assert len(held) == 1 and held[0] not in dev.graphs
+    if errors == 1 and where == "capture":
+        assert list(dev.graphs) == [full] and dev.pool is not pool
+    else:
+        assert not dev.graphs and dev.pool is None
+        assert (full in dev.seen) != unseen
+    before = dict(cache.stats)
+    got = cache("k", step, (x,), (y,))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kind = "hits" if replayed else "first" if unseen else "captures"
+    assert cache.stats[kind] == before.get(kind, 0) + 1
+    assert cache.stats["released"] == 1
+
+
+def test_out_of_memory_with_no_graph_held_raises_at_once(stub):
+    """With no graph on the device there is nothing to give way: a first
+    sight, an eager step (``run_step`` with no cache) and an allocation
+    through ``releasing`` that run out of memory raise on their first run,
+    and nothing is counted as released."""
+    cache = StepGraphs()
+    y = torch.zeros(3)
+    step = _RunsOutOfMemory(_launching_step(_fake_wrapper(), 1.0), [0])
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        cache("k", step, (torch.ones(3),), (y,))
+    eager = _RunsOutOfMemory(_launching_step(_fake_wrapper(), 1.0), [0])
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        step_graph.run_step(None, "k", eager, (torch.ones(3),), (y,))
+    alloc = _RunsOutOfMemory(lambda: torch.zeros(4), [0])
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        step_graph.releasing("cpu", alloc)
+    assert (step.runs, eager.runs, alloc.runs) == (1, 1, 1)
+    assert "released" not in cache.stats and _store().released == 0
+
+
+def test_an_eager_step_and_an_allocation_make_the_graphs_give_way(stub):
+    """The graphs give way to an eager step (``run_step`` with no cache, as
+    ``graphs=False`` and the plain paths run) and to an allocation through
+    ``releasing`` (a scan's staged rows, its query spectra) that ran out
+    of memory beside them: released, their keys kept as seen, and the call
+    runs once more."""
+    cache = StepGraphs()
+    y = torch.zeros(3)
+    plain = _launching_step(_fake_wrapper(), 2.0)
+    x = torch.full((2, 3), 3.0)
+    for run in ("eager step", "allocation"):
+        _hold_a_graph(cache, y)
+        dev = _store()
+        if run == "eager step":
+            step = _RunsOutOfMemory(plain, [0])
+            got = step_graph.run_step(None, "k", step, (x,), (y,))
+            assert all(torch.equal(a, b) for a, b in zip(got, plain(x, y)))
+        else:
+            step = _RunsOutOfMemory(lambda: torch.ones(4), [0])
+            assert torch.equal(step_graph.releasing("cpu", step),
+                               torch.ones(4))
+        assert step.runs == 2 and not dev.graphs and dev.pool is None
+    assert dev.released == 2 and "released" not in cache.stats
+    cache("held", plain, (torch.ones(3),), (y,))
+    assert cache.stats["captures"] == 3  # kept as seen: no first sight
 
 
 def test_held_inputs_are_keyed_by_address_and_kept_alive(stub):
