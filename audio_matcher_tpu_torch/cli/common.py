@@ -10,8 +10,10 @@ see SURVEY.md §2.15.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
+from pathlib import Path
 from typing import Callable, Optional, TypeVar
 
 T = TypeVar("T")
@@ -197,6 +199,29 @@ def resolve_device(name: str):
             "(pass --device cpu to run the kernels' plain versions)"
         )
     return device
+
+
+def profiled(xprof: Path | None, device, name: str):
+    """A torch.profiler context writing ``DIR/<name>.trace.json`` (chrome
+    trace format) when ``--xprof DIR`` is given, else a no-op. The port's
+    spans (``utils/spans.py``) are on while it runs, and the trace holds
+    them as ``audio_matcher.*`` host ranges."""
+    if xprof is None:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+
+    @contextlib.contextmanager
+    def trace():
+        with profile(activities=activities) as prof:
+            yield
+        xprof.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(xprof / f"{name}.trace.json"))
+
+    return trace()
 
 
 def resolve_peaks_impl(choice: str, device) -> str:

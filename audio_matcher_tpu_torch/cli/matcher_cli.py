@@ -17,7 +17,6 @@ device and with scipy on the CPU.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import sys
 from pathlib import Path
@@ -154,27 +153,6 @@ def print_offsets(peaks, sr: int) -> None:
         )
 
 
-def _profiled(xprof: Path | None, device, name: str):
-    """A torch.profiler context writing ``DIR/<name>.trace.json`` (chrome
-    trace format) when ``--xprof DIR`` is given, else a no-op."""
-    if xprof is None:
-        return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-
-    @contextlib.contextmanager
-    def trace():
-        with profile(activities=activities) as prof:
-            yield
-        xprof.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(xprof / f"{name}.trace.json"))
-
-    return trace()
-
-
 def _match_pcm(matcher, samples, est_samples: int, fancy: bool):
     """One PCM scan with the progress bar over its duration-estimated
     windows."""
@@ -282,7 +260,7 @@ def run(args: argparse.Namespace) -> int:
             m_duration, m_sr, est_samples,
         )
 
-        with _profiled(args.xprof, device, main_file.stem):
+        with common.profiled(args.xprof, device, main_file.stem):
             if args.mode == "spectrogram":
                 peaks = matcher.match(m_samples)
             else:

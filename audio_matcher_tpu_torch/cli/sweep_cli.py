@@ -8,7 +8,9 @@ for several. ``--device`` (default ``cuda``) names the torch device that
 scans and ``--devices N`` a mesh of N of its kind (N cards, or N shards of
 the CPU); ``--mode spectrogram`` scans log-mel fingerprints (torch ops on
 the device); ``--resample-impl auto`` resamples on a CUDA device and with
-scipy on the CPU.
+scipy on the CPU; ``--xprof DIR`` writes a ``torch.profiler`` chrome trace
+of the whole sweep, with the port's spans (stage, dispatch, collect and
+their parts, the step graphs') as ``audio_matcher.*`` ranges.
 
 Several processes sweep one archive together when each is started with
 ``AM_COORDINATOR`` (``host:port`` of process 0), ``AM_NUM_PROCESSES`` and
@@ -43,6 +45,7 @@ from ..models.spectrogram import SpectrogramConfig
 from ..parallel.mesh import (
     init_distributed,
     make_mesh,
+    process_index,
     shutdown_distributed,
 )
 from ..parallel.sweep import sweep_archive
@@ -135,6 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device that scans (default cuda; cpu runs the "
         "kernels' plain versions)",
     )
+    p.add_argument(
+        "--xprof", type=Path, metavar="DIR",
+        help="write a torch.profiler chrome trace of the sweep to DIR "
+        "(sweep.trace.json; sweep.<process>.trace.json in a cluster)",
+    )
     common.add_output_level_args(p)
     return p
 
@@ -203,19 +211,21 @@ def run(args: argparse.Namespace) -> int:
             mesh = make_mesh(args.devices, device)
             if mesh.size > 1:
                 scan_on = mesh
-        results = sweep_archive(
-            paths,
-            snippets,
-            sr,
-            config,
-            device=scan_on,
-            progress_path=args.progress_file,
-            write_labels_for=write_result,
-            resample_mismatched=args.resample,
-            mode=args.mode,
-            spectrogram_config=spectrogram_config,
-            group_size=args.group_size,
-        )
+        name = f"sweep.{process_index()}" if joined else "sweep"
+        with common.profiled(args.xprof, device, name):
+            results = sweep_archive(
+                paths,
+                snippets,
+                sr,
+                config,
+                device=scan_on,
+                progress_path=args.progress_file,
+                write_labels_for=write_result,
+                resample_mismatched=args.resample,
+                mode=args.mode,
+                spectrogram_config=spectrogram_config,
+                group_size=args.group_size,
+            )
     finally:
         if joined:
             shutdown_distributed()

@@ -63,6 +63,7 @@ from ..ops.peaks import (
 )
 from ..ops.wire import dequant_to_f32, silence_code
 from ..parallel.step_graph import StepGraphs, releasing, run_step
+from ..utils import spans
 
 log = logging.getLogger("audio_matcher_torch.matcher")
 
@@ -266,18 +267,21 @@ def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
     is its episode, then silence to ``n_pad``; rows past the episodes are
     silence. Only what no episode covers is silenced, row by row, and a
     pinned tensor comes from PyTorch's caching host allocator, which hands
-    a freed block out again only after the copies that read it completed."""
-    buf = torch.empty((rows, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
-                      pin_memory=pinned)
-    out = buf.numpy()
-    silence = wire_silence(transfer)
-    for i in range(rows):
-        n = 0
-        if i < len(episodes):
-            wire = _wire_row(episodes[i], i, n_pad, transfer)
-            n = len(wire)
-            out[i, :n] = wire
-        out[i, n:] = silence
+    a freed block out again only after the copies that read it completed.
+    Spans ``stage.alloc`` (the buffer) and ``stage.fill`` (the rows)."""
+    with spans.span("stage.alloc"):
+        buf = torch.empty((rows, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
+                          pin_memory=pinned)
+    with spans.span("stage.fill"):
+        out = buf.numpy()
+        silence = wire_silence(transfer)
+        for i in range(rows):
+            n = 0
+            if i < len(episodes):
+                wire = _wire_row(episodes[i], i, n_pad, transfer)
+                n = len(wire)
+                out[i, :n] = wire
+            out[i, n:] = silence
     return buf
 
 
@@ -307,7 +311,8 @@ def read_back(tensors, ready=None) -> list[np.ndarray]:
     with torch.cuda.stream(stream):
         stream.wait_event(ready)
         host = [a.to("cpu", non_blocking=True) for a in tensors]
-    stream.synchronize()
+    with spans.span("collect.wait"):
+        stream.synchronize()
     return [h.numpy() for h in host]
 
 
@@ -320,27 +325,32 @@ def upload(host: torch.Tensor, device: torch.device):
     and the copied tensor is marked as used there (it was allocated on the
     side stream, and the caching allocator must not hand its memory out
     while the scan still reads it). The device's graphs give way to it
-    (:func:`~..parallel.step_graph.releasing`)."""
+    (:func:`~..parallel.step_graph.releasing`). Span ``stage.upload``:
+    the host's issue of the copy (its time on the card is the profiler's
+    ``Memcpy HtoD`` event)."""
     if device.type != "cuda":
         return host.to(device)
     side = side_stream(device)
-    with torch.cuda.stream(side):
-        staged = releasing(device,
-                           lambda: host.to(device, non_blocking=True))
-    main = torch.cuda.current_stream(device)
-    main.wait_stream(side)
-    staged.record_stream(main)
+    with spans.span("stage.upload"):
+        with torch.cuda.stream(side):
+            staged = releasing(device,
+                               lambda: host.to(device, non_blocking=True))
+        main = torch.cuda.current_stream(device)
+        main.wait_stream(side)
+        staged.record_stream(main)
     return staged
 
 
 def device_ints(values, device: torch.device) -> torch.Tensor:
     """Host ints (a scalar or a sequence) as an int64 tensor on ``device``,
     copied from pinned memory without blocking the host on a CUDA device:
-    a scan step's row lengths, which it then reads on the device."""
-    host = torch.from_numpy(np.asarray(values, np.int64))
-    if device.type != "cuda":
-        return host.to(device)
-    return host.pin_memory().to(device, non_blocking=True)
+    a scan step's row lengths, which it then reads on the device. Span
+    ``dispatch.lengths``."""
+    with spans.span("dispatch.lengths"):
+        host = torch.from_numpy(np.asarray(values, np.int64))
+        if device.type != "cuda":
+            return host.to(device)
+        return host.pin_memory().to(device, non_blocking=True)
 
 
 def stage_rows_host(episodes, ns, n_pad: int, transfer: str, e_pad: int,
@@ -738,32 +748,35 @@ class SnippetMatcher:
         upload it with one copy from a pinned host buffer; no computation
         runs on the device. ``n_samples`` truncates or zero-extends the
         stream first. Returns (episode tensor [Npad], n) for
-        :meth:`match_staged`."""
-        samples = np.ascontiguousarray(samples)
-        if n_samples is not None:
-            if n_samples <= len(samples):
-                samples = samples[:n_samples]
-            else:
-                tail = np.zeros(n_samples - len(samples), samples.dtype)
-                samples = np.concatenate([samples, tail])
-        n = len(samples)
-        width = staged_width(self.config, self.chunk, self.overlap, n)
-        staged, _, _ = stage_rows_host(
-            [samples], [n], width, self.config.transfer_dtype, 1, self.device
-        )
+        :meth:`match_staged`. Span ``stage``."""
+        with spans.span("stage"):
+            samples = np.ascontiguousarray(samples)
+            if n_samples is not None:
+                if n_samples <= len(samples):
+                    samples = samples[:n_samples]
+                else:
+                    tail = np.zeros(n_samples - len(samples), samples.dtype)
+                    samples = np.concatenate([samples, tail])
+            n = len(samples)
+            width = staged_width(self.config, self.chunk, self.overlap, n)
+            staged, _, _ = stage_rows_host(
+                [samples], [n], width, self.config.transfer_dtype, 1,
+                self.device)
         return staged[0], n
 
     def stage_batch(self, episodes: Sequence[np.ndarray]):
         """Stage several episodes as one [E, Npad] tensor (one copy; every
         row padded to the longest). Returns (tensor, ns) for
-        :meth:`match_staged_batch`."""
-        ns = np.array([len(e) for e in episodes], np.int32)
-        n_max = int(ns.max()) if len(ns) else 0
-        width = staged_width(self.config, self.chunk, self.overlap, n_max)
-        staged, _, _ = stage_rows_host(
-            episodes, ns, width, self.config.transfer_dtype, len(episodes),
-            self.device,
-        )
+        :meth:`match_staged_batch`. Span ``stage``."""
+        with spans.span("stage"):
+            ns = np.array([len(e) for e in episodes], np.int32)
+            n_max = int(ns.max()) if len(ns) else 0
+            width = staged_width(self.config, self.chunk, self.overlap,
+                                 n_max)
+            staged, _, _ = stage_rows_host(
+                episodes, ns, width, self.config.transfer_dtype,
+                len(episodes), self.device,
+            )
         return staged, ns
 
     def match(
@@ -784,21 +797,25 @@ class SnippetMatcher:
     def _extract_peaks(
         self, pos, h, prom, n_windows: int, progress=None
     ) -> list[Peak]:
+        """Rebase each window's candidates and dedup across windows (span
+        ``collect.peaks``)."""
         cfg = self.config
         candidates: list[Peak] = []
-        for k in range(n_windows):
-            for s in range(pos.shape[1]):
-                if np.isfinite(h[k, s]) and prom[k, s] >= cfg.min_prominence:
-                    candidates.append(
-                        Peak(
-                            position=int(pos[k, s]) + self.chunk * k,
-                            height=float(h[k, s]),
-                            prominence=float(prom[k, s]),
+        with spans.span("collect.peaks"):
+            for k in range(n_windows):
+                for s in range(pos.shape[1]):
+                    if (np.isfinite(h[k, s])
+                            and prom[k, s] >= cfg.min_prominence):
+                        candidates.append(
+                            Peak(
+                                position=int(pos[k, s]) + self.chunk * k,
+                                height=float(h[k, s]),
+                                prominence=float(prom[k, s]),
+                            )
                         )
-                    )
-            if progress:
-                progress("finish", k)
-        return overshadow_filter(candidates, self.sr, cfg.distance_secs)
+                if progress:
+                    progress("finish", k)
+            return overshadow_filter(candidates, self.sr, cfg.distance_secs)
 
     def match_staged(
         self,

@@ -78,6 +78,7 @@ from typing import Callable, Sequence
 import torch
 
 from .. import _build
+from ..utils import spans
 
 # Graphs kept a device in the process. A graph pins its static inputs
 # and outputs (the staged rows: 0.32 GB for config #3's 4 x 1800 s
@@ -257,7 +258,8 @@ def releasing(device, run: Callable[[], object], stats=None):
             dev.released += 1
     # out of the handler: the failed run's frames, and the tensors they
     # held, are gone before the cache is emptied
-    _empty_cache()
+    with spans.span("graph.release"):
+        _empty_cache()
     if stats is not None:
         stats["released"] += 1
     log.warning("%s ran out of memory beside %d graphs: released them and "
@@ -277,7 +279,10 @@ class StepGraphs:
     cache is dropped. ``stats`` counts the calls that ran eagerly on a
     key's first sight (``"first"``), the ``"captures"``, the replays of a
     graph captured by an earlier call (``"hits"``) and the graphs its
-    captures pushed out of the store (``"evicted"``).
+    captures pushed out of the store (``"evicted"``). Spans
+    (``utils/spans.py``): ``graph.first``, ``graph.capture`` and a
+    replay's ``graph.copy_in``, ``graph.launch`` (the graph's launch
+    alone) and ``graph.copy_out``; :func:`releasing`'s ``graph.release``.
     """
 
     def __init__(self):
@@ -329,15 +334,18 @@ class StepGraphs:
         if first:
             self.stats["first"] += 1
             try:
-                return releasing(device, lambda: tuple(step(*inputs, *held)),
-                                 self.stats)
+                with spans.span("graph.first"):
+                    return releasing(
+                        device, lambda: tuple(step(*inputs, *held)),
+                        self.stats)
             except BaseException:
                 with _locked():  # no warm-up ran: the next call is a first
                     dev.seen.pop(full, None)
                 raise
         if entry is None:
-            entry = releasing(device, lambda: self._capture(
-                dev, full, device, step, inputs, held), self.stats)
+            with spans.span("graph.capture"):
+                entry = releasing(device, lambda: self._capture(
+                    dev, full, device, step, inputs, held), self.stats)
         else:
             self.stats["hits"] += 1
         return self._replay(dev, entry, inputs)
@@ -390,11 +398,14 @@ class StepGraphs:
         """Copy ``inputs`` into the graph's buffers, replay it and copy its
         outputs out, with no other replay of the device issued between."""
         with dev.replaying:
-            for buffer, t in zip(entry.inputs, inputs):
-                buffer.copy_(t)
-            entry.graph.replay()
+            with spans.span("graph.copy_in"):
+                for buffer, t in zip(entry.inputs, inputs):
+                    buffer.copy_(t)
+            with spans.span("graph.launch"):
+                entry.graph.replay()
             _build.add_launches(entry.launches)
-            return tuple(o.clone() for o in entry.outputs)
+            with spans.span("graph.copy_out"):
+                return tuple(o.clone() for o in entry.outputs)
 
 
 def run_step(graphs: StepGraphs | None, key, step: Callable[..., tuple],

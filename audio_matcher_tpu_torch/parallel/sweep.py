@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -102,6 +103,7 @@ from ..ops.stft import (
     stft_log_mel_core,
 )
 from ..ops.wire import dequant_to_f32
+from ..utils import spans
 from .mesh import Mesh, make_local_mesh, process_count, process_index
 from .step_graph import StepGraphs, releasing, run_step
 
@@ -326,10 +328,17 @@ class _Scanner:
     several, its rows shard over ``mesh.flat`` (:class:`ShardedRows`).
     ``graphs``: on CUDA devices, replay each scan step as a CUDA graph
     captured once per shape (:attr:`step_graphs`, a
-    :class:`~.step_graph.StepGraphs`); False runs it eagerly."""
+    :class:`~.step_graph.StepGraphs`); False runs it eagerly.
+
+    Spans (``utils/spans.py``): ``stage``, ``dispatch`` and ``collect``
+    around the three calls, with the group's sequence number, which the
+    staged and dispatched tuples carry (:class:`~..utils.spans.Grouped`);
+    ``dispatch.issue`` around each card's launches on a mesh, and
+    ``collect.peaks`` around :meth:`_peaks`."""
 
     def __init__(self, device, graphs: bool):
         self.step_graphs = StepGraphs() if graphs else None
+        self._groups = itertools.count()  # the staged groups' numbers
         if isinstance(device, Mesh):
             self.mesh = device
         elif isinstance(device, (list, tuple)):
@@ -358,6 +367,11 @@ class _Scanner:
         CUDA device, see :func:`upload`): with one copy on one device, or
         one copy a shard on a mesh. ``pad_to``: minimum episode count
         (silence rows)."""
+        group = next(self._groups)
+        with spans.span("stage", group):
+            return spans.Grouped(self._stage(episodes, pad_to), group)
+
+    def _stage(self, episodes, pad_to):
         ns = np.array([len(e) for e in episodes], np.int32)
         n_max = int(ns.max()) if len(ns) else 0
         e_pad = max(len(episodes), int(pad_to or 0))
@@ -383,14 +397,22 @@ class _Scanner:
         are issued by a host thread of its own: issuing a card's launches
         blocks while its launch queue is full, so one thread would start
         each card only when the card before it had nearly finished."""
+        group = spans.group_of(staged)
+        with spans.span("dispatch", group):
+            return spans.Grouped(self._dispatch(staged, scale, group), group)
+
+    def _dispatch(self, staged, scale: bool, group):
         rows, ns, n_real = staged
         n_max = int(ns.max()) if len(ns) else 0
         if not isinstance(rows, ShardedRows):
             outs = self._scan(rows, ns, scale, n_max)
             return outs, ns, n_real, _ready_event(rows.device)
+        into = spans.sink()
 
         def issue(shards, stream):
-            with _on_stream(stream):
+            device = shards[0][1].device
+            with (_on_stream(stream),
+                  spans.issue_span(into, "dispatch.issue", group, device)):
                 return [(self._scan(block, ns[a : a + block.shape[0]],
                                     scale, n_max),
                          _ready_event(block.device)) for a, block in shards]
@@ -414,12 +436,15 @@ class _Scanner:
         """Read back a :meth:`scan_dispatch` result → peaks[episode][query].
         Waits for that scan only, not for scans dispatched after it; on a
         mesh, each shard after its own event."""
-        outs, ns, n_real, ready = dispatched
-        if not isinstance(ready, list):
-            return self._peaks(read_back(outs, ready), ns, n_real)
-        shards = [read_back(o, r) for o, r in zip(outs, ready)]
-        arrays = [np.concatenate(parts) for parts in zip(*shards)]
-        return self._peaks(arrays, ns, n_real)
+        with spans.span("collect", spans.group_of(dispatched)):
+            outs, ns, n_real, ready = dispatched
+            if not isinstance(ready, list):
+                arrays = read_back(outs, ready)
+            else:
+                shards = [read_back(o, r) for o, r in zip(outs, ready)]
+                arrays = [np.concatenate(parts) for parts in zip(*shards)]
+            with spans.span("collect.peaks"):
+                return self._peaks(arrays, ns, n_real)
 
     def scan_staged(
         self, staged, scale: bool = True

@@ -9,9 +9,11 @@ and several ``--snippet``s. Both CLIs resolve ``auto`` to ``xla_packed`` +
 ``jnp`` here. Then the port's own behaviour: the whole-second duration tag
 does not shorten the overlap, what is not ported fails through the error
 boundary naming its ROADMAP item, a missing CUDA device is refused, and
-``--xprof`` writes a trace.
+``--xprof`` writes a trace that holds the port's spans, for the matcher
+and for a sweep.
 """
 
+import json
 import logging
 import shutil
 
@@ -250,9 +252,17 @@ def test_cli_boundaries(fixtures, monkeypatch, caplog, capsys):
         assert capsys.readouterr().out.strip() == f"{prog} {__version__}"
 
 
+def _span_names(trace):
+    """The port's spans in a chrome trace: its ``cpu_op`` ranges named
+    ``audio_matcher.*``."""
+    return {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+            if e.get("cat") == "cpu_op"
+            and e.get("name", "").startswith("audio_matcher.")}
+
+
 def test_matcher_cli_resamples_and_profiles(fixtures, tmp_path, caplog):
     """--resample (scipy) matches a snippet across rates; --xprof writes a
-    torch.profiler chrome trace per file."""
+    torch.profiler chrome trace per file, with the port's spans."""
     d = fixtures / "port"
     rng = np.random.default_rng(4)
     snippet = (rng.standard_normal(SR) * 0.2).astype(np.float32)
@@ -272,6 +282,8 @@ def test_matcher_cli_resamples_and_profiles(fixtures, tmp_path, caplog):
     assert rc == 0 and len(_offsets(caplog)) == 2
     trace = tmp_path / "trace" / "episode.trace.json"
     assert trace.stat().st_size > 0
+    assert {"audio_matcher.stage", "audio_matcher.collect.peaks"} <= (
+        _span_names(trace))
     write_wav(d / "ep4k.wav", SR // 2,
               np.zeros(20 * SR // 2, np.float32))
     caplog.clear()
@@ -281,3 +293,20 @@ def test_matcher_cli_resamples_and_profiles(fixtures, tmp_path, caplog):
             "--no-out", "--resample", "--device", "cpu"]))
     assert rc == 0
     assert any("matcher at 4000 Hz" in r.getMessage() for r in caplog.records)
+
+
+def test_sweep_cli_profiles(fixtures, tmp_path):
+    """--xprof writes one chrome trace of the whole sweep, with the port's
+    spans of each group."""
+    d = fixtures / "port"
+    rc = sweep_cli.run(sweep_cli.build_parser().parse_args([
+        str(d / "*e*.wav"), "--snippet", str(d / "intro.wav"), "--no-out",
+        "--distance", "10", "--chunk-size", "10", "--group-size", "1",
+        "--device", "cpu", "--xprof", str(tmp_path / "trace")]))
+    assert rc == 0
+    assert [p.name for p in (tmp_path / "trace").iterdir()] == [
+        "sweep.trace.json"]
+    names = _span_names(tmp_path / "trace" / "sweep.trace.json")
+    assert {"audio_matcher.stage", "audio_matcher.stage.fill",
+            "audio_matcher.dispatch", "audio_matcher.collect",
+            "audio_matcher.collect.peaks"} <= names

@@ -1576,3 +1576,43 @@ def test_match_from_two_threads_returns_each_snippets_peaks(dev,
         t.join()
     assert not wrong
     assert dict(cache.stats) == {"first": 1, "captures": 1, "hits": 20}
+
+
+def test_spans_of_a_replayed_group_stay_off_the_device_timeline(dev):
+    """The port's spans (``utils/spans.py``) under a CUDA profiler: a sweep
+    group's shape is seen and captured before the profiler starts, and one
+    more group, replayed under it, records each boundary once with the
+    group's number, the replay's copy-in, launch and copy-out, while the
+    upload's ``Memcpy HtoD`` lies on the device's timeline, over 0 ms; no
+    event there is named ``audio_matcher.*``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_matcher_tpu_torch.utils import spans
+
+    sr, snippets, batches, cfg = _scan_case(3, 21)
+    sc = ShardedScanner(snippets, sr, cfg, device=dev)
+    for _ in range(2):  # first sight, capture
+        sc.scan_collect(sc.scan_dispatch(sc.stage_resident(batches[0])))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = sc.scan_collect(sc.scan_dispatch(sc.stage_resident(
+            batches[1])))
+        torch.cuda.synchronize(dev)
+    assert got[0][0]  # the plant, found
+    assert dict(sc.step_graphs.stats) == {"first": 1, "captures": 1,
+                                          "hits": 1}
+    recs = spans.records()
+    host = [r.name for r in recs]
+    for name in ("stage", "stage.alloc", "stage.fill", "stage.upload",
+                 "dispatch", "dispatch.lengths", "graph.copy_in",
+                 "graph.launch", "graph.copy_out", "collect", "collect.wait",
+                 "collect.peaks"):
+        assert host.count(name) == 1, name
+    assert not {"graph.first", "graph.capture"} & set(host)
+    assert {r.group for r in recs} == {2}
+    on_device = [ev for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    assert max(ev.duration_ns() for ev in on_device
+               if ev.name().startswith("Memcpy HtoD")) > 0
+    assert not [ev for ev in on_device
+                if ev.name().startswith(spans.PREFIX)]
