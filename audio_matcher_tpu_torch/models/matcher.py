@@ -34,6 +34,9 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, Sequence
 
 import numpy as np
@@ -250,14 +253,71 @@ def wire_buffer(shape, transfer_dtype: str) -> np.ndarray:
     )
 
 
-def _wire_row(ep, i: int, n_pad: int, transfer: str) -> np.ndarray:
-    """Episode ``i`` in the wire dtype: rows already in it are copied,
-    others quantize here."""
-    ep = np.asarray(ep)
-    if len(ep) > n_pad:
-        raise ValueError(f"episode {i} is longer than the staged width")
-    return ep if ep.dtype == WIRE_DTYPES[transfer] else quantize_wire(
-        ep, transfer)
+# The host fill runs on at most this many threads: past it the copy of a
+# 3 × 1 h int16 group on the H100 machine's 8-core host got slower
+# (PERF.md section 6).
+FILL_THREADS = 8
+# A fill is cut into parts of at least this many bytes; a smaller one
+# runs on the caller's thread.
+FILL_PART_BYTES = 16 << 20
+
+
+class _FillPool:
+    lock = threading.Lock()
+    pool: ThreadPoolExecutor | None = None
+    threads: int | None = None
+
+
+def _fill_threads() -> int:
+    """Threads of the fill pool: the CPUs this process may run on, at
+    most :data:`FILL_THREADS`."""
+    if _FillPool.threads is None:
+        _FillPool.threads = min(len(os.sched_getaffinity(0)), FILL_THREADS)
+    return _FillPool.threads
+
+
+def _fill_pool() -> ThreadPoolExecutor:
+    """The process's fill pool, made at its first use."""
+    with _FillPool.lock:
+        if _FillPool.pool is None:
+            _FillPool.pool = ThreadPoolExecutor(
+                _fill_threads(), thread_name_prefix="am-fill")
+        return _FillPool.pool
+
+
+def fill_plan(rows: int, n_pad: int, itemsize: int) -> list[tuple[int, int]]:
+    """The parts of a [rows, n_pad] fill: contiguous ranges of the flat
+    buffer, of at least :data:`FILL_PART_BYTES` each and as even as 4 KiB
+    boundaries allow; one range when the fill is smaller than two parts
+    or the pool has one thread."""
+    total = rows * n_pad
+    parts = total * itemsize // FILL_PART_BYTES
+    if parts < 2 or _fill_threads() < 2:
+        return [(0, total)]
+    align = max(4096 // itemsize, 1)
+    step = -(-total // parts // align) * align
+    return [(a, min(a + step, total)) for a in range(0, total, step)]
+
+
+def _fill_range(out: np.ndarray, episodes, start: int, stop: int,
+                transfer: str) -> None:
+    """Write the flat elements ``[start, stop)`` of ``out`` ([rows,
+    n_pad]): each row's episode in the wire dtype (quantized here, slice
+    by slice, where it is in another), then silence."""
+    if stop <= start:
+        return
+    n_pad = out.shape[1]
+    silence = wire_silence(transfer)
+    for i in range(start // n_pad, -(-stop // n_pad)):
+        a = max(start - i * n_pad, 0)
+        b = min(stop - i * n_pad, n_pad)
+        ep = episodes[i] if i < len(episodes) else None
+        n = min(len(ep), b) if ep is not None else 0
+        if a < n:
+            part = ep[a:n]
+            out[i, a:n] = part if part.dtype == out.dtype else (
+                quantize_wire(part, transfer))
+        out[i, max(a, n):b] = silence
 
 
 def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
@@ -265,23 +325,40 @@ def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
     """Pack episodes into a fresh [rows, n_pad] wire-dtype host tensor
     (page-locked when ``pinned``, so that its upload is one DMA): each row
     is its episode, then silence to ``n_pad``; rows past the episodes are
-    silence. Only what no episode covers is silenced, row by row, and a
-    pinned tensor comes from PyTorch's caching host allocator, which hands
-    a freed block out again only after the copies that read it completed.
-    Spans ``stage.alloc`` (the buffer) and ``stage.fill`` (the rows)."""
+    silence. Only what no episode covers is silenced, and a pinned tensor
+    comes from PyTorch's caching host allocator, which hands a freed block
+    out again only after the copies that read it completed.
+
+    The fill runs as the parts of :func:`fill_plan` on the process's fill
+    pool (numpy's copies and ufuncs release the interpreter lock), and
+    returns when every part is written; a fill of one part runs on the
+    caller's thread. Spans ``stage.alloc`` (the buffer), ``stage.fill``
+    (the rows) and ``stage.fill.part`` (a part on a pool thread, recorded
+    into the caller's store with the caller's group)."""
+    episodes = [np.asarray(ep) for ep in episodes]
+    for i, ep in enumerate(episodes):
+        if len(ep) > n_pad:
+            raise ValueError(f"episode {i} is longer than the staged width")
     with spans.span("stage.alloc"):
         buf = torch.empty((rows, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
                           pin_memory=pinned)
-    with spans.span("stage.fill"):
+    with spans.span("stage.fill") as fill:
         out = buf.numpy()
-        silence = wire_silence(transfer)
-        for i in range(rows):
-            n = 0
-            if i < len(episodes):
-                wire = _wire_row(episodes[i], i, n_pad, transfer)
-                n = len(wire)
-                out[i, :n] = wire
-            out[i, n:] = silence
+        plan = fill_plan(rows, n_pad, out.itemsize)
+        if len(plan) == 1:
+            _fill_range(out, episodes, *plan[0], transfer)
+            return buf
+        into, group = spans.sink(), getattr(fill, "group", None)
+
+        def part(start, stop):
+            with spans.issue_span(into, "stage.fill.part", group):
+                _fill_range(out, episodes, start, stop, transfer)
+
+        pool = _fill_pool()
+        futures = [pool.submit(part, a, b) for a, b in plan]
+        wait(futures)
+        for future in futures:
+            future.result()
     return buf
 
 

@@ -22,9 +22,9 @@ events.
 Each thread keeps the records of its own latest profiled interval (at
 most ``CAP``): the first span a thread opens with the profiler on, after
 one it opened with the profiler off, clears that thread's older records
-and no other thread's. A card's issue thread, where the profiler is off,
-records into the store of the thread that handed it the work
-(:func:`sink`, :func:`issue_span`).
+and no other thread's. A card's issue thread, or a thread of the host
+fill's pool, where the profiler is off, records into the store of the
+thread that handed it the work (:func:`sink`, :func:`issue_span`).
 """
 
 from __future__ import annotations
@@ -144,13 +144,14 @@ def sink():
     return _interval() if _enabled() else None
 
 
-def issue_span(into, name: str, group: int | None, device):
-    """A host span in a thread of its own that issues to the card
-    ``device``, recorded ``into`` the handing thread's :func:`sink`: the
-    profiler's state is per thread, so the handing thread's decides."""
+def issue_span(into, name: str, group: int | None, device=None):
+    """A host span in a thread of its own that works for the handing
+    thread (issues to the card ``device``, or fills its rows), recorded
+    ``into`` that thread's :func:`sink`: the profiler's state is per
+    thread, so the handing thread's decides."""
     if into is None:
         return _NULL
-    return _Span(name, group, str(device), into)
+    return _Span(name, group, None if device is None else str(device), into)
 
 
 def records() -> list[Record]:

@@ -12,6 +12,8 @@ peak picks are exact. Every ``fft_impl`` × ``peaks_impl`` runs on the card
 against ``plain=True``.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -766,6 +768,42 @@ def test_pinned_staging_through_the_copy_stream(dev):
         assert np.array_equal(got.cpu().numpy(),
                               _staged_rows(eps, rows, width, silence))
     assert busy > 0  # some copy was still running when the next group came
+
+
+def test_a_split_fill_is_uploaded_whole(dev, monkeypatch):
+    """A group whose fill is cut into 1 MiB parts on 4 threads, one part
+    slow: ``stage_rows_host`` hands the buffer to the upload only after
+    every part is written, and the staged tensor equals the host rows bit
+    for bit."""
+    from audio_matcher_tpu_torch.models import matcher
+
+    monkeypatch.setattr(matcher, "FILL_PART_BYTES", 1 << 20)
+    monkeypatch.setattr(matcher._FillPool, "threads", 4)
+    monkeypatch.setattr(matcher._FillPool, "pool", None)
+    fill_range, done = matcher._fill_range, []
+
+    def slow_last(out, eps, start, stop, transfer):
+        if stop == out.size:
+            time.sleep(0.3)
+        fill_range(out, eps, start, stop, transfer)
+        done.append(start)
+
+    monkeypatch.setattr(matcher, "_fill_range", slow_last)
+    rng = np.random.default_rng(2)
+    rows, width = 3, 1 << 22  # 8 MB of int16 a row: 24 parts
+    eps = [rng.integers(-30000, 30000, n, dtype=np.int16)
+           for n in (width, width - 4097)]
+    plan = matcher.fill_plan(rows, width, 2)
+    try:
+        staged = matcher.stage_rows_host(eps, [len(e) for e in eps], width,
+                                         "int16", rows, dev)[0]
+        assert sorted(done) == [a for a, _ in plan] and len(plan) == 24
+        torch.cuda.synchronize()
+        assert np.array_equal(staged.cpu().numpy(), _staged_rows(
+            eps, rows, width, matcher.wire_silence("int16")))
+    finally:
+        if matcher._FillPool.pool is not None:
+            matcher._FillPool.pool.shutdown()
 
 
 @pytest.mark.parametrize("pad_to", [None, 4])

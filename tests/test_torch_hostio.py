@@ -11,6 +11,8 @@ gives each package its own copy.
 
 import io
 import shutil
+import threading
+import time
 import wave
 
 import numpy as np
@@ -33,13 +35,21 @@ from audio_matcher_tpu.utils import progressbar as jprogressbar  # noqa: E402
 
 from audio_matcher_tpu_torch.hostio import decode, labels, prefetch  # noqa: E402
 from audio_matcher_tpu_torch.meta import progress, tagger  # noqa: E402
+from audio_matcher_tpu_torch.models import matcher  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
+    fill_plan,
     fill_wire_rows,
     quantize_wire,
+    wire_buffer,
     wire_silence,
 )
 from audio_matcher_tpu_torch.ops.peaks import Peak  # noqa: E402
-from audio_matcher_tpu_torch.utils import durations, progressbar  # noqa: E402
+from audio_matcher_tpu_torch.utils import (  # noqa: E402
+    durations,
+    progressbar,
+    spans,
+)
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 WIRES = ["float32", "int16", "mulaw8"]
 
@@ -315,6 +325,137 @@ def test_staging_fill_matches_jax(wire):
             == wire_silence(wire)).all()
     with pytest.raises(ValueError, match="longer than the staged width"):
         fill_wire_rows(eps, 400, wire, rows)
+
+
+SPLIT_WIDTH = 40_000  # with 8 KiB parts: 4-19 parts a row on every wire
+
+
+@pytest.fixture
+def split(monkeypatch):
+    """Fills cut into 8 KiB parts, on a fresh pool of 4 threads (shut
+    down after the test), whatever the CPUs of this machine."""
+    monkeypatch.setattr(matcher, "FILL_PART_BYTES", 8 << 10)
+    monkeypatch.setattr(matcher._FillPool, "threads", 4)
+    monkeypatch.setattr(matcher._FillPool, "pool", None)
+    yield
+    if matcher._FillPool.pool is not None:
+        matcher._FillPool.pool.shutdown()
+
+
+def _one_thread_fill(eps, rows, width, wire):
+    want = wire_buffer((rows, width), wire)
+    for i, ep in enumerate(eps):
+        want[i, : len(ep)] = ep if ep.dtype == want.dtype else (
+            quantize_wire(ep, wire))
+    return want
+
+
+SPLIT_CASES = {
+    "lengths": (3, (SPLIT_WIDTH, SPLIT_WIDTH - 777, SPLIT_WIDTH // 3), True),
+    "empty episode": (3, (SPLIT_WIDTH - 5, 0, 12_345), True),
+    "fewer episodes than rows": (5, (SPLIT_WIDTH, 9_999), True),
+    "float32 episodes": (3, (SPLIT_WIDTH, 31_000, 1), False),
+    "no episodes": (3, (), True),
+}
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("wire", WIRES)
+def test_split_fill_equals_one_thread(split, wire, case):
+    """A fill cut into several parts a row, on several threads, gives the
+    bytes of the one-thread fill; float32 episodes are quantized part by
+    part onto the int16 and μ-law wires."""
+    rows, lengths, in_wire = SPLIT_CASES[case]
+    rng = np.random.default_rng(len(lengths) + rows)
+    eps = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+           for n in lengths]
+    if in_wire:
+        eps = [quantize_wire(ep, wire) for ep in eps]
+    want = _one_thread_fill(eps, rows, SPLIT_WIDTH, wire)
+    plan = fill_plan(rows, SPLIT_WIDTH, want.itemsize)
+    assert len(plan) >= 3 * rows
+    assert plan[0][0] == 0 and plan[-1][1] == rows * SPLIT_WIDTH
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    got = fill_wire_rows(eps, SPLIT_WIDTH, wire, rows).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_a_split_fill_refuses_a_long_episode_before_any_part(
+        split, monkeypatch):
+    ran = []
+    monkeypatch.setattr(matcher, "_fill_range",
+                        lambda *args: ran.append(args))
+    eps = [np.zeros(SPLIT_WIDTH, np.int16), np.zeros(SPLIT_WIDTH + 1,
+                                                     np.int16)]
+    with pytest.raises(ValueError, match="episode 1 is longer than the "
+                       "staged width"):
+        fill_wire_rows(eps, SPLIT_WIDTH, "int16", 3)
+    assert ran == []
+
+
+def test_an_error_in_a_part_reaches_the_caller_after_every_part(
+        split, monkeypatch):
+    """The failing part raises in the caller; the fill returns (raising)
+    only after the other parts, a slow one among them, are done."""
+    fill_range = matcher._fill_range
+    done = []
+
+    def failing(out, eps, start, stop, transfer):
+        if start == 0:
+            raise RuntimeError("part failed")
+        if stop == out.size:
+            time.sleep(0.2)
+        fill_range(out, eps, start, stop, transfer)
+        done.append(start)
+
+    monkeypatch.setattr(matcher, "_fill_range", failing)
+    eps = [np.ones(SPLIT_WIDTH, np.int16)] * 3
+    with pytest.raises(RuntimeError, match="part failed"):
+        fill_wire_rows(eps, SPLIT_WIDTH, "int16", 3)
+    assert len(done) == len(fill_plan(3, SPLIT_WIDTH, 2)) - 1
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_a_fill_of_one_part_runs_on_the_callers_thread(monkeypatch, wire):
+    threads = []
+    fill_range = matcher._fill_range
+
+    def recording(*args):
+        threads.append(threading.get_ident())
+        fill_range(*args)
+
+    monkeypatch.setattr(matcher, "_fill_range", recording)
+    eps = [quantize_wire(np.full(700, 0.1, np.float32), wire)]
+    assert len(fill_plan(3, 1000, eps[0].itemsize)) == 1
+    got = fill_wire_rows(eps, 1000, wire, 3).numpy()
+    np.testing.assert_array_equal(got, _one_thread_fill(eps, 3, 1000, wire))
+    assert threads == [threading.get_ident()]
+
+
+def test_split_fill_parts_are_spans_of_the_callers_group(split):
+    """Under a profiler each part is a ``stage.fill.part`` record in the
+    calling thread's store, with the group of its ``stage`` span, on a
+    pool thread, inside the ``stage.fill`` span; off, none is written."""
+    eps = [np.ones(SPLIT_WIDTH, np.int16), np.ones(123, np.int16)]
+    plan = fill_plan(3, SPLIT_WIDTH, 2)
+    with spans.span("before"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("stage", 5):
+            fill_wire_rows(eps, SPLIT_WIDTH, "int16", 3)
+    recs = spans.records()
+    parts = [r for r in recs if r.name == "stage.fill.part"]
+    (fill,) = [r for r in recs if r.name == "stage.fill"]
+    here = threading.get_ident()
+    assert len(parts) == len(plan) > 1
+    assert {r.group for r in parts} == {fill.group} == {5}
+    assert {r.parent for r in parts} == {None}
+    assert here not in {r.thread for r in parts}
+    assert all(fill.t0_ns <= r.t0_ns <= r.t1_ns <= fill.t1_ns
+               for r in parts)
+    fill_wire_rows(eps, SPLIT_WIDTH, "int16", 3)  # off
+    assert spans.records() == recs
 
 
 def test_durations_and_progress_bar_match_jax():
