@@ -4,6 +4,7 @@
 --trace <0|1>``, from the root of a checkout, runs one cell of
 ``BENCHMARK.json`` and prints one JSON line. Everything a cell uses is
 found by name: its configuration in ``configs/<file>``, its traffic mix in
-``traffic/<name>.json``, the driver that mix names in ``drivers/``, and
-each metric's reader in ``metrics/<metric>.py``.
+``traffic/<name>.json``, the driver that mix names in ``drivers/`` (the
+contract a driver keeps: ``drivers/__init__.py``), and each metric's
+reader in ``metrics/<metric>.py``.
 """

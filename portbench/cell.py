@@ -65,7 +65,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         say=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
     """Run the cell → the result line as a dict (``check`` last).
     ``overrides``: {"config": {...}, "traffic": {...}} laid over the
-    cell's files (tests run cells at small sizes on the CPU)."""
+    cell's files (tests run cells at small sizes on the CPU). What the
+    traffic's driver's ``build``, ``window`` and ``release`` take and
+    return: ``portbench/drivers/__init__.py``."""
     t_start = time.perf_counter() if t_start is None else t_start
     bench = bench or common.benchmark()
     cfg, mix = files(workload, bench, overrides)
