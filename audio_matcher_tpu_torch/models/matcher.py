@@ -393,6 +393,13 @@ def read_back(tensors, ready=None) -> list[np.ndarray]:
     return [h.numpy() for h in host]
 
 
+def _read_now(tensors) -> list[np.ndarray]:
+    """Device tensors → numpy arrays on the current stream, the host
+    waiting there for the work queued before (span ``collect.wait``)."""
+    with spans.span("collect.wait"):
+        return [a.cpu().numpy() for a in tensors]
+
+
 def upload(host: torch.Tensor, device: torch.device):
     """Copy a staged host tensor to ``device``.
 
@@ -866,10 +873,14 @@ class SnippetMatcher:
         """Scan an episode; returns deduped peaks sorted by position.
         ``scale=False`` leaves correlations (and prominences) unscaled by
         the inverse autocorrelation. ``progress`` receives
-        ("start"|"finish", chunk_index) callbacks."""
-        return self.match_staged(
-            self.stage(samples, n_samples), scale=scale, progress=progress
-        )
+        ("start"|"finish", chunk_index) callbacks. Span ``match``, around
+        :meth:`stage` and :meth:`match_staged`'s ``dispatch`` and
+        ``collect`` spans."""
+        with spans.span("match"):
+            return self.match_staged(
+                self.stage(samples, n_samples), scale=scale,
+                progress=progress,
+            )
 
     def _extract_peaks(
         self, pos, h, prom, n_windows: int, progress=None
@@ -902,7 +913,10 @@ class SnippetMatcher:
     ) -> list[Peak]:
         """Scan an episode uploaded with :meth:`stage`. With ``progress``
         and more than one slab, slabs run in groups of
-        ``progress_slabs_per_dispatch`` (:meth:`_match_staged_live`)."""
+        ``progress_slabs_per_dispatch`` (:meth:`_match_staged_live`).
+        Spans, as ``ShardedScanner``'s: ``dispatch`` around each scan's
+        issue, ``collect`` around each read-back (the host's wait for the
+        device inside it, ``collect.wait``) and the peaks."""
         episode_dev, n = staged
         if n == 0:
             return []
@@ -917,10 +931,12 @@ class SnippetMatcher:
         if progress:
             for k in range(n_windows):
                 progress("start", k)
-        out = self._scan_episode(episode_dev, n, scale,
-                                 self._scan_kwargs(B, n_slabs))
-        pos, h, prom = (a.cpu().numpy() for a in out)
-        return self._extract_peaks(pos, h, prom, n_windows, progress)
+        with spans.span("dispatch"):
+            out = self._scan_episode(episode_dev, n, scale,
+                                     self._scan_kwargs(B, n_slabs))
+        with spans.span("collect"):
+            pos, h, prom = _read_now(out)
+            return self._extract_peaks(pos, h, prom, n_windows, progress)
 
     def _match_staged_live(
         self, episode_dev, n: int, scale: bool, n_windows: int,
@@ -942,22 +958,26 @@ class SnippetMatcher:
         if not is_fused(self.fft_impl, self.config.peaks_impl):
             episode_dev = dequant_to_f32(episode_dev)
         parts = []
-        for a in range(0, n_slabs, g):
+        group_starts = range(0, n_slabs, g)
+        for a in group_starts:
             gg = min(g, n_slabs - a)
             w_lo, w_hi = a * B, min((a + gg) * B, n_windows)
             for k in range(w_lo, w_hi):
                 progress("start", k)
             lo = w_lo * self.chunk  # the JAX package traces a base0
-            out = self._scan_episode(
-                episode_dev[lo : (w_lo + gg * B + k_rows) * self.chunk],
-                n - lo, scale, self._scan_kwargs(B, gg),
-            )
-            parts.append([t.cpu().numpy() for t in out])
-            for k in range(w_lo, w_hi):
-                progress("finish", k)
-        pos, h, prom = (np.concatenate([p[i] for p in parts])
-                        for i in range(3))
-        return self._extract_peaks(pos, h, prom, n_windows)
+            with spans.span("dispatch"):
+                out = self._scan_episode(
+                    episode_dev[lo : (w_lo + gg * B + k_rows) * self.chunk],
+                    n - lo, scale, self._scan_kwargs(B, gg),
+                )
+            with spans.span("collect"):  # the last group's holds the peaks
+                parts.append(_read_now(out))
+                for k in range(w_lo, w_hi):
+                    progress("finish", k)
+                if a == group_starts[-1]:
+                    pos, h, prom = (np.concatenate([p[i] for p in parts])
+                                    for i in range(3))
+                    return self._extract_peaks(pos, h, prom, n_windows)
 
     def match_staged_batch(
         self, staged, scale: bool = True

@@ -605,6 +605,48 @@ def test_snippet_matcher_kernel_path_matches_plain_path(dev):
     assert abs(got[0].height - want[0].height) <= 1.2e-5
 
 
+def test_config2_live_path_matches_the_reference_at_published_widths(dev):
+    """BASELINE config #2 as the matcher CLI runs it: one 3600 s float32
+    episode at 44.1 kHz against one 10 s snippet, chunk 60 s (fft_len
+    2^22), distance 480 s, through ``match`` with a progress callback (the
+    live path: 8 slabs in 2 groups, kernel 6 on the float32 wire). The
+    positions are the plain reference's (``portbench/reference/
+    xcorr_peaks.py``, ``torch.fft`` on the card), heights and
+    prominences within 1e-4 of it (``snippet_1h``'s limits)."""
+    from portbench.reference import xcorr_peaks as ref
+
+    sr, secs, m = 44100, 3600, 10 * 44100
+    g = torch.Generator(device=dev).manual_seed(2024)
+    snippet = (torch.randn(m, generator=g, device=dev) * 0.15).clamp(
+        -0.45, 0.45)
+    episode = torch.randn(secs * sr, generator=g, device=dev) * 0.03
+    planted = [int((40 + 550 * k) * sr) + 1234 * k for k in range(6)]
+    for k, at in enumerate(planted):
+        episode[at : at + m] += (0.4 + 0.1 * k) * snippet
+    snip, ep = snippet.cpu().numpy(), episode.cpu().numpy()
+    del episode
+    cfg = MatchConfig(chunk_secs=60.0, distance_secs=480.0, prominence=13.0,
+                      transfer_dtype="float32")
+    matcher = SnippetMatcher(snip, sr, cfg, device=dev)
+    phases = []
+    before = F.fft_major_fwd_wire2.launches
+    got = matcher.match(ep, scale=True, n_samples=len(ep),
+                        progress=lambda phase, k: phases.append(phase))
+    assert F.fft_major_fwd_wire2.launches > before
+    assert phases.count("start") == phases.count("finish") == 60
+    assert matcher.step_graphs.stats["first"] == 1  # one key: both groups
+    assert matcher.step_graphs.stats["captures"] == 1
+    geo = ref.geometry({"sample_rate": sr, "match": {
+        "chunk_secs": 60.0, "distance_secs": 480.0, "prominence": 13.0,
+        "max_peaks_per_chunk": 64}}, [m])
+    want = ref.peaks_of(ref.dequantize(ep, "float32", dev), snip, geo)
+    assert [w[0] for w in want] == planted
+    assert [p.position for p in got] == planted
+    for p, w in zip(got, want):
+        assert abs(p.height - w[1]) <= 1e-4
+        assert abs(p.prominence - w[2]) <= 1e-4
+
+
 def test_xla_packed_scan_launches_the_dense_reduction(dev):
     """fft_impl="xla_packed": torch.fft correlation, kernel 7 peaks."""
     sr = 8000
