@@ -32,6 +32,7 @@ semantics listed in ``audio_matcher_tpu/models/matcher.py``:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -299,6 +300,14 @@ def fill_plan(rows: int, n_pad: int, itemsize: int) -> list[tuple[int, int]]:
     return [(a, min(a + step, total)) for a in range(0, total, step)]
 
 
+# Over the process: the bytes of every fill staged for a device (pinned,
+# or handed over range by range; ``"staged_bytes"``) and of the ranges
+# handed to their copy while a later part of the fill was still being
+# written (``"early_bytes"``), as StepGraphs.stats counts its steps.
+STAGING_STATS: collections.Counter = collections.Counter()
+_STATS_LOCK = threading.Lock()
+
+
 def _fill_range(out: np.ndarray, episodes, start: int, stop: int,
                 transfer: str) -> None:
     """Write the flat elements ``[start, stop)`` of ``out`` ([rows,
@@ -320,8 +329,24 @@ def _fill_range(out: np.ndarray, episodes, start: int, stop: int,
         out[i, max(a, n):b] = silence
 
 
+def _hand_over(futures, plan, written) -> int:
+    """Call ``written(start, stop)`` for each range of ``plan`` in plan
+    order, as soon as its part (``futures``, one a range) and every part
+    before it are written; none from the first part that failed on.
+    Returns the elements handed over while a part was still running."""
+    early, last = 0, False
+    for i, (future, (a, b)) in enumerate(zip(futures, plan)):
+        if future.exception() is not None:
+            break
+        last = last or all(f.done() for f in futures[i + 1:])
+        written(a, b)
+        if not last:
+            early += b - a
+    return early
+
+
 def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
-                   pinned: bool = False) -> torch.Tensor:
+                   pinned: bool = False, written=None) -> torch.Tensor:
     """Pack episodes into a fresh [rows, n_pad] wire-dtype host tensor
     (page-locked when ``pinned``, so that its upload is one DMA): each row
     is its episode, then silence to ``n_pad``; rows past the episodes are
@@ -332,9 +357,17 @@ def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
     The fill runs as the parts of :func:`fill_plan` on the process's fill
     pool (numpy's copies and ufuncs release the interpreter lock), and
     returns when every part is written; a fill of one part runs on the
-    caller's thread. Spans ``stage.alloc`` (the buffer), ``stage.fill``
-    (the rows) and ``stage.fill.part`` (a part on a pool thread, recorded
-    into the caller's store with the caller's group)."""
+    caller's thread. ``written(buf, start, stop)``, if given, is called on
+    the caller's thread for each range of the plan, in plan order, as soon
+    as that range and every range before it are written, while the pool
+    goes on with the later ones; no range from a failed part on is handed
+    over, and the part's error reaches the caller after every part has
+    finished. A long episode is refused before any part runs. The bytes
+    of a pinned or handed-over fill, and those handed over before its
+    last part was written, are added to :data:`STAGING_STATS`. Spans
+    ``stage.alloc`` (the buffer), ``stage.fill`` (the rows) and
+    ``stage.fill.part`` (a part on a pool thread, recorded into the
+    caller's store with the caller's group)."""
     episodes = [np.asarray(ep) for ep in episodes]
     for i, ep in enumerate(episodes):
         if len(ep) > n_pad:
@@ -345,20 +378,32 @@ def fill_wire_rows(episodes, n_pad: int, transfer: str, rows: int,
     with spans.span("stage.fill") as fill:
         out = buf.numpy()
         plan = fill_plan(rows, n_pad, out.itemsize)
+        early = 0
         if len(plan) == 1:
             _fill_range(out, episodes, *plan[0], transfer)
-            return buf
-        into, group = spans.sink(), getattr(fill, "group", None)
+            if written is not None:
+                written(buf, *plan[0])
+        else:
+            into, group = spans.sink(), getattr(fill, "group", None)
 
-        def part(start, stop):
-            with spans.issue_span(into, "stage.fill.part", group):
-                _fill_range(out, episodes, start, stop, transfer)
+            def part(start, stop):
+                with spans.issue_span(into, "stage.fill.part", group):
+                    _fill_range(out, episodes, start, stop, transfer)
 
-        pool = _fill_pool()
-        futures = [pool.submit(part, a, b) for a, b in plan]
-        wait(futures)
-        for future in futures:
-            future.result()
+            pool = _fill_pool()
+            futures = [pool.submit(part, a, b) for a, b in plan]
+            try:
+                if written is not None:
+                    early = _hand_over(futures, plan,
+                                       lambda a, b: written(buf, a, b))
+            finally:
+                wait(futures)
+            for future in futures:
+                future.result()
+    if pinned or written is not None:
+        with _STATS_LOCK:
+            STAGING_STATS["staged_bytes"] += buf.nbytes
+            STAGING_STATS["early_bytes"] += early * out.itemsize
     return buf
 
 
@@ -437,17 +482,61 @@ def device_ints(values, device: torch.device) -> torch.Tensor:
         return host.pin_memory().to(device, non_blocking=True)
 
 
+def upload_while_filling(episodes, n_pad: int, transfer: str, rows: int,
+                         device: torch.device) -> torch.Tensor:
+    """Fill a fresh pinned [rows, n_pad] host buffer as
+    :func:`fill_wire_rows` does and copy it to the CUDA ``device`` range by
+    range, each range of its plan as soon as it and every range before it
+    are written, so that the copy runs while the later parts fill (a fill
+    of one range: one copy after it).
+
+    The device tensor is allocated first, on :func:`side_stream`, where the
+    graphs of the device give way to it (:func:`~..parallel.step_graph.
+    releasing`); each range's copy runs there from the pinned buffer
+    without blocking the host. The current stream waits for every copy,
+    and the tensor is marked as used there, as :func:`upload` does. The
+    caching host allocator records each copy from the pinned buffer, so
+    the buffer is handed out again only after all its copies completed.
+    The bytes on the device are those of one copy after the fill. Span
+    ``stage.upload``: the copies' issue, around the fill's own spans (the
+    copies' time on the card is the profiler's ``Memcpy HtoD`` events)."""
+    side = side_stream(device)
+    with spans.span("stage.upload"):
+        with torch.cuda.stream(side):
+            staged = releasing(device, lambda: torch.empty(
+                (rows, n_pad), dtype=TORCH_WIRE_DTYPES[transfer],
+                device=device))
+            flat = staged.view(-1)
+
+            def copy(host, start, stop):
+                flat[start:stop].copy_(host.view(-1)[start:stop],
+                                       non_blocking=True)
+
+            fill_wire_rows(episodes, n_pad, transfer, rows, pinned=True,
+                           written=copy)
+        main = torch.cuda.current_stream(device)
+        main.wait_stream(side)
+        staged.record_stream(main)
+    return staged
+
+
 def stage_rows_host(episodes, ns, n_pad: int, transfer: str, e_pad: int,
                     device):
-    """Fill a fresh (pinned, for a CUDA device) host buffer with the wire
-    rows and upload it with one copy (:func:`upload`); no computation runs
-    on the device. Returns the staged triple (tensor [e_pad, n_pad],
-    ns_pad, n_real)."""
+    """Fill a fresh host buffer with the wire rows and upload it; no
+    computation runs on the device. To a CUDA device the buffer is pinned
+    and each part of its fill is copied as soon as it is written
+    (:func:`upload_while_filling`); to another device it is handed over
+    after the fill (:func:`upload`). Returns the staged triple (tensor
+    [e_pad, n_pad], ns_pad, n_real)."""
     ns_pad = np.zeros(e_pad, np.int32)
     ns_pad[: len(ns)] = ns
-    host = fill_wire_rows(episodes, n_pad, transfer, e_pad,
-                          pinned=device.type == "cuda")
-    return upload(host, device), ns_pad, len(episodes)
+    if device.type == "cuda":
+        staged = upload_while_filling(episodes, n_pad, transfer, e_pad,
+                                      device)
+    else:
+        staged = upload(fill_wire_rows(episodes, n_pad, transfer, e_pad),
+                        device)
+    return staged, ns_pad, len(episodes)
 
 
 def pad_wire_on_device(episode: torch.Tensor, target: int) -> torch.Tensor:
@@ -829,9 +918,9 @@ class SnippetMatcher:
 
     def stage(self, samples: np.ndarray, n_samples: int | None = None):
         """Pad an episode to whole slabs of windows in the wire dtype and
-        upload it with one copy from a pinned host buffer; no computation
-        runs on the device. ``n_samples`` truncates or zero-extends the
-        stream first. Returns (episode tensor [Npad], n) for
+        upload it from a pinned host buffer (:func:`stage_rows_host`); no
+        computation runs on the device. ``n_samples`` truncates or
+        zero-extends the stream first. Returns (episode tensor [Npad], n) for
         :meth:`match_staged`. Span ``stage``."""
         with spans.span("stage"):
             samples = np.ascontiguousarray(samples)
@@ -849,9 +938,10 @@ class SnippetMatcher:
         return staged[0], n
 
     def stage_batch(self, episodes: Sequence[np.ndarray]):
-        """Stage several episodes as one [E, Npad] tensor (one copy; every
-        row padded to the longest). Returns (tensor, ns) for
-        :meth:`match_staged_batch`. Span ``stage``."""
+        """Stage several episodes as one [E, Npad] tensor
+        (:func:`stage_rows_host`; every row padded to the longest).
+        Returns (tensor, ns) for :meth:`match_staged_batch`. Span
+        ``stage``."""
         with spans.span("stage"):
             ns = np.array([len(e) for e in episodes], np.int32)
             n_max = int(ns.max()) if len(ns) else 0

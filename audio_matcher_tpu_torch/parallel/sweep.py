@@ -364,9 +364,10 @@ class _Scanner:
     def stage_resident(self, episodes: Sequence[np.ndarray], pad_to=None):
         """Pack the batch into one fresh [E, Npad] wire-dtype host buffer
         (pinned for a CUDA device) and upload it (on a side stream for a
-        CUDA device, see :func:`upload`): with one copy on one device, or
-        one copy a shard on a mesh. ``pad_to``: minimum episode count
-        (silence rows)."""
+        CUDA device): on one device as :func:`stage_rows_host` does (each
+        part of the fill copied as soon as it is written), on a mesh after
+        the fill with one copy a shard (:func:`upload`). ``pad_to``:
+        minimum episode count (silence rows)."""
         group = next(self._groups)
         with spans.span("stage", group):
             return spans.Grouped(self._stage(episodes, pad_to), group)

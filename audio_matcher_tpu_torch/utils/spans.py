@@ -39,7 +39,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 
 PREFIX = "audio_matcher."
-CAP = 1 << 16  # records a thread keeps; a traced window makes ~15 a group
+CAP = 1 << 17  # records a thread keeps: ~15 a sweep group, ~60 a file
 
 _enabled = torch._C._autograd._profiler_enabled
 _NULL = contextlib.nullcontext()

@@ -814,9 +814,9 @@ def test_pinned_staging_through_the_copy_stream(dev):
 
 def test_a_split_fill_is_uploaded_whole(dev, monkeypatch):
     """A group whose fill is cut into 1 MiB parts on 4 threads, one part
-    slow: ``stage_rows_host`` hands the buffer to the upload only after
-    every part is written, and the staged tensor equals the host rows bit
-    for bit."""
+    slow: ``stage_rows_host`` returns only after every part is written
+    (each copied as soon as it and the parts before it were), and the
+    staged tensor equals the host rows bit for bit."""
     from audio_matcher_tpu_torch.models import matcher
 
     monkeypatch.setattr(matcher, "FILL_PART_BYTES", 1 << 20)
@@ -846,6 +846,77 @@ def test_a_split_fill_is_uploaded_whole(dev, monkeypatch):
     finally:
         if matcher._FillPool.pool is not None:
             matcher._FillPool.pool.shutdown()
+
+
+@pytest.fixture
+def small_parts(monkeypatch):
+    """Fills cut into parts of 64 KiB, on a fresh pool of 4 threads."""
+    from audio_matcher_tpu_torch.models import matcher
+
+    monkeypatch.setattr(matcher, "FILL_PART_BYTES", 64 << 10)
+    monkeypatch.setattr(matcher._FillPool, "threads", 4)
+    monkeypatch.setattr(matcher._FillPool, "pool", None)
+    yield matcher
+    if matcher._FillPool.pool is not None:
+        matcher._FillPool.pool.shutdown()
+
+
+@pytest.mark.parametrize("wire", ["float32", "int16", "mulaw8"])
+def test_part_wise_staging_equals_one_copy_upload(dev, small_parts, wire):
+    """Rows staged part by part as they fill (two episodes in four rows,
+    the last two rows past the episodes) equal, bit for bit, the rows
+    filled whole and uploaded with one copy, read on the current stream
+    straight after staging with no synchronization."""
+    matcher = small_parts
+    rng = np.random.default_rng(3)
+    rows, width = 4, 300_001
+    eps = [quantize_wire((rng.standard_normal(n) * 0.1).astype(np.float32),
+                         wire) for n in (width, 123_457)]
+    itemsize = np.dtype(matcher.WIRE_DTYPES[wire]).itemsize
+    assert len(matcher.fill_plan(rows, width, itemsize)) >= 4
+    want = matcher.upload(matcher.fill_wire_rows(eps, width, wire, rows,
+                                                 pinned=True), dev)
+    for _ in range(3):
+        staged, ns_pad, n = matcher.stage_rows_host(
+            eps, [len(e) for e in eps], width, wire, rows, dev)
+        assert torch.equal(staged, want)
+        assert list(ns_pad) == [width, 123_457, 0, 0] and n == 2
+    assert torch.equal(want[2:].cpu(), torch.from_numpy(np.full(
+        (2, width), matcher.wire_silence(wire),
+        matcher.WIRE_DTYPES[wire])))
+
+
+def test_live_match_after_part_wise_staging_returns_todays_peaks(
+        dev, small_parts, monkeypatch):
+    """``SnippetMatcher.match`` on the live path (a progress callback,
+    float32 wire) stages an episode in parts and scans it at once: the
+    peaks equal those of a fill of one range, copied once after it."""
+    matcher = small_parts
+    parts = []
+    in_parts = matcher.upload_while_filling
+
+    def counted(episodes, n_pad, transfer, rows, device):
+        parts.append(len(matcher.fill_plan(rows, n_pad, 4)))
+        return in_parts(episodes, n_pad, transfer, rows, device)
+
+    monkeypatch.setattr(matcher, "upload_while_filling", counted)
+    sr = 8000
+    rng = np.random.default_rng(17)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    ep = (rng.standard_normal(61 * sr) * 0.05).astype(np.float32)
+    for at in (5.0, 31.5, 50.0):
+        ep[int(at * sr) : int(at * sr) + 4000] += snippet
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0, slab=4,
+                      slab_auto=False, progress_slabs_per_dispatch=2,
+                      transfer_dtype="float32")
+    m = SnippetMatcher(snippet, sr, cfg, device=dev)
+    got = [m.match(ep, progress=lambda p, k: None) for _ in range(3)]
+    monkeypatch.setattr(matcher, "FILL_PART_BYTES", 1 << 40)  # one range
+    want = m.match(ep, progress=lambda p, k: None)
+    assert len(parts) == 4 and min(parts[:3]) > 1 and parts[3] == 1
+    assert got == [want] * 3
+    assert [p.position for p in want] == [int(a * sr)
+                                          for a in (5.0, 31.5, 50.0)]
 
 
 @pytest.mark.parametrize("pad_to", [None, 4])
@@ -1696,3 +1767,34 @@ def test_spans_of_a_replayed_group_stay_off_the_device_timeline(dev):
                if ev.name().startswith("Memcpy HtoD")) > 0
     assert not [ev for ev in on_device
                 if ev.name().startswith(spans.PREFIX)]
+
+
+def test_a_traced_part_wise_stage_keeps_one_upload_and_one_fill(
+        dev, small_parts):
+    """Under a profiler, a stage copied in parts records one
+    ``stage.upload`` around one ``stage.fill`` and a ``stage.fill.part``
+    a range of the plan. (The CPU's activity alone: the device timeline
+    of a staged group is ``test_spans_of_a_replayed_group_stay_off_the_
+    device_timeline``'s.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_matcher_tpu_torch.utils import spans
+
+    matcher = small_parts
+    width = 400_000
+    eps = [np.ones(width, np.float32)]
+    plan = matcher.fill_plan(1, width, 4)
+    matcher.stage_rows_host(eps, [width], width, "float32", 1, dev)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.span("stage", 7):
+            staged = matcher.stage_rows_host(eps, [width], width,
+                                             "float32", 1, dev)[0]
+    assert torch.equal(staged.cpu(), torch.ones(1, width))
+    recs = spans.records()
+    names = [r.name for r in recs]
+    assert names.count("stage.upload") == names.count("stage.fill") == 1
+    assert names.count("stage.fill.part") == len(plan) > 1
+    (upload,) = [r for r in recs if r.name == "stage.upload"]
+    (fill,) = [r for r in recs if r.name == "stage.fill"]
+    assert upload.t0_ns <= fill.t0_ns <= fill.t1_ns <= upload.t1_ns
+    assert {r.group for r in recs} == {7}

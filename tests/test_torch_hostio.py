@@ -458,6 +458,167 @@ def test_split_fill_parts_are_spans_of_the_callers_group(split):
     assert spans.records() == recs
 
 
+def _recording_fill(monkeypatch, slow_stop=None, fail_start=None,
+                    gate=None):
+    """``_fill_range`` that records each range it has written (after the
+    bytes), holds the range ending at ``slow_stop`` back (until ``gate``
+    is set, else 0.2 s) and raises in the one starting at
+    ``fail_start``."""
+    fill_range, written = matcher._fill_range, []
+
+    def recording(out, eps, start, stop, transfer):
+        if start == fail_start:
+            raise RuntimeError("part failed")
+        if stop == slow_stop:
+            if gate is None:
+                time.sleep(0.2)
+            else:
+                assert gate.wait(30)
+        fill_range(out, eps, start, stop, transfer)
+        written.append((start, stop))
+
+    monkeypatch.setattr(matcher, "_fill_range", recording)
+    return written
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("wire", WIRES)
+def test_split_fill_hands_each_range_over_once_in_order(split, monkeypatch,
+                                                        wire, case):
+    """``written`` gets each range of the plan once, in plan order, on the
+    caller's thread, after that range and every one before it are
+    written: the ranges tile the buffer and hold their final bytes."""
+    rows, lengths, in_wire = SPLIT_CASES[case]
+    rng = np.random.default_rng(len(lengths) + rows)
+    eps = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+           for n in lengths]
+    if in_wire:
+        eps = [quantize_wire(ep, wire) for ep in eps]
+    want = _one_thread_fill(eps, rows, SPLIT_WIDTH, wire).reshape(-1)
+    plan = fill_plan(rows, SPLIT_WIDTH, want.itemsize)
+    written = _recording_fill(monkeypatch, slow_stop=plan[-1][1])
+    handed, here = [], threading.get_ident()
+
+    def hand(buf, start, stop):
+        assert threading.get_ident() == here
+        assert set(plan[: len(handed) + 1]) <= set(written)
+        np.testing.assert_array_equal(buf.numpy().reshape(-1)[start:stop],
+                                      want[start:stop])
+        handed.append((start, stop))
+
+    got = fill_wire_rows(eps, SPLIT_WIDTH, wire, rows, written=hand)
+    assert handed == plan and len(plan) > 1
+    assert handed[0][0] == 0 and handed[-1][1] == want.size
+    assert all(a[1] == b[0] for a, b in zip(handed, handed[1:]))
+    np.testing.assert_array_equal(got.numpy().reshape(-1), want)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_a_fill_of_one_part_hands_the_whole_buffer_over_after_it(
+        monkeypatch, wire):
+    """A plan of one range: one hand-over, of the whole buffer, after the
+    fill (the single copy)."""
+    written = _recording_fill(monkeypatch)
+    eps = [quantize_wire(np.full(700, 0.1, np.float32), wire)]
+    handed = []
+
+    def hand(buf, start, stop):
+        handed.append((start, stop, list(written)))
+
+    fill_wire_rows(eps, 1000, wire, 3, written=hand)
+    assert handed == [(0, 3000, [(0, 3000)])]
+
+
+def test_no_range_is_handed_over_from_a_failed_part_on(split, monkeypatch):
+    """A middle part fails: the ranges before it are handed over, none
+    from it on; the error reaches the caller after every other part, the
+    slow last one among them, has been written."""
+    plan = fill_plan(3, SPLIT_WIDTH, 2)
+    k = len(plan) // 2
+    written = _recording_fill(monkeypatch, slow_stop=plan[-1][1],
+                              fail_start=plan[k][0])
+    handed = []
+    eps = [np.ones(SPLIT_WIDTH, np.int16)] * 3
+    with pytest.raises(RuntimeError, match="part failed"):
+        fill_wire_rows(eps, SPLIT_WIDTH, "int16", 3,
+                       written=lambda buf, a, b: handed.append((a, b)))
+    assert handed == plan[:k]
+    assert sorted(written) == plan[:k] + plan[k + 1:]
+
+
+def _staging_counts():
+    return (matcher.STAGING_STATS["staged_bytes"],
+            matcher.STAGING_STATS["early_bytes"])
+
+
+@pytest.mark.parametrize("hand", ["handed over", "not for a device",
+                                  "one part"])
+@pytest.mark.parametrize("wire", WIRES)
+def test_staging_stats_count_staged_and_early_bytes(split, monkeypatch,
+                                                    wire, hand):
+    """A fill handed over adds its bytes: split, with its last part held
+    back until the range before it is handed over, every range but the
+    last early; of one part, none early. A fill neither pinned nor handed
+    over (the CPU's staging) adds nothing."""
+    width = SPLIT_WIDTH if hand != "one part" else 100
+    itemsize = np.dtype(matcher.WIRE_DTYPES[wire]).itemsize
+    plan = fill_plan(3, width, itemsize)
+    gate = threading.Event()
+    if hand != "handed over":
+        gate.set()
+    _recording_fill(monkeypatch, slow_stop=plan[-1][1], gate=gate)
+    eps = [quantize_wire(np.full(width - 3, 0.1, np.float32), wire)]
+    staged, early = _staging_counts()
+
+    def hand_over(buf, start, stop):
+        if len(plan) > 1 and stop == plan[-2][1]:
+            gate.set()
+
+    fill_wire_rows(eps, width, wire, 3, written=(
+        None if hand == "not for a device" else hand_over))
+    got = _staging_counts()
+    assert got[0] - staged == (0 if hand == "not for a device"
+                               else 3 * width * itemsize)
+    want = 0
+    if hand == "handed over":
+        want = (plan[-1][0] - plan[0][0]) * itemsize
+        assert want > 0
+    assert got[1] - early == want
+
+
+@pytest.mark.parametrize("where,width", [
+    ("cuda", 1000), ("cuda", SPLIT_WIDTH), ("cpu", SPLIT_WIDTH),
+], ids=["cuda-one-range", "cuda-split", "cpu-split"])
+def test_stage_rows_host_copies_while_filling_only_to_cuda(
+        split, monkeypatch, where, width):
+    """To a CUDA device every fill goes to ``upload_while_filling`` (a fill
+    of one range is handed over whole after it, one copy); for the CPU
+    the buffer is filled whole, unpinned, and then handed to ``upload``."""
+    calls = []
+    fill = matcher.fill_wire_rows
+
+    def filled(eps, n_pad, transfer, rows, pinned=False, written=None):
+        calls.append(("fill", pinned, written))
+        return fill(eps, n_pad, transfer, rows)
+
+    monkeypatch.setattr(matcher, "fill_wire_rows", filled)
+    monkeypatch.setattr(matcher, "upload", lambda host, device: calls.append(
+        ("upload", host.shape)) or host)
+    monkeypatch.setattr(matcher, "upload_while_filling",
+                        lambda *args: calls.append(("in parts", args[1:]))
+                        or "staged")
+    eps = [np.ones(width - 7, np.int16)]
+    staged, ns_pad, n = matcher.stage_rows_host(
+        eps, [width - 7], width, "int16", 3, torch.device(where))
+    assert list(ns_pad) == [width - 7, 0, 0] and n == 1
+    if where == "cuda":
+        assert calls == [("in parts", (width, "int16", 3,
+                                       torch.device(where)))]
+        assert staged == "staged"
+    else:
+        assert calls == [("fill", False, None), ("upload", (3, width))]
+
+
 def test_durations_and_progress_bar_match_jax():
     for text in ("17", "58sec", "1m", "100ms", "1hour1m1s", "2h30m", "5s250ms"):
         assert durations.parse_duration(text) == jdurations.parse_duration(text)
