@@ -1,12 +1,15 @@
-"""The snippet matcher and the host-side matcher seams of the port
-(``models/matcher.py``).
+"""The snippet matcher, the resident scan step and the host-side matcher
+seams of the port (``models/matcher.py``).
 
-:class:`SnippetMatcher` scans episodes against one query snippet
-(BASELINE config #2): the episode is staged once in its wire dtype,
-overlap-save windows are strided views of it, and each slab of windows
-runs the single-query correlation and the peak picking on the episode's
-device (by default the current CUDA device), in a Python loop over slabs.
-Every ``fft_impl`` of the JAX package runs, with either ``peaks_impl``:
+:func:`resident_match_step` scans staged episodes against Q query
+snippets; both front ends run it: :class:`SnippetMatcher` at Q = 1
+(BASELINE config #2) and ``parallel.sweep.ShardedScanner`` at any Q
+(config #3). An episode is staged once in its wire dtype, overlap-save
+windows are strided views of it, and each slab of windows runs the
+correlation and the peak picking on the episode's device (by default the
+current CUDA device), in a Python loop over slabs. A slab of one query
+runs :func:`single_query_slab`, for every ``fft_impl`` of the JAX package
+with either ``peaks_impl``:
 
   * ``"vpu"`` + ``"pallas"`` (the default, the fused path): the wire
     windows go straight into the two-factor FFT kernels, window pairs
@@ -17,6 +20,9 @@ Every ``fft_impl`` of the JAX package runs, with either ``peaks_impl``:
     windows; ``"xla_packed"``/``"xla"``: ``torch.fft``; ``"mxu"``: the
     matmul FFT) and picks peaks with the dense single-read picker
     (``"pallas"``) or the multi-pass one (``"jnp"``).
+
+On the host, :func:`rebase_peaks` rebases each window's picks and dedups
+them across windows, for both front ends.
 
 Beside it: the config, the staging wire format, the slab policy,
 overlap-save windowing and the cross-window dedup, with the reference
@@ -46,7 +52,9 @@ import torch
 from ..ops.correlate import (
     PreparedSnippet,
     corr_single_query_packed,
+    corr_slab_xla_packed,
     fft_length,
+    packed_query_spectra,
     prepare_snippet,
     query_spectrum,
 )
@@ -55,6 +63,8 @@ from ..ops.cuda_fft import (
     MIN_N,
     corr_single_query_vpu,
     corr_single_query_vpu_planes_wire,
+    corr_slab_vpu,
+    corr_slab_vpu_planes_wire,
     round_planes_width,
     scrambled_query_spectra,
 )
@@ -657,6 +667,29 @@ def overshadow_filter(
     return out
 
 
+def rebase_peaks(
+    pos, h, prom, n_windows: int, chunk: int, min_prominence: float,
+    sr: int, distance_secs: float, progress=None,
+) -> list[Peak]:
+    """One (episode, query)'s picks, host arrays [windows, slots] → its
+    deduped peaks: window k's finite picks at or above ``min_prominence``,
+    rebased by ``chunk·k``, for the first ``n_windows`` windows (at most
+    as many as the arrays hold), then :func:`overshadow_filter`.
+    ``progress`` gets ("finish", k) once window k's picks are taken."""
+    candidates: list[Peak] = []
+    for k in range(min(n_windows, pos.shape[0])):
+        for s in range(pos.shape[1]):
+            if np.isfinite(h[k, s]) and prom[k, s] >= min_prominence:
+                candidates.append(Peak(
+                    position=int(pos[k, s]) + chunk * k,
+                    height=float(h[k, s]),
+                    prominence=float(prom[k, s]),
+                ))
+        if progress:
+            progress("finish", k)
+    return overshadow_filter(candidates, sr, distance_secs)
+
+
 # ------------------------------------------------------- the single query
 def _corr_windows(windows, spectrum, fft_len: int, crop: int, fft_impl: str,
                   plain: bool, work: dict | None):
@@ -716,60 +749,231 @@ def single_query_slab(
     )
 
 
-def _match_episode_resident(
-    episode, n: int, sample_f, inv_ac, chunk: int, window: int, m: int,
-    fft_len: int, valid_max: int, distance: int, n_peaks: int, block: int,
-    slab: int, n_slabs: int, fft_impl: str = "vpu",
-    peaks_impl: str = "pallas", plain: bool = False,
-    work: dict | None = None,
-):
-    """Scan one staged episode against one query: a Python loop over
-    ``n_slabs`` slabs from the episode's start (the live path scans one
-    group of slabs per call, on the group's slice). The episode is padded
-    with wire silence on its device to cover the windows; off the fused
-    path it is dequantized there once before windowing. ``n`` (the
-    episode's length) and ``inv_ac`` are host numbers or 0-d tensors on
-    the episode's device; with tensors no host value is read or copied,
-    so a CUDA graph can capture the scan. Returns (pos, h, prom), each
-    [n_slabs·slab, n_peaks], on the episode's device."""
-    k_rows = window_rows(window, chunk)
-    episode = pad_wire_on_device(
-        episode, (n_slabs * slab + k_rows) * chunk
+# ------------------------------------------------------------ the scan step
+@dataclasses.dataclass(frozen=True)
+class QueryState:
+    """What the scan holds of its queries (this system's weights): their
+    spectra as f32 real and imaginary parts (``"vpu"``: the query-pair
+    spectra of ``scrambled_query_spectra(pack=True)``, [Qh, n] each;
+    ``"xla_packed"``: ``packed_query_spectra`` in natural order, [Qh, n];
+    ``"xla"``: the rfft, [Q, n//2+1]; ``"mxu"``: the digit-reversed plane
+    views of ``scrambled_spectra_parts``, [Q, G, c]), the inverse
+    autocorrelations [Q] f32 and the snippet lengths [Q]. At Q = 1 the
+    pair row of ``"vpu"`` and ``"xla_packed"`` is the one query's own
+    spectrum (its pair is zero), the form :func:`single_query_slab`
+    takes."""
+
+    t_r: torch.Tensor
+    t_i: torch.Tensor
+    inv_ac: torch.Tensor
+    m: torch.Tensor
+
+    def to(self, device) -> "QueryState":
+        """The state on ``device`` (the same tensors if they are there)."""
+        return QueryState(self.t_r.to(device), self.t_i.to(device),
+                          self.inv_ac.to(device), self.m.to(device))
+
+
+def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
+    """Carry a prepared query state across (e.g. the JAX scanner's
+    ``_sample_f_resident``, ``_inv_ac`` and ``_m`` as numpy arrays; for
+    ``"xla_packed"`` and ``"xla"`` the real and imaginary parts of its
+    complex spectra), so that both packages scan with identical
+    spectra."""
+    dev = torch.device(device)
+    return QueryState(
+        t_r=torch.tensor(np.asarray(t_r, np.float32), device=dev),
+        t_i=torch.tensor(np.asarray(t_i, np.float32), device=dev),
+        inv_ac=torch.tensor(np.asarray(inv_ac, np.float32), device=dev),
+        m=torch.tensor(np.asarray(m, np.int64), device=dev),
     )
-    if not is_fused(fft_impl, peaks_impl):
-        episode = dequant_to_f32(episode)
-    dev = episode.device
+
+
+def make_query_state(snippets: Sequence[PreparedSnippet], fft_len: int,
+                     fft_impl: str, device) -> QueryState:
+    """The :class:`QueryState` of prepared snippets on ``device``: the
+    spectra of the snippets zero-padded to the longest, in ``fft_impl``'s
+    form, their inverse autocorrelations and their lengths. One query has
+    no pair: its spectrum is computed in the single-query form, equal to
+    the pair form's row, without the pad query's transient [2, n] rows
+    (4 GB at fft_len 2^28)."""
+    dev = torch.device(device)
+    padded = np.zeros((len(snippets), max(s.m for s in snippets)),
+                      np.float32)
+    for i, s in enumerate(snippets):
+        padded[i, : s.m] = s.data
+    x = torch.from_numpy(padded).to(dev)
+    pairs = len(snippets) > 1
+    if fft_impl == "vpu":
+        t_r, t_i = scrambled_query_spectra(x, fft_len, pairs)
+    elif fft_impl == "mxu":
+        t_r, t_i = scrambled_spectra_parts(x, fft_len)
+    else:
+        if fft_impl == "xla":
+            T = torch.fft.rfft(x, n=fft_len)
+        elif pairs:
+            T = packed_query_spectra(x, fft_len)
+        else:
+            T = query_spectrum(x[0], fft_len)[None]
+        t_r, t_i = T.real.contiguous(), T.imag.contiguous()
+    return QueryState(
+        t_r, t_i,
+        torch.tensor([s.inv_autocorr for s in snippets], dtype=torch.float32,
+                     device=dev),
+        torch.tensor([s.m for s in snippets], dtype=torch.int64, device=dev),
+    )
+
+
+def _corr_slab(windows, spectra, fft_len: int, crop: int, fft_impl: str,
+               Q: int, plain: bool, work: dict):
+    """f32 windows [B, W] × Q ≥ 2 queries → [B, Q, crop] correlations (the
+    JAX scanner's non-fused branches). ``spectra``: (t_r, t_i) for
+    ``"vpu"`` and ``"mxu"``, complex for ``"xla_packed"`` and ``"xla"``."""
+    if fft_impl == "mxu":
+        return corr_slab_mxu(windows, spectra[0], spectra[1], crop)
+    if fft_impl == "xla_packed":
+        return corr_slab_xla_packed(windows, spectra, crop)[:, :Q]
+    if fft_impl == "vpu":
+        return corr_slab_vpu(
+            windows, spectra[0], spectra[1], crop, plain=plain, work=work
+        )[:, :Q]
+    x = torch.fft.rfft(windows, n=fft_len)  # [B, F], shared by the queries
+    spec = x[:, None, :] * spectra.conj()[None]
+    return torch.fft.irfft(spec, n=fft_len)[..., :crop]
+
+
+def resident_match_step(
+    chunk: int,
+    window: int,
+    fft_len: int,
+    valid_max: int,
+    distance: int,
+    n_peaks: int,
+    block: int,
+    slab: int,
+    n_slabs: int,
+    fft_impl: str = "vpu",
+    peaks_impl: str = "pallas",
+    plain: bool = False,
+):
+    """The resident scan of a staged batch, which both front ends run
+    (:class:`SnippetMatcher` at Q = 1, ``ShardedScanner`` at any Q).
+
+    Returned fn: (episodes [E, Npad] wire, ns [E] int64 on the episodes'
+    device (host ints are copied there), t_r, t_i (:class:`QueryState`'s
+    spectra), inv_ac [Q], m [Q]) → (pos, h, prom) each [E, Q,
+    n_slabs·slab, S]. Each row is padded with wire silence on its device
+    to cover its windows (off the fused path, dequantized there once) and
+    scanned from its start in a Python loop over slabs that reuses one
+    slab's intermediate planes; no host value is read from the device, so
+    a CUDA graph can capture it. A slab of one query runs
+    :func:`single_query_slab` (window pairs share each transform); of
+    Q ≥ 2, the fused path packs query pairs into the inverse transforms of
+    the shared window spectra, and the others compute the [B, Q, crop]
+    correlation (:func:`_corr_slab`) for ``peaks_impl``'s picker.
+    ``plain=True`` runs every kernel's plain PyTorch version instead (the
+    reference path).
+    """
+    fused = is_fused(fft_impl, peaks_impl)
     crop = correlation_crop(valid_max, block, fft_len, fft_impl, peaks_impl)
-    inv = torch.as_tensor(inv_ac, dtype=torch.float32).to(dev).reshape(())
-    work = {} if work is None else work
-    outs = []
-    for s in range(n_slabs):
-        base = s * slab
-        starts = (base + torch.arange(slab, device=dev)) * chunk
-        windows = windows_from_episode(episode, base, slab, chunk, window)
-        win_len = (n - starts).clamp(0, window)
-        valid = (win_len - m + 1).clamp(min=0)
-        outs.append(single_query_slab(
-            windows, valid, sample_f, inv, crop, fft_len, distance, n_peaks,
-            block, fft_impl, peaks_impl, plain, work,
-        ))
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+    target = (n_slabs * slab + window_rows(window, chunk)) * chunk
 
+    def slab_single(windows, win_len, spectra, inv_ac, m, work):
+        valid = (win_len - m[0] + 1).clamp(min=0)
+        return [a[None] for a in single_query_slab(
+            windows, valid, spectra, inv_ac[0], crop, fft_len, distance,
+            n_peaks, block, fft_impl, peaks_impl, plain, work,
+        )]
 
-def _match_batch_resident(episodes, ns, sample_f, inv_ac, **kw):
-    """:func:`_match_episode_resident` over the rows of a staged [E, Npad]
-    batch, sharing one set of work planes → (pos, h, prom), each [E,
-    n_slabs·slab, n_peaks]. ``ns`` [E] int64 and ``inv_ac`` (0-d f32) are
-    tensors on the batch's device, as the JAX package passes them: no host
-    value is read or copied, so a CUDA graph can capture the scan."""
-    work: dict = {}
-    per = [
-        _match_episode_resident(
-            episodes[e], ns[e], sample_f, inv_ac, work=work, **kw
+    def slab_vpu(windows, win_len, spectra, inv_ac, m, work):
+        t_r, t_i = spectra
+        Q = inv_ac.shape[0]
+        yr, yi = corr_slab_vpu_planes_wire(
+            windows, t_r, t_i, crop, plain=plain, work=work
         )
-        for e in range(episodes.shape[0])
-    ]
-    return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+        Q2 = 2 * t_r.shape[0]  # queries incl. the odd-Q pad
+        inv_pad = torch.nn.functional.pad(inv_ac, (0, Q2 - Q))
+        m_pad = torch.nn.functional.pad(m, (0, Q2 - Q), value=1)
+        vq2 = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0)
+        vq2[:, Q:] = 0  # the pad query emits nothing
+        picked = pick_peaks_packed(
+            yr, yi, inv_pad.repeat(slab),  # logical rows: q fastest
+            vq2.reshape(-1), distance, n_peaks, block, plain=plain,
+        )
+        return [a.reshape(slab, Q2, -1)[:, :Q].transpose(0, 1)
+                for a in picked]  # [Q, B, S] triplets
+
+    def slab_dense(windows, win_len, spectra, inv_ac, m, work):
+        Q = inv_ac.shape[0]
+        c = _corr_slab(windows, spectra, fft_len, crop, fft_impl, Q, plain,
+                       work)
+        c = c * inv_ac[None, :, None]
+        vq = (win_len[:, None] - m[None, :] + 1).clamp(min=0)  # [B, Q]
+        picked = pick_peaks_dispatch(
+            c, vq, distance, n_peaks, block, peaks_impl, plain=plain
+        )
+        return [a.transpose(0, 1) for a in picked]
+
+    def per_episode(episode, n, slab_fn, spectra, inv_ac, m, work):
+        dev = episode.device
+        episode = pad_wire_on_device(episode, target)
+        if not fused:
+            episode = dequant_to_f32(episode)
+        outs = []
+        for s in range(n_slabs):
+            base = s * slab
+            starts = (base + torch.arange(slab, device=dev)) * chunk
+            windows = windows_from_episode(episode, base, slab, chunk, window)
+            win_len = (n - starts).clamp(0, window)
+            outs.append(slab_fn(windows, win_len, spectra, inv_ac, m, work))
+        return [torch.cat([o[i] for o in outs], dim=1) for i in range(3)]
+
+    def step(episodes, ns, t_r, t_i, inv_ac, m):
+        if inv_ac.shape[0] == 1:
+            slab_fn = slab_single
+        else:
+            slab_fn = slab_vpu if fused else slab_dense
+        if fft_impl in ("vpu", "mxu"):
+            spectra = (t_r, t_i)
+        else:
+            spectra = torch.complex(t_r, t_i)
+            if slab_fn is slab_single:  # the one query's row
+                spectra = spectra[0]
+        ns = torch.as_tensor(ns, dtype=torch.int64, device=episodes.device)
+        work: dict = {}
+        per = [
+            per_episode(episodes[e], ns[e], slab_fn, spectra, inv_ac, m, work)
+            for e in range(episodes.shape[0])
+        ]
+        return tuple(torch.stack([p[i] for p in per]) for i in range(3))
+
+    return step
+
+
+def run_resident_step(graphs: StepGraphs | None, static: tuple, rows, ns,
+                      state: QueryState, scale: bool, plain: bool = False,
+                      state_copied: bool = False):
+    """``resident_match_step(*static)`` of staged rows [E, Npad] on their
+    device → (pos, h, prom), each [E, Q, n_slabs·slab, S], replayed from
+    ``graphs`` where there is one under the key ``("resident",) +
+    static`` (:func:`~..parallel.step_graph.run_step`). The rows, their
+    lengths ``ns`` (host ints, as an int64 tensor: :func:`device_ints`)
+    and the inverse autocorrelations (ones with ``scale=False``) are
+    copied into the graph; the query spectra and lengths are held (read
+    in place), or copied too with ``state_copied``, so that every state
+    of one shape shares the key."""
+    step = resident_match_step(*static, plain=plain)
+    inv_ac = state.inv_ac if scale else torch.ones_like(state.inv_ac)
+
+    def run(rows, ns_dev, inv, t_r, t_i, m):
+        return step(rows, ns_dev, t_r, t_i, inv, m)
+
+    key = ("resident",) + static
+    copied = (rows, device_ints(ns, rows.device), inv_ac)
+    held = (state.t_r, state.t_i, state.m)
+    if state_copied:
+        return run_step(graphs, key, run, copied + held)
+    return run_step(graphs, key, run, copied, held)
 
 
 class SnippetMatcher:
@@ -834,87 +1038,56 @@ class SnippetMatcher:
                 "distance %.1fs allows %d peaks/chunk; capping at %d",
                 cfg.distance_secs, per_chunk, cfg.max_peaks_per_chunk,
             )
-        self._sample_f_cache = None
-        self._inv_tensors: dict = {}  # scale → inv_ac, 0-d on the device
-        self._spectrum_copied = False  # see _scan
+        self._state: QueryState | None = None  # see _query_state
+        self._state_copied = False  # see _scan
 
     @classmethod
     def for_call(cls, snippet: np.ndarray, sr: int,
                  config: MatchConfig | None = None,
                  device="cuda") -> "SnippetMatcher":
         """The matcher of one :func:`calc_chunks` or ``match()`` call: its
-        scans go through :data:`CALL_GRAPHS`, its spectrum copied into the
-        graph, so that every snippet of one length shares the key."""
+        scans go through :data:`CALL_GRAPHS`, its query state copied into
+        the graph, so that every snippet of one length shares the key."""
         matcher = cls(snippet, sr, config, device=device, graphs=False)
         matcher.step_graphs = CALL_GRAPHS
-        matcher._spectrum_copied = True
+        matcher._state_copied = True
         return matcher
 
     @property
-    def _sample_f(self):
-        """The query spectrum on the matcher's device, computed on first
-        use (the device's graphs giving way to it, see
-        :func:`~..parallel.step_graph.releasing`), in the form
-        :func:`single_query_slab` takes for :attr:`fft_impl`."""
-        if self._sample_f_cache is None:
-            self._sample_f_cache = releasing(self.device, self._spectrum)
-        return self._sample_f_cache
+    def _query_state(self) -> QueryState:
+        """The one query's :class:`QueryState` on the matcher's device, in
+        :attr:`fft_impl`'s form, computed on first use (the device's graphs
+        giving way to it, see :func:`~..parallel.step_graph.releasing`)."""
+        if self._state is None:
+            self._state = releasing(self.device, lambda: make_query_state(
+                [self.snippet], self.fft_len, self.fft_impl, self.device))
+        return self._state
 
-    def _spectrum(self):
-        snip = torch.from_numpy(self.snippet.data).to(self.device)
-        n = self.fft_len
-        if self.fft_impl == "vpu":
-            return scrambled_query_spectra(snip[None], n, False)
-        if self.fft_impl == "mxu":
-            return scrambled_spectra_parts(snip[None], n)
-        if self.fft_impl == "xla_packed":
-            return query_spectrum(snip, n)
-        return torch.fft.rfft(snip, n=n)
-
-    def _scan_kwargs(self, slab: int, n_slabs: int) -> dict:
-        return dict(
-            chunk=self.chunk, window=self.window, m=self.snippet.m,
-            fft_len=self.fft_len, valid_max=self.valid,
-            distance=self.distance_samples, n_peaks=self.n_peaks,
-            block=self.config.block, slab=slab, n_slabs=n_slabs,
-            fft_impl=self.fft_impl, peaks_impl=self.config.peaks_impl,
-            plain=self.plain,
+    def _scan(self, rows, ns, scale: bool, slab: int, n_slabs: int):
+        """The query against staged rows [E, Npad] with the lengths ``ns``,
+        ``n_slabs`` slabs of ``slab`` windows from each row's start →
+        (pos, h, prom), each [E, 1, n_slabs·slab, n_peaks], on the rows'
+        device (:func:`run_resident_step`, replayed from
+        :attr:`step_graphs`). The query state is held, or copied into the
+        graph in a matcher made by :meth:`for_call`."""
+        static = (
+            self.chunk, self.window, self.fft_len, self.valid,
+            self.distance_samples, self.n_peaks, self.config.block, slab,
+            n_slabs, self.fft_impl, self.config.peaks_impl,
         )
+        return run_resident_step(self.step_graphs, static, rows, ns,
+                                 self._query_state, scale, self.plain,
+                                 self._state_copied)
 
-    def _inv_ac(self, scale: bool) -> np.float32:
-        return np.float32(self.snippet.inv_autocorr if scale else 1.0)
-
-    def _scan(self, resident, name: str, staged, ns, scale: bool,
-              kw: dict):
-        """``resident`` (:func:`_match_episode_resident` or
-        :func:`_match_batch_resident`) of staged rows with the row lengths
-        ``ns`` and the inverse autocorrelation as tensors on their device,
-        replayed from :attr:`step_graphs` where there is one under the key
-        ``name`` and ``kw``. The query spectrum is held (read in place),
-        or copied into the graph in a matcher made by :meth:`for_call`."""
-        dev = staged.device
-        if scale not in self._inv_tensors:
-            self._inv_tensors[scale] = torch.tensor(
-                self._inv_ac(scale), dtype=torch.float32, device=dev)
-        spec = self._sample_f
-        paired = isinstance(spec, tuple)
-        spectrum = tuple(spec) if paired else (spec,)
-        copied = (staged, device_ints(ns, dev), self._inv_tensors[scale])
-
-        def step(rows, ns_dev, inv, *spectrum):
-            return resident(
-                rows, ns_dev, spectrum if paired else spectrum[0], inv, **kw)
-
-        key = (name,) + tuple(sorted(kw.items()))
-        if self._spectrum_copied:
-            return run_step(self.step_graphs, key, step, copied + spectrum)
-        return run_step(self.step_graphs, key, step, copied, spectrum)
-
-    def _scan_episode(self, episode_dev, n: int, scale: bool, kw: dict):
-        """:func:`_match_episode_resident` of a staged episode, through
-        :meth:`_scan`."""
-        return self._scan(_match_episode_resident, "episode", episode_dev, n,
-                          scale, kw)
+    def _peaks(self, pos, h, prom, n_windows: int,
+               progress=None) -> list[Peak]:
+        """:func:`rebase_peaks` of one episode's picks [windows, slots]
+        (span ``collect.peaks``)."""
+        cfg = self.config
+        with spans.span("collect.peaks"):
+            return rebase_peaks(pos, h, prom, n_windows, self.chunk,
+                                cfg.min_prominence, self.sr,
+                                cfg.distance_secs, progress)
 
     def stage(self, samples: np.ndarray, n_samples: int | None = None):
         """Pad an episode to whole slabs of windows in the wire dtype and
@@ -972,29 +1145,6 @@ class SnippetMatcher:
                 progress=progress,
             )
 
-    def _extract_peaks(
-        self, pos, h, prom, n_windows: int, progress=None
-    ) -> list[Peak]:
-        """Rebase each window's candidates and dedup across windows (span
-        ``collect.peaks``)."""
-        cfg = self.config
-        candidates: list[Peak] = []
-        with spans.span("collect.peaks"):
-            for k in range(n_windows):
-                for s in range(pos.shape[1]):
-                    if (np.isfinite(h[k, s])
-                            and prom[k, s] >= cfg.min_prominence):
-                        candidates.append(
-                            Peak(
-                                position=int(pos[k, s]) + self.chunk * k,
-                                height=float(h[k, s]),
-                                prominence=float(prom[k, s]),
-                            )
-                        )
-                if progress:
-                    progress("finish", k)
-            return overshadow_filter(candidates, self.sr, cfg.distance_secs)
-
     def match_staged(
         self,
         staged,
@@ -1022,11 +1172,10 @@ class SnippetMatcher:
             for k in range(n_windows):
                 progress("start", k)
         with spans.span("dispatch"):
-            out = self._scan_episode(episode_dev, n, scale,
-                                     self._scan_kwargs(B, n_slabs))
+            out = self._scan(episode_dev[None], [n], scale, B, n_slabs)
         with spans.span("collect"):
-            pos, h, prom = _read_now(out)
-            return self._extract_peaks(pos, h, prom, n_windows, progress)
+            pos, h, prom = (t[0, 0] for t in _read_now(out))
+            return self._peaks(pos, h, prom, n_windows, progress)
 
     def _match_staged_live(
         self, episode_dev, n: int, scale: bool, n_windows: int,
@@ -1055,19 +1204,18 @@ class SnippetMatcher:
             for k in range(w_lo, w_hi):
                 progress("start", k)
             lo = w_lo * self.chunk  # the JAX package traces a base0
+            hi = (w_lo + gg * B + k_rows) * self.chunk
             with spans.span("dispatch"):
-                out = self._scan_episode(
-                    episode_dev[lo : (w_lo + gg * B + k_rows) * self.chunk],
-                    n - lo, scale, self._scan_kwargs(B, gg),
-                )
+                out = self._scan(episode_dev[None, lo:hi], [n - lo], scale,
+                                 B, gg)
             with spans.span("collect"):  # the last group's holds the peaks
-                parts.append(_read_now(out))
+                parts.append([t[0, 0] for t in _read_now(out)])
                 for k in range(w_lo, w_hi):
                     progress("finish", k)
                 if a == group_starts[-1]:
                     pos, h, prom = (np.concatenate([p[i] for p in parts])
                                     for i in range(3))
-                    return self._extract_peaks(pos, h, prom, n_windows)
+                    return self._peaks(pos, h, prom, n_windows)
 
     def match_staged_batch(
         self, staged, scale: bool = True
@@ -1077,11 +1225,10 @@ class SnippetMatcher:
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         n_max = int(ns.max()) if len(ns) else 0
         B = scan_slab(self.config, self.chunk, n_max, n_windows_pad)
-        out = self._scan(_match_batch_resident, "batch", episodes_dev, ns,
-                         scale, self._scan_kwargs(B, n_windows_pad // B))
-        pos, h, prom = (a.cpu().numpy() for a in out)
+        out = self._scan(episodes_dev, ns, scale, B, n_windows_pad // B)
+        pos, h, prom = (a[:, 0].cpu().numpy() for a in out)
         return [
-            self._extract_peaks(
+            self._peaks(
                 pos[e], h[e], prom[e], max(-(-int(ns[e]) // self.chunk), 1)
             )
             for e in range(len(ns))

@@ -1,7 +1,7 @@
 """Captured CUDA graphs of the port's scan steps: the counterpart of the
-JAX package's jit-compiled steps (``_match_episode_resident``,
-``resident_match_step``, the spectrogram scan), compiled once per set of
-static arguments and cached.
+JAX package's jit-compiled steps (the matcher's and the scanner's resident
+scan, the spectrogram scan), compiled once per set of static arguments
+and cached.
 
 A :class:`StepGraphs` maps a key to a captured :class:`torch.cuda.CUDAGraph`
 with its static inputs and outputs. The key is what the caller gives (the

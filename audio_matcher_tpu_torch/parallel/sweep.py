@@ -1,28 +1,30 @@
-"""The resident scan on one device (port of ``parallel/sweep.py``).
+"""The scanners and the archive sweep (port of ``parallel/sweep.py``).
 
-A group of episodes is staged once as a flat [E, Npad] wire-dtype tensor;
-overlap-save windows are strided views of it. Per slab of windows, by
-query count, ``fft_impl`` and ``peaks_impl`` (the JAX package's branches of
-``resident_match_step``):
+:class:`ShardedScanner` stages a group of episodes once as a flat [E, Npad]
+wire-dtype tensor and scans it against Q query snippets with the model's
+resident step (``models.matcher.resident_match_step``, which
+``SnippetMatcher`` runs at Q = 1): per slab of overlap-save windows, by
+query count, ``fft_impl`` and ``peaks_impl`` (the JAX package's branches
+of ``resident_match_step``):
 
   * Q ≥ 2, ``"vpu"`` + ``"pallas"`` (BASELINE config #3, the batch scan):
     every window's forward FFT is shared across the queries and query
     pairs pack into the inverse transforms,
     windows (wire) → corr_slab_vpu_planes_wire → pick_peaks_packed;
-  * Q = 1, ``"vpu"`` + ``"pallas"`` (config #2 through the scanner):
-    window pairs pack into each transform instead, as ``SnippetMatcher``
-    scans, windows (wire) → corr_single_query_vpu_planes_wire →
-    pick_peaks_packed;
-  * every other pair: the episode is dequantized on the device and the
-    [B, Q, V] correlation is computed by ``fft_impl`` (``"vpu"``: the FFT
-    kernels from f32 windows with query pairs, also at Q = 1;
-    ``"xla_packed"``: ``torch.fft`` with window pairs at Q = 1 and query
-    pairs at Q ≥ 2, also the ``"vpu"`` fallback below ``fft_len`` 2^14;
-    ``"xla"``: ``torch.fft`` rfft/irfft; ``"mxu"``: the matmul FFT), then
-    peaks come from pick_peaks_dispatch under ``peaks_impl``.
+  * Q = 1 (config #2 through the scanner), every pair: the single-query
+    slab, window pairs packed into each transform, as ``SnippetMatcher``
+    scans (fused: windows (wire) → corr_single_query_vpu_planes_wire →
+    pick_peaks_packed);
+  * Q ≥ 2, every other pair: the episode is dequantized on the device and
+    the [B, Q, V] correlation is computed by ``fft_impl`` (``"vpu"``: the
+    FFT kernels from f32 windows with query pairs; ``"xla_packed"``:
+    ``torch.fft`` with query pairs, also the ``"vpu"`` fallback below
+    ``fft_len`` 2^14; ``"xla"``: ``torch.fft`` rfft/irfft; ``"mxu"``: the
+    matmul FFT), then peaks come from pick_peaks_dispatch under
+    ``peaks_impl``.
 
 On the host, :meth:`ShardedScanner.scan_collect` rebases positions and
-dedups across windows with ``overshadow_filter``.
+dedups across windows (``models.matcher.rebase_peaks``).
 :class:`ShardedSpectrogramScanner` scans the same staged rows in the
 spectrogram domain (BASELINE config #4: log-mel fingerprints, frame NCC,
 the multi-pass picker; torch ops). :func:`sweep_archive` runs either
@@ -57,44 +59,24 @@ import torch
 
 from ..models.matcher import (
     MatchConfig,
+    QueryState,
     check_fft_len,
-    correlation_crop,
     describe_path,
     device_ints,
     fill_wire_rows,
-    is_fused,
-    overshadow_filter,
-    pad_wire_on_device,
+    make_query_state,
     read_back,
+    rebase_peaks,
     resolve_fft_impl,
+    run_resident_step,
     scan_slab,
-    single_query_slab,
     stage_rows_host,
     staged_width,
     upload,
-    window_rows,
-    windows_from_episode,
 )
 from ..models.spectrogram import SpectrogramConfig, describe_spectrogram_path
-from ..ops.correlate import (
-    corr_single_query_packed,
-    corr_slab_xla_packed,
-    fft_length,
-    packed_query_spectra,
-    prepare_snippet,
-)
-from ..ops.cuda_fft import (
-    corr_slab_vpu,
-    corr_slab_vpu_planes_wire,
-    scrambled_query_spectra,
-)
-from ..ops.mxu_fft import corr_slab_mxu, scrambled_spectra_parts
-from ..ops.peaks import (
-    Peak,
-    pick_peaks_core,
-    pick_peaks_dispatch,
-    pick_peaks_packed,
-)
+from ..ops.correlate import fft_length, prepare_snippet
+from ..ops.peaks import Peak, pick_peaks_core
 from ..ops.stft import (
     log_mel,
     mel_filterbank,
@@ -108,169 +90,6 @@ from .mesh import Mesh, make_local_mesh, process_count, process_index
 from .step_graph import StepGraphs, releasing, run_step
 
 log = logging.getLogger("audio_matcher_torch.sweep")
-
-
-@dataclasses.dataclass
-class _Query:
-    m: int
-    inv_autocorr: float
-
-
-@dataclasses.dataclass(frozen=True)
-class QueryState:
-    """What the scan holds of its queries (this system's weights): their
-    spectra as f32 real and imaginary parts (``"vpu"``: the query-pair
-    spectra of ``scrambled_query_spectra(pack=True)``, [Qh, n] each;
-    ``"xla_packed"``: ``packed_query_spectra`` in natural order, [Qh, n];
-    ``"xla"``: the rfft, [Q, n//2+1]; ``"mxu"``: the digit-reversed plane
-    views of ``scrambled_spectra_parts``, [Q, G, c]), the inverse
-    autocorrelations [Q] f32 and the snippet lengths [Q]."""
-
-    t_r: torch.Tensor
-    t_i: torch.Tensor
-    inv_ac: torch.Tensor
-    m: torch.Tensor
-
-    def to(self, device) -> "QueryState":
-        """The state on ``device`` (the same tensors if they are there)."""
-        return QueryState(self.t_r.to(device), self.t_i.to(device),
-                          self.inv_ac.to(device), self.m.to(device))
-
-
-def query_state_from_numpy(t_r, t_i, inv_ac, m, device) -> QueryState:
-    """Carry a prepared query state across (e.g. the JAX scanner's
-    ``_sample_f_resident``, ``_inv_ac`` and ``_m`` as numpy arrays; for
-    ``"xla_packed"`` and ``"xla"`` the real and imaginary parts of its
-    complex spectra), so that both packages scan with identical
-    spectra."""
-    dev = torch.device(device)
-    return QueryState(
-        t_r=torch.tensor(np.asarray(t_r, np.float32), device=dev),
-        t_i=torch.tensor(np.asarray(t_i, np.float32), device=dev),
-        inv_ac=torch.tensor(np.asarray(inv_ac, np.float32), device=dev),
-        m=torch.tensor(np.asarray(m, np.int64), device=dev),
-    )
-
-
-def _corr_slab(windows, spectra, fft_len: int, crop: int, fft_impl: str,
-               Q: int, plain: bool, work: dict):
-    """f32 windows [B, W] × Q queries → [B, Q, crop] correlations (the
-    JAX scanner's non-fused branches). ``spectra``: (t_r, t_i) for
-    ``"vpu"`` and ``"mxu"``, complex for ``"xla_packed"`` and ``"xla"``."""
-    if fft_impl == "mxu":
-        return corr_slab_mxu(windows, spectra[0], spectra[1], crop)
-    if fft_impl == "xla_packed":
-        if Q == 1:  # window pairs; the pair row of one query is conj(S0)
-            return corr_single_query_packed(windows, spectra[0], crop)[:, None]
-        return corr_slab_xla_packed(windows, spectra, crop)[:, :Q]
-    if fft_impl == "vpu":
-        return corr_slab_vpu(
-            windows, spectra[0], spectra[1], crop, plain=plain, work=work
-        )[:, :Q]
-    x = torch.fft.rfft(windows, n=fft_len)  # [B, F], shared by the queries
-    spec = x[:, None, :] * spectra.conj()[None]
-    return torch.fft.irfft(spec, n=fft_len)[..., :crop]
-
-
-def resident_match_step(
-    chunk: int,
-    window: int,
-    fft_len: int,
-    valid_max: int,
-    distance: int,
-    n_peaks: int,
-    block: int,
-    slab: int,
-    n_slabs: int,
-    fft_impl: str = "vpu",
-    peaks_impl: str = "pallas",
-    plain: bool = False,
-):
-    """The resident scan of a staged batch.
-
-    Returned fn: (episodes [E, Npad] wire, ns [E] int64 on the episodes'
-    device (host ints are copied there), t_r, t_i (:class:`QueryState`'s
-    spectra), inv_ac [Q], m [Q]) → (pos, h, prom) each [E, Q,
-    n_slabs·slab, S]. Episodes and slabs run in a Python loop that reuses
-    one slab's intermediate planes; no host value is read from the
-    device, so a CUDA graph can capture it. ``plain=True`` runs every
-    kernel's plain PyTorch version instead (the reference path).
-    """
-    fused = is_fused(fft_impl, peaks_impl)
-    crop = correlation_crop(valid_max, block, fft_len, fft_impl, peaks_impl)
-    target = (n_slabs * slab + window_rows(window, chunk)) * chunk
-
-    def slab_single(windows, win_len, spectra, inv_ac, m, work):
-        # one query: window pairs share each transform, as SnippetMatcher
-        # scans; the pair spectra of one query are its single-query form
-        # (pack=True equals pack=False at Q = 1)
-        valid = (win_len - m[0] + 1).clamp(min=0)
-        return [a[None] for a in single_query_slab(
-            windows, valid, spectra, inv_ac[0], crop, fft_len, distance,
-            n_peaks, block, fft_impl, peaks_impl, plain, work,
-        )]
-
-    def slab_vpu(windows, win_len, spectra, inv_ac, m, work):
-        t_r, t_i = spectra
-        Q = inv_ac.shape[0]
-        yr, yi = corr_slab_vpu_planes_wire(
-            windows, t_r, t_i, crop, plain=plain, work=work
-        )
-        Q2 = 2 * t_r.shape[0]  # queries incl. the odd-Q pad
-        inv_pad = torch.nn.functional.pad(inv_ac, (0, Q2 - Q))
-        m_pad = torch.nn.functional.pad(m, (0, Q2 - Q), value=1)
-        vq2 = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0)
-        vq2[:, Q:] = 0  # the pad query emits nothing
-        picked = pick_peaks_packed(
-            yr, yi, inv_pad.repeat(slab),  # logical rows: q fastest
-            vq2.reshape(-1), distance, n_peaks, block, plain=plain,
-        )
-        return [a.reshape(slab, Q2, -1)[:, :Q].transpose(0, 1)
-                for a in picked]  # [Q, B, S] triplets
-
-    def slab_dense(windows, win_len, spectra, inv_ac, m, work):
-        Q = inv_ac.shape[0]
-        c = _corr_slab(windows, spectra, fft_len, crop, fft_impl, Q, plain,
-                       work)
-        c = c * inv_ac[None, :, None]
-        vq = (win_len[:, None] - m[None, :] + 1).clamp(min=0)  # [B, Q]
-        picked = pick_peaks_dispatch(
-            c, vq, distance, n_peaks, block, peaks_impl, plain=plain
-        )
-        return [a.transpose(0, 1) for a in picked]
-
-    def per_episode(episode, n, slab_fn, spectra, inv_ac, m, work):
-        dev = episode.device
-        episode = pad_wire_on_device(episode, target)
-        if not fused:
-            episode = dequant_to_f32(episode)
-        outs = []
-        for s in range(n_slabs):
-            base = s * slab
-            starts = (base + torch.arange(slab, device=dev)) * chunk
-            windows = windows_from_episode(episode, base, slab, chunk, window)
-            win_len = (n - starts).clamp(0, window)
-            outs.append(slab_fn(windows, win_len, spectra, inv_ac, m, work))
-        return [torch.cat([o[i] for o in outs], dim=1) for i in range(3)]
-
-    def step(episodes, ns, t_r, t_i, inv_ac, m):
-        if not fused:
-            slab_fn = slab_dense
-        else:
-            slab_fn = slab_single if inv_ac.shape[0] == 1 else slab_vpu
-        spectra = (
-            (t_r, t_i) if fft_impl in ("vpu", "mxu")
-            else torch.complex(t_r, t_i)
-        )
-        ns = torch.as_tensor(ns, dtype=torch.int64, device=episodes.device)
-        work: dict = {}
-        per = [
-            per_episode(episodes[e], ns[e], slab_fn, spectra, inv_ac, m, work)
-            for e in range(episodes.shape[0])
-        ]
-        return tuple(torch.stack([p[i] for p in per]) for i in range(3))
-
-    return step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -494,8 +313,7 @@ class ShardedScanner(_Scanner):
         self.sr = int(sr)
         self.config = cfg = config or MatchConfig()
         self.plain = bool(plain)
-        preps = [prepare_snippet(s) for s in snippets]
-        self.queries = [_Query(p.m, p.inv_autocorr) for p in preps]
+        self.queries = [prepare_snippet(s) for s in snippets]
         self.m_max = max(q.m for q in self.queries)
         self.m_min = min(q.m for q in self.queries)
         self.chunk = int(round(cfg.chunk_secs * self.sr))
@@ -513,10 +331,6 @@ class ShardedScanner(_Scanner):
             self.valid // max(self.distance_samples, 1) + 2,
             cfg.max_peaks_per_chunk,
         )
-        padded = np.zeros((len(preps), self.m_max), np.float32)
-        for i, p in enumerate(preps):
-            padded[i, : p.m] = p.data
-        self._sample_padded = padded
         self._state = query_state
         self._states: dict = {}  # the query state copied to each device
         self._rfft_states: dict = {}  # the windows path's, the same
@@ -534,32 +348,9 @@ class ShardedScanner(_Scanner):
         device's graphs giving way to them, see
         :func:`~.step_graph.releasing`)."""
         if self._state is None:
-            self._state = releasing(self.device, self._query_spectra)
+            self._state = releasing(self.device, lambda: make_query_state(
+                self.queries, self.fft_len, self.fft_impl, self.device))
         return self._state
-
-    def _query_spectra(self) -> QueryState:
-        padded = torch.from_numpy(self._sample_padded).to(self.device)
-        n = self.fft_len
-        if self.fft_impl == "vpu":
-            t_r, t_i = scrambled_query_spectra(padded, n, True)
-        elif self.fft_impl == "mxu":
-            t_r, t_i = scrambled_spectra_parts(padded, n)
-        else:
-            T = (packed_query_spectra(padded, n)
-                 if self.fft_impl == "xla_packed"
-                 else torch.fft.rfft(padded, n=n))
-            t_r, t_i = T.real.contiguous(), T.imag.contiguous()
-        return QueryState(t_r, t_i, *self._constants())
-
-    def _constants(self):
-        """The inverse autocorrelations [Q] f32 and the snippet lengths
-        [Q] on the scan's (first) device."""
-        return (
-            torch.tensor([q.inv_autocorr for q in self.queries],
-                         dtype=torch.float32, device=self.device),
-            torch.tensor([q.m for q in self.queries], dtype=torch.int64,
-                         device=self.device),
-        )
 
     def _query_state_on(self, device: torch.device) -> QueryState:
         """:attr:`query_state`, computed once and copied to ``device``."""
@@ -576,7 +367,6 @@ class ShardedScanner(_Scanner):
         """Scan staged rows on their device; ``n_max``: the longest
         episode of the whole group, which sets the slab on every shard."""
         cfg = self.config
-        dev = episodes_dev.device
         n_windows_pad = (episodes_dev.shape[1] - self.overlap) // self.chunk
         slab = scan_slab(cfg, self.chunk, n_max, n_windows_pad)
         static = (
@@ -584,45 +374,21 @@ class ShardedScanner(_Scanner):
             self.distance_samples, self.n_peaks, cfg.block, slab,
             n_windows_pad // slab, self.fft_impl, cfg.peaks_impl,
         )
-        step = resident_match_step(*static, plain=self.plain)
-        st = self._query_state_on(dev)
-        inv_ac = st.inv_ac if scale else torch.ones_like(st.inv_ac)
-
-        def run(episodes, ns_dev, inv, t_r, t_i, m):
-            return step(episodes, ns_dev, t_r, t_i, inv, m)
-
-        return run_step(self.step_graphs, ("resident",) + static, run,
-                        (episodes_dev, device_ints(ns, dev), inv_ac),
-                        (st.t_r, st.t_i, st.m))
+        return run_resident_step(
+            self.step_graphs, static, episodes_dev, ns,
+            self._query_state_on(episodes_dev.device), scale, self.plain)
 
     def _peaks(self, arrays, ns, n_real) -> list[list[list[Peak]]]:
-        """Rebase each window's candidates and dedup across windows."""
+        """:func:`rebase_peaks` of each (episode, query)."""
         cfg = self.config
         pos, h, prom = arrays
-        out = []
-        for e in range(n_real):
-            n_windows = max(-(-int(ns[e]) // self.chunk), 1)
-            per_query = []
-            for q in range(len(self.queries)):
-                cands = []
-                for k in range(min(n_windows, pos.shape[2])):
-                    for s in range(pos.shape[3]):
-                        if (
-                            np.isfinite(h[e, q, k, s])
-                            and prom[e, q, k, s] >= cfg.min_prominence
-                        ):
-                            cands.append(
-                                Peak(
-                                    int(pos[e, q, k, s]) + self.chunk * k,
-                                    float(h[e, q, k, s]),
-                                    float(prom[e, q, k, s]),
-                                )
-                            )
-                per_query.append(
-                    overshadow_filter(cands, self.sr, cfg.distance_secs)
-                )
-            out.append(per_query)
-        return out
+        return [
+            [rebase_peaks(pos[e, q], h[e, q], prom[e, q],
+                          max(-(-int(ns[e]) // self.chunk), 1), self.chunk,
+                          cfg.min_prominence, self.sr, cfg.distance_secs)
+             for q in range(len(self.queries))]
+            for e in range(n_real)
+        ]
 
     # -- the legacy windows path (the JAX package's ``sharded_match_step``)
 
@@ -630,10 +396,8 @@ class ShardedScanner(_Scanner):
         """The queries' rfft spectra [Q, fft_len/2+1] (real and imaginary
         parts) and constants, computed once and copied to ``device``."""
         if not self._rfft_states:
-            padded = torch.from_numpy(self._sample_padded).to(self.device)
-            T = torch.fft.rfft(padded, n=self.fft_len)
-            self._rfft_states[self.device] = QueryState(
-                T.real.contiguous(), T.imag.contiguous(), *self._constants())
+            self._rfft_states[self.device] = make_query_state(
+                self.queries, self.fft_len, "xla", self.device)
         if device not in self._rfft_states:
             self._rfft_states[device] = self._rfft_states[self.device].to(
                 device)

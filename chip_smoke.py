@@ -267,8 +267,6 @@ from audio_matcher_tpu_torch.models import matcher as matcher_mod  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
-    _match_batch_resident,
-    _match_episode_resident,
     correlation_crop,
     effective_slab,
     pad_wire_on_device,
@@ -872,7 +870,7 @@ def check_single_query_kernels(matcher, episode_wire, record=None):
     record = record or {}
     slab, odd = SLAB, ODD_SLAB
     staged, n = matcher.stage(episode_wire)
-    s_r, s_i = matcher._sample_f
+    s_r, s_i = matcher._query_state.t_r, matcher._query_state.t_i
     n_fft = matcher.fft_len
     A, M = F.split_factors(n_fft)
     W, chunk = matcher.window, matcher.chunk
@@ -957,10 +955,7 @@ def compare_single_query_paths(matcher, plain_matcher, episode_wire,
     n_pad = (staged[0].shape[0] - matcher.overlap) // matcher.chunk
     slab = scan_slab(matcher.config, matcher.chunk, staged[1], n_pad)
     got, want = (
-        _match_episode_resident(
-            staged[0], staged[1], m._sample_f,
-            np.float32(m.snippet.inv_autocorr),
-            **m._scan_kwargs(slab, n_pad // slab))
+        m._scan(staged[0][None], [staged[1]], True, slab, n_pad // slab)
         for m in (matcher, plain_matcher))
     compare_raw(label, got, want)
     compare_peaks(label, [matcher.match_staged(staged)],
@@ -1691,12 +1686,12 @@ class OneCall:
         staged = m.stage(episode)
         n_pad = (staged[0].shape[0] - m.overlap) // m.chunk
         slab = scan_slab(m.config, m.chunk, staged[1], n_pad)
-        return m._scan_episode(*staged, True,
-                               m._scan_kwargs(slab, n_pad // slab))
+        return m._scan(staged[0][None], [staged[1]], True, slab,
+                       n_pad // slab)
 
     def copies(self, episode):
         m = self.matcher()
-        s_r, s_i = m._sample_f
+        s_r, s_i = m._query_state.t_r, m._query_state.t_i
         return [("staged row", m.stage(episode)[0]),
                 ("query spectrum (real plane)", s_r),
                 ("query spectrum (imaginary plane)", s_i)]
@@ -1748,21 +1743,20 @@ def batch_matcher_turn(config, device):
     snippets, offsets, episode = make_bench_inputs(1, EPISODE_SECS)
     wire = quantize_wire(episode, config.transfer_dtype)
     del episode
-    spectra = SnippetMatcher(snippets[0], SR, config,
-                             device=device)._sample_f
+    state = SnippetMatcher(snippets[0], SR, config,
+                           device=device)._query_state
 
     def matcher(graphs):
         m = SnippetMatcher(snippets[0], SR, config, device=device,
                            graphs=graphs)
-        m._sample_f_cache = spectra
+        m._state = state
         return m
 
     def batch_raw(m, staged):
         rows, ns = staged
         n_pad = (rows.shape[1] - m.overlap) // m.chunk
         slab = scan_slab(m.config, m.chunk, int(ns.max()), n_pad)
-        return m._scan(_match_batch_resident, "batch", rows, ns, True,
-                       m._scan_kwargs(slab, n_pad // slab))
+        return m._scan(rows, ns, True, slab, n_pad // slab)
 
     graph_turns(
         f"config #2 batch ({N_EPISODES} x {EPISODE_SECS} s x one "
@@ -1857,20 +1851,20 @@ def step_graphs(config, device, rows):
     wire = quantize_wire(episode, config.transfer_dtype)
     for chunk_secs in (config.chunk_secs, LARGE_CHUNKS[-1]):
         cfg = dataclasses.replace(config, chunk_secs=chunk_secs)
-        spectra = SnippetMatcher(snippets[0], SR, cfg,
-                                 device=device)._sample_f
+        state = SnippetMatcher(snippets[0], SR, cfg,
+                               device=device)._query_state
 
-        def matcher(graphs, cfg=cfg, spectra=spectra):
+        def matcher(graphs, cfg=cfg, state=state):
             m = SnippetMatcher(snippets[0], SR, cfg, device=device,
                                graphs=graphs)
-            m._sample_f_cache = spectra
+            m._state = state
             return m
 
         def episode_raw(m, staged):
             n_pad = (staged[0].shape[0] - m.overlap) // m.chunk
             slab = scan_slab(m.config, m.chunk, staged[1], n_pad)
-            return m._scan_episode(*staged, True,
-                                   m._scan_kwargs(slab, n_pad // slab))
+            return m._scan(staged[0][None], [staged[1]], True, slab,
+                           n_pad // slab)
 
         log2n = matcher(False).fft_len.bit_length() - 1
         graph_turns(
@@ -1894,7 +1888,7 @@ def step_graphs(config, device, rows):
                 f"config #2 at fft_len 2^{log2n}", matcher,
                 lambda: matcher(False).stage(wire),
                 SnippetMatcher.match_staged)
-        del spectra
+        del state
         torch.cuda.empty_cache()
     state = ShardedScanner(snippets, SR, config, device=device).query_state
 
@@ -1941,9 +1935,10 @@ def step_graphs(config, device, rows):
 
 
 def call_graph_sizes(device):
-    """log2 fft_len of each of match()'s graphs in the device's store."""
+    """log2 fft_len of each of match()'s graphs in the device's store (a
+    key: ("resident", chunk, window, fft_len, ...))."""
     store = step_graph._DEVICES[torch.device(device)]
-    return sorted(dict(k[1][0][1:])["fft_len"].bit_length() - 1
+    return sorted(k[1][0][3].bit_length() - 1
                   for k in store.graphs
                   if k[0] is matcher_mod.CALL_GRAPHS._token)
 

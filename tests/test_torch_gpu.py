@@ -1223,13 +1223,16 @@ def test_graphed_matcher_equals_eager_bitwise(dev):
     staged = [graphed.stage(ep) for ep in eps]
     n_pad = (staged[0][0].shape[0] - graphed.overlap) // graphed.chunk
     slab = scan_slab(cfg, graphed.chunk, staged[0][1], n_pad)
-    kw = graphed._scan_kwargs(slab, n_pad // slab)
+
+    def raw(m, s):
+        return m._scan(s[0][None], [s[1]], True, slab, n_pad // slab)
+
     for k in (0, 1, 0, 1):
         before = _launch_counts()
-        want = eager._scan_episode(*staged[k], True, kw)
+        want = raw(eager, staged[k])
         eager_launches = [a - b for a, b in zip(_launch_counts(), before)]
         before = _launch_counts()
-        got = graphed._scan_episode(*staged[k], True, kw)
+        got = raw(graphed, staged[k])
         assert [a - b for a, b in zip(_launch_counts(), before)] == (
             eager_launches)
         _bitwise(got, want)
@@ -1396,18 +1399,15 @@ def test_graphed_batch_matcher_equals_eager_bitwise(dev):
     """``SnippetMatcher.match_staged_batch`` replayed as a CUDA graph: the
     raw candidates and the peaks of two stagings of one shape equal the
     eager matcher's, bit for bit, with the same launches a run."""
-    from audio_matcher_tpu_torch.models.matcher import _match_batch_resident
-
     sr, snippet, eps, cfg = _single_case(18, plants=(5.0, 9.5, 14.0, 3.0))
     graphed = SnippetMatcher(snippet, sr, cfg, device=dev)
     eager = SnippetMatcher(snippet, sr, cfg, device=dev, graphs=False)
     staged = [graphed.stage_batch(eps[:2]), graphed.stage_batch(eps[2:])]
     n_pad = (staged[0][0].shape[1] - graphed.overlap) // graphed.chunk
     slab = scan_slab(cfg, graphed.chunk, int(staged[0][1].max()), n_pad)
-    kw = graphed._scan_kwargs(slab, n_pad // slab)
 
     def raw(m, s):
-        return m._scan(_match_batch_resident, "batch", *s, True, kw)
+        return m._scan(*s, True, slab, n_pad // slab)
 
     for k in (0, 1, 0, 1):
         before = _launch_counts()
@@ -1646,7 +1646,7 @@ def test_graphed_pool_gives_way_to_a_step_that_fits_alone(dev, monkeypatch):
     small, large, eager = matcher(1500.0), matcher(3000.0), matcher(
         3000.0, graphs=False)
     assert (small.fft_len, large.fft_len) == (1 << 24, 1 << 25)
-    large._sample_f_cache = eager._sample_f  # one spectrum for both
+    large._state = eager._query_state  # one spectrum for both
     staged = eager.stage(wire)
     want = eager.match_staged(staged)  # the size's plans and constants
     base = reserved()

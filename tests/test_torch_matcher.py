@@ -65,12 +65,16 @@ def _assert_peaks(got, want, tol=TOL):
 
 def _raw(m, mod, staged, scale=True):
     """Both packages' whole-episode scan of a staged episode, with the
-    arguments ``match_staged`` gives it → numpy (pos, h, prom)."""
+    arguments ``match_staged`` gives it → numpy (pos, h, prom) (the port:
+    the one resident step at Q = 1, through ``SnippetMatcher._scan``)."""
     episode, n = staged
     n_pad = (episode.shape[0] - m.overlap) // m.chunk
     B = mod.effective_slab(m.config, max(-(-n // m.chunk), 1))
-    out = mod._match_episode_resident(
-        episode if mod is TM else JM._joined(episode), n, m._sample_f,
+    if mod is TM:
+        out = m._scan(episode[None], [n], scale, B, n_pad // B)
+        return tuple(np.asarray(a[0, 0]) for a in out)
+    out = JM._match_episode_resident(
+        JM._joined(episode), n, m._sample_f,
         np.float32(m.snippet.inv_autocorr if scale else 1.0),
         chunk=m.chunk, window=m.window, m=m.snippet.m, fft_len=m.fft_len,
         valid_max=m.valid, distance=m.distance_samples, n_peaks=m.n_peaks,

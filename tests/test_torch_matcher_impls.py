@@ -11,7 +11,8 @@ snippet (``fft_len`` 2^14), distance 1 s. Raw candidates and final peaks
 at identical positions; heights and prominences within 1.2e-5, the
 reference's oracle tolerance (tests/test_correlate.py). ``calc_chunks``,
 ``match()``, the batch and the live-progress paths give the matcher's
-peaks exactly.
+peaks exactly, and so does the one-snippet ``ShardedScanner``, which
+runs the same resident step at Q = 1.
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from audio_matcher_tpu.models import matcher as JM  # noqa: E402
 
 import audio_matcher_tpu_torch as port  # noqa: E402
 from audio_matcher_tpu_torch.models import matcher as TM  # noqa: E402
+from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner  # noqa: E402
 
 SR = 8000
 TOL = 1.2e-5
@@ -52,11 +54,16 @@ def _assert_peaks(got, want, tol=TOL):
 
 
 def _raw(m, mod, staged):
+    """The whole-episode scan of a staged episode (the port: the one
+    resident step at Q = 1, through ``SnippetMatcher._scan``)."""
     episode, n = staged
     n_pad = (episode.shape[0] - m.overlap) // m.chunk
     B = mod.effective_slab(m.config, max(-(-n // m.chunk), 1))
-    out = mod._match_episode_resident(
-        episode if mod is TM else JM._joined(episode), n, m._sample_f,
+    if mod is TM:
+        out = m._scan(episode[None], [n], True, B, n_pad // B)
+        return [np.asarray(a[0, 0]) for a in out]
+    out = JM._match_episode_resident(
+        JM._joined(episode), n, m._sample_f,
         np.float32(m.snippet.inv_autocorr),
         chunk=m.chunk, window=m.window, m=m.snippet.m, fft_len=m.fft_len,
         valid_max=m.valid, distance=m.distance_samples, n_peaks=m.n_peaks,
@@ -102,3 +109,20 @@ def test_matcher_impl_matches_jax(fft_impl, peaks_impl, wire):
     _assert_peaks(live.match(episodes[0], progress=lambda *a: calls.append(a)),
                   peaks, tol=0.0)
     assert calls[0] == ("start", 0) and len(calls) == 2 * 7
+
+
+@pytest.mark.parametrize("wire", list(WIRES))
+@pytest.mark.parametrize("fft_impl,peaks_impl", IMPLS)
+def test_matcher_and_one_snippet_scanner_agree(fft_impl, peaks_impl, wire):
+    """Both front ends run the one resident step at Q = 1: the matcher's
+    peaks and the one-snippet scanner's are identical (tolerance 0)."""
+    snippet, episodes = _inputs()
+    cfg = TM.MatchConfig(chunk_secs=1.0, distance_secs=1.0,
+                         transfer_dtype=wire, fft_impl=fft_impl,
+                         peaks_impl=peaks_impl, **WIRES[wire])
+    tm = TM.SnippetMatcher(snippet, SR, cfg, device="cpu")
+    scanner = ShardedScanner([snippet], SR, cfg, device="cpu")
+    assert (scanner.fft_impl, scanner.window) == (tm.fft_impl, tm.window)
+    got = tm.match_staged(tm.stage(episodes[0]))
+    _assert_peaks(got, scanner.scan_resident([episodes[0]])[0][0], tol=0.0)
+    assert [p.position for p in got] == [int(a * SR) for a in PLANTS]

@@ -25,11 +25,11 @@ from audio_matcher_tpu.models.matcher import MatchConfig as JaxConfig  # noqa: E
 from audio_matcher_tpu.parallel.mesh import make_mesh  # noqa: E402
 from audio_matcher_tpu.parallel.sweep import ShardedScanner as JaxScanner  # noqa: E402
 
-from audio_matcher_tpu_torch.models.matcher import MatchConfig  # noqa: E402
-from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
-    ShardedScanner,
+from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
+    MatchConfig,
     query_state_from_numpy,
 )
+from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner  # noqa: E402
 
 SR = 8000
 TOL = 1.2e-5

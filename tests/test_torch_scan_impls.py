@@ -27,11 +27,9 @@ from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     FFT_IMPLS,
     PEAKS_IMPLS,
     MatchConfig,
-)
-from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
-    ShardedScanner,
     query_state_from_numpy,
 )
+from audio_matcher_tpu_torch.parallel.sweep import ShardedScanner  # noqa: E402
 
 SR = 8000
 TOL = 1.2e-5

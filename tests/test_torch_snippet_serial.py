@@ -86,13 +86,13 @@ def test_both_paths_scan_more_than_one_slab(traffic, monkeypatch, live):
     tr = by_seed[SEEDS[0]]
     m = _matcher(cfg, tr)
     scans = []
-    real = SnippetMatcher._scan_episode
+    real = SnippetMatcher._scan
 
-    def scan(self, episode_dev, n, scale, kw):
-        scans.append(kw["n_slabs"])
-        return real(self, episode_dev, n, scale, kw)
+    def scan(self, rows, ns, scale, slab, n_slabs):
+        scans.append(n_slabs)
+        return real(self, rows, ns, scale, slab, n_slabs)
 
-    monkeypatch.setattr(SnippetMatcher, "_scan_episode", scan)
+    monkeypatch.setattr(SnippetMatcher, "_scan", scan)
     _match(m, tr.episodes[0], live)
     assert sum(scans) > 1
     assert scans == ([2, 2] if live else [4])

@@ -43,6 +43,8 @@ from audio_matcher_tpu_torch.models import matcher as TM  # noqa: E402
 from audio_matcher_tpu_torch.models.matcher import (  # noqa: E402
     MatchConfig,
     SnippetMatcher,
+    query_state_from_numpy,
+    resident_match_step,
 )
 from audio_matcher_tpu_torch.models.spectrogram import (  # noqa: E402
     SpectrogramConfig,
@@ -52,8 +54,6 @@ from audio_matcher_tpu_torch.parallel.step_graph import StepGraphs  # noqa: E402
 from audio_matcher_tpu_torch.parallel.sweep import (  # noqa: E402
     ShardedScanner,
     ShardedSpectrogramScanner,
-    query_state_from_numpy,
-    resident_match_step,
     spectrogram_step,
 )
 
@@ -611,9 +611,10 @@ def test_resident_step_on_tensors_matches_jax(wire, n_queries, stub):
 
 @pytest.mark.parametrize("wire", ["mulaw8", "int16"])
 def test_episode_step_on_tensors_matches_jax(wire, stub):
-    """``_match_episode_resident`` with the length and the inverse
-    autocorrelation as tensors (as ``match_staged`` runs it, through a
-    stub graph) against the JAX matcher's, and the final peaks."""
+    """The one resident step at Q = 1 with the length, the matcher's
+    query state and its inverse autocorrelation as tensors (as
+    ``match_staged`` runs it, through a stub graph) against the JAX
+    matcher's ``_match_episode_resident``, and the final peaks."""
     snippets, episodes = _inputs()
     kw = dict(chunk_secs=1.0, distance_secs=1.0, transfer_dtype=wire)
     jm = JM.SnippetMatcher(snippets[0], SR, JaxConfig(
@@ -631,11 +632,13 @@ def test_episode_step_on_tensors_matches_jax(wire, stub):
         JM._joined(j_staged[0]), n, jm._sample_f,
         np.float32(jm.snippet.inv_autocorr), fft_impl="vpu",
         peaks_impl="pallas", **static)]
-    got = TM._match_episode_resident(
-        staged[0], torch.tensor(n), tm._sample_f,
-        torch.tensor(tm.snippet.inv_autocorr, dtype=torch.float32),
-        **static)
-    _assert_raw(got, want)
+    st = tm._query_state
+    step = resident_match_step(
+        tm.chunk, tm.window, tm.fft_len, tm.valid, tm.distance_samples,
+        tm.n_peaks, tm.config.block, B, n_pad // B)
+    got = step(staged[0][None], torch.tensor([n]), st.t_r, st.t_i,
+               st.inv_ac, st.m)
+    _assert_raw([a[0, 0] for a in got], want)
     tm.step_graphs = StepGraphs()
     peaks = [tm.match_staged(staged) for _ in range(3)]
     want_peaks = jm.match_staged(j_staged)
