@@ -53,6 +53,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
     ),
     "am_block_reduce": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "am_peak_rounds": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
+        _I, _I, _P
+    ),
 }
 
 

@@ -18,6 +18,13 @@ kernel (``csrc/block_reduce.cu``) for CUDA tensors; they never fall back.
 The kernel's geometry is kept here, where the CPU tests reach it: which
 warp takes which run of tiles (:func:`reduce_grid`) and which columns of a
 tile are valid and may be candidates (:func:`tile_columns`).
+
+:func:`peak_rounds` runs everything the picker does after the reduction
+(seam merge, suppression rounds, prominences) in one launch a slab
+(``csrc/peak_rounds.cu``); it takes CUDA tensors only, and its plain
+version is ``peaks._peak_rounds_plain``; :func:`rounds_layout` is the
+layout it launches by the row's tiles, which the kernel's launch also
+checks.
 """
 
 from __future__ import annotations
@@ -247,4 +254,100 @@ def local_max_block_reduce(x, valid_len, block: int = 512):
 
 local_max_block_reduce.launches = 0
 
-KERNELS = (local_max_block_reduce_packed, local_max_block_reduce)
+# ------------------------------------------------------------ peak rounds
+ROUNDS_SMEM = 200 * 1024  # dynamic shared bytes the shared layout may take
+MAX_PEAKS = 4096  # slots a row (the picks' table: 12 bytes a slot)
+MAX_DISTANCE = 1 << 62  # the rounds' intervals are int64
+
+
+def rounds_layout(nb: int, n_peaks: int) -> bool:
+    """Whether the rounds over rows of ``nb`` tiles take the shared layout:
+    a row's candidates (8 bytes a tile) and the picks' table (12 bytes a
+    slot) in shared memory while they fit in ROUNDS_SMEM; else the
+    candidates are worked in place in device memory (the L2's)."""
+    return 12 * n_peaks + 8 * nb <= ROUNDS_SMEM
+
+
+def _rounds_refusal(planes, scale, valid_len, reduced, distance: int,
+                    n_peaks: int, block: int):
+    """Why the rounds kernel cannot take these arguments, or None."""
+    bv, bp, bmin, bmax = reduced
+    if len(planes) not in (1, 2) or (len(planes) == 2) != (scale is not None):
+        return "give (yr, yi) with a scale, or (x,) without"
+    rows, nb = bv.shape if bv.dim() == 2 else (0, 0)
+    P, V = planes[0].shape
+    if any(t.shape != planes[0].shape for t in planes):
+        return "yr and yi must have one shape"
+    if rows != P * len(planes) or rows < 1:
+        return f"candidates must have a row for each of the {P * len(planes)}"
+    if nb * block != V:
+        return f"candidates must be [{rows}, {V} // {block}]"
+    if scale is not None and scale.shape != (rows,):
+        return f"scale must be [{rows}]"
+    if valid_len.shape != (rows,):
+        return f"valid_len must be [{rows}]"
+    for t, dtype in zip(reduced, (torch.float32, torch.int32, torch.float32,
+                                  torch.float32)):
+        if t.shape != (rows, nb) or t.dtype != dtype or not t.is_contiguous():
+            return "candidates must be contiguous [rows, nb]: f32, int32, f32, f32"
+    if not 1 <= n_peaks <= MAX_PEAKS:
+        return f"n_peaks must be 1 to {MAX_PEAKS}, got {n_peaks}"
+    if distance > MAX_DISTANCE:
+        return f"distance must be at most {MAX_DISTANCE}"
+    return None
+
+
+def peak_rounds(planes, scale, valid_len, reduced, distance: int,
+                n_peaks: int, block: int = 512):
+    """The picker's rounds over a slab's reduced rows, one launch: the seam
+    merge, ``n_peaks`` suppression rounds at min distance ``distance``
+    with the rescan of each pick's edge tiles, and every slot's prominence.
+
+    ``planes`` is (yr, yi) [P, V] with ``scale`` f32 [2P] (logical row 2p
+    = yr[p]·scale[2p], 2p+1 = yi[p]·scale[2p+1]) or (x,) [B, V] with
+    ``scale`` None; ``reduced`` the reduction's (best_val, best_pos, bmin,
+    bmax) over ``block``-column tiles, each [rows, V // block], of which
+    the first two are overwritten. Returns (pos int32, height, prominence),
+    each [rows, n_peaks], bit for bit ``peaks._peak_rounds_plain``'s.
+    Refuses what the kernel cannot take, CPU tensors among it."""
+    d = max(int(distance), 1)
+    why = _rounds_refusal(planes, scale, valid_len, reduced, d, n_peaks,
+                          block)
+    if why is not None:
+        raise ValueError(why)
+    _launchable(planes, block)
+    tensors = (*planes, valid_len, *reduced) + (() if scale is None
+                                                 else (scale,))
+    if not on_cuda(*tensors):
+        raise ValueError("the rounds kernel takes CUDA tensors; the plain "
+                         "rounds are ops/peaks.py's")
+    packed = scale is not None
+    bv, bp, bmin, bmax = reduced
+    rows, nb = bv.shape
+    V = planes[0].shape[1]
+    dev = bv.device
+    valid_len = valid_len.to(torch.int32).contiguous()
+    scale = scale.to(torch.float32).contiguous() if packed else None
+    shared = rounds_layout(nb, n_peaks)
+    pos = torch.empty((rows, n_peaks), dtype=torch.int32, device=dev)
+    height = torch.empty((rows, n_peaks), dtype=torch.float32, device=dev)
+    prom = torch.empty_like(height)
+    yr, yi = planes if packed else (planes[0], planes[0])
+    with torch.cuda.device(dev):
+        rc = _build.load().am_peak_rounds(
+            yr.data_ptr(), yi.data_ptr(),
+            scale.data_ptr() if packed else None, valid_len.data_ptr(),
+            bv.data_ptr(), bp.data_ptr(), bmin.data_ptr(), bmax.data_ptr(),
+            pos.data_ptr(), height.data_ptr(), prom.data_ptr(), rows, V,
+            block, GROUP, d, n_peaks, int(packed), int(shared),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(rc, "am_peak_rounds")
+    _build.count_launch(peak_rounds)
+    return pos, height, prom
+
+
+peak_rounds.launches = 0
+
+KERNELS = (local_max_block_reduce_packed, local_max_block_reduce,
+           peak_rounds)

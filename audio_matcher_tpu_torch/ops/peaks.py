@@ -18,10 +18,14 @@ The single-read paths read the rows once, by
 :func:`local_max_block_reduce_packed` or :func:`local_max_block_reduce`;
 every later stage (seam repair, ``n_peaks`` suppression rounds with an
 exact rescan of the partly suppressed edge tiles, prominence) works on the
-[rows, NB] block arrays and on gathers of a few tiles. These, and the
-whole ``"jnp"`` picker, are plain torch ops on the rows' device: the JAX
-package runs them as plain ``jnp``, so they are not kernels. Both pickers
-give bit-identical results on the same rows.
+[rows, NB] block arrays and on gathers of a few tiles. On CUDA rows (and
+``plain=False``) one kernel runs those stages for the whole slab
+(``cuda_kernels.peak_rounds``); on CPU rows, or with ``plain=True``, their
+plain version :func:`_peak_rounds_plain` runs them as torch ops, as the
+JAX package runs them as plain ``jnp``. The whole ``"jnp"`` picker is
+plain torch ops on the rows' device. Both pickers give bit-identical
+results on the same rows (exhausted slots apart: their positions are the
+picker's own).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .cuda_kernels import (
     local_max_block_reduce_packed,
     local_max_block_reduce_packed_plain,
     local_max_block_reduce_plain,
+    peak_rounds,
 )
 
 _NEG = float("-inf")
@@ -96,6 +101,10 @@ class _DenseRows:
         )
         return reduce(self.x, valid_len, block)
 
+    def peak_rounds(self, valid_len, reduced, distance, n_peaks, block):
+        return peak_rounds((self.x,), None, valid_len, reduced, distance,
+                           n_peaks, block)
+
 
 class _PackedPairRows:
     """Row source over the pair-packed planes: logical row 2p is
@@ -108,7 +117,7 @@ class _PackedPairRows:
             raise ValueError("yr and yi must have one shape")
         self.yr = yr
         self.yi = yi
-        self.scale = scale.to(torch.float32)  # [2P]
+        self.scale = scale.to(torch.float32).contiguous()  # [2P]
         self.shape = (2 * yr.shape[0], yr.shape[1])
         self.plain = plain
 
@@ -137,6 +146,10 @@ class _PackedPairRows:
         return reduce(
             self.yr, self.yi, self.scale, valid_len, block
         )
+
+    def peak_rounds(self, valid_len, reduced, distance, n_peaks, block):
+        return peak_rounds((self.yr, self.yi), self.scale, valid_len,
+                           reduced, distance, n_peaks, block)
 
 
 def _merge_seams(src, valid_len, bv, bp, block: int):
@@ -246,11 +259,26 @@ def _prominences_from_blocks(gather_blocks, block_min, block_max, pos, h,
 
 def _pick_peaks_from_source(src, valid_len, distance: int, n_peaks: int,
                             block: int):
+    """The reduction, then the rounds: on CUDA rows with ``src.plain``
+    False the kernel's (one launch), else :func:`_peak_rounds_plain`."""
+    reduced = src.block_reduce(valid_len, block)
+    if reduced[0].is_cuda and not src.plain:
+        return src.peak_rounds(valid_len, reduced, distance, n_peaks, block)
+    return _peak_rounds_plain(src, valid_len, reduced, distance, n_peaks,
+                              block)
+
+
+def _peak_rounds_plain(src, valid_len, reduced, distance: int, n_peaks: int,
+                       block: int):
+    """Plain version of ``cuda_kernels.peak_rounds`` on a row source and
+    its reduction ``reduced`` (whose candidates it overwrites): the seam
+    merge, ``n_peaks`` suppression rounds, the prominences. Returns (pos
+    int32, height, prominence), each [rows, n_peaks]."""
     B, V = src.shape
     NB = V // block
     dev = valid_len.device
     valid_len = valid_len.to(torch.int64)
-    bv, bp, bmin, bmax = src.block_reduce(valid_len, block)
+    bv, bp, bmin, bmax = reduced
     bp = bp.to(torch.int64)
     bv, bp = _merge_seams(src, valid_len, bv, bp, block)
 

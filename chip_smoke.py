@@ -189,6 +189,24 @@ holds every kernel against its plain PyTorch version:
    its graph live the ``vpu`` + ``jnp`` scan of 6 (1 x 1800 s x 64 queries,
    ~47 GB alone): its warm scans and a scan, the peaks equal to 6's,
    the plants found; the device's graphs give way to it.
+16. The peak rounds (``rounds_at_the_cells``, run first): the rounds
+   kernel (``peak_rounds``: seam merge, suppression rounds, prominences,
+   one launch a slab) against its plain version
+   (``peaks._peak_rounds_plain``) on one reduction of random planes,
+   bit for bit, at both benchmark cells' slabs (8 and 32 logical rows of
+   fft_len 2^22's tiles, 2 slots, distance 480 s) and at fft_len 2^28's
+   (8 rows, past shared memory), the kernel timed by the profiler, the
+   plain rounds as a replayed CUDA graph, as the scan step runs them,
+   beside the kernel's bound; at 2^28 the kernel must be no
+   slower than the plain rounds. Then the device kernels a slab of each
+   cell's step (eager, profiled) with the plain rounds and with the
+   kernel. Paths 2, 3 and 7 hold the kernel against the plain rounds on
+   the real correlation at their slabs too.
+
+``python3 chip_smoke.py --phases NAME[,NAME...]`` runs only the named
+phases (``rounds_at_the_cells``, ``batch_scan``, ...) after the build,
+skips the kernel table's checks, and ends on ``{"ok": true, "partial":
+true, ...}``: only a whole run ends on the line without ``partial``.
 
 Every scanner and matcher runs with its default ``graphs=True``: a
 path's first scan of a shape runs eagerly, its second captures a CUDA
@@ -280,6 +298,7 @@ from audio_matcher_tpu_torch.ops import cuda_kernels as K  # noqa: E402
 from audio_matcher_tpu_torch.ops.correlate import (  # noqa: E402
     corr_slab_xla_packed,
 )
+from audio_matcher_tpu_torch.ops import peaks as peaks_mod  # noqa: E402
 from audio_matcher_tpu_torch.ops.peaks import peaks_crop_width  # noqa: E402
 from audio_matcher_tpu_torch.ops.resample import (  # noqa: E402
     resample_poly_device,
@@ -426,14 +445,17 @@ KERNEL_ROWS = {  # wrapper name → (CUDA source, the TPU kernel's pallas_call)
                           "audio_matcher_tpu/ops/pallas_fft.py:258"),
     "ifft_minor": (CSRC + "fft_minor.cu",
                    "audio_matcher_tpu/ops/pallas_fft.py:506"),
+    # none: the JAX package's rounds are plain jnp after the reduction
+    "peak_rounds": (CSRC + "peak_rounds.cu",
+                    "none (audio_matcher_tpu/ops/peaks.py, plain jnp)"),
 }
 ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 BATCH_PATH = (F.fft_major_fwd_wire, F.fft_minor, F.ifft_minor_product,
-              F.fft_major, K.local_max_block_reduce_packed)
+              F.fft_major, K.local_max_block_reduce_packed, K.peak_rounds)
 SINGLE_PATH = (F.fft_major_fwd_wire2, F.fft_minor, F.ifft_minor_product,
-               F.fft_major, K.local_max_block_reduce_packed)
-XLA_PATH = (K.local_max_block_reduce,)
+               F.fft_major, K.local_max_block_reduce_packed, K.peak_rounds)
+XLA_PATH = (K.local_max_block_reduce, K.peak_rounds)
 JNP_PATH = (F.fft_major_forward, F.fft_minor, F.ifft_minor_product,
             F.fft_major)
 ROUND_TRIP_PATH = (F.fft_major_forward, F.fft_minor, F.ifft_minor,
@@ -531,8 +553,8 @@ def bound(n_bytes, flops):
 
 def ptxas_report(log):
     """One line per kernel of nvcc's ``-Xptxas -v`` output: registers,
-    stack and spill bytes. Fails if an FFT pass or the block reduction
-    spills."""
+    stack and spill bytes. Fails if an FFT pass, the block reduction or the
+    peak rounds spill."""
     fn, seen = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -550,13 +572,14 @@ def ptxas_report(log):
         print("  no ptxas report: the library was built before this run")
     for fn, info in seen.items():
         m = re.search(r"\d((?:major|minor|cluster|minor_cluster)_pass|"
-                      r"twiddle_table|block_reduce)(I\w*?EE)?", fn)
+                      r"twiddle_table|block_reduce|peak_rounds)(I\w*?EE)?",
+                      fn)
         print(f"  {m[1] + (m[2] or '') if m else fn[:56]}: "
               f"{info.get('registers')} registers, {info.get('stack')} B "
               f"stack, {info.get('spill')} B spilled")
     spills = [fn for fn, info in seen.items()
-              if re.search(r"major_pass|minor_pass|cluster_pass|block_reduce",
-                           fn)
+              if re.search(r"major_pass|minor_pass|cluster_pass|block_reduce"
+                           r"|peak_rounds", fn)
               and info.get("spill", 0)]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
@@ -586,6 +609,106 @@ def timed(name, kernel, plain, row=None, work=None, library=None):
         extra += (f"; before redesign ({commit}) {before:.3f} ms, "
                   f"{before / ms:.2f}x faster now")
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra}")
+
+
+def graph_ms(fn, reps=7):
+    """Median CUDA-event time of one replay of ``fn`` captured as a CUDA
+    graph, as the scan step runs it (no host launches in the time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the allocations, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+PROFILED = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]  # as portbench traces
+
+
+def profiled_ms(fn, name, reps=7):
+    """Median device time of the kernel whose name holds ``name`` over
+    ``reps`` calls of ``fn`` (after one more), from torch.profiler's
+    kernel events: the kernel's own duration, where a replay's or an
+    event pair's would hold launch gaps of the same order. The profiler
+    may drop an event; a median of fewer than half is refused."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    if not reps // 2 < len(us) <= reps:
+        raise AssertionError(f"{len(us)} {name} kernels in {reps} calls")
+    return statistics.median(us) / 1e3
+
+
+def check_rounds(planes, scale, valid, distance, n_peaks, label, row=None,
+                 no_slower=False):
+    """The peak rounds kernel against ``peaks._peak_rounds_plain`` on copies
+    of one reduction of ``planes`` ((zr, zi) with ``scale``, or (x,)):
+    bit for bit in all three outputs, one launch a call; the kernel's own
+    device time from the profiler, the plain rounds' ~500 kernels as a
+    replayed graph (the step's way) less the graph of the copies alone;
+    recorded in ``row`` when given. ``no_slower``: the kernel must not be
+    slower than the plain rounds. Returns (kernel ms, plain ms)."""
+    block = 512
+    src = (peaks_mod._PackedPairRows(*planes, scale) if scale is not None
+           else peaks_mod._DenseRows(planes[0]))
+    reduced = src.block_reduce(valid, block)
+
+    def copies():
+        return [t.clone() for t in reduced]
+
+    def kernel():
+        return K.peak_rounds(planes, scale, valid, copies(), distance,
+                             n_peaks, block)
+
+    def plain():
+        return peaks_mod._peak_rounds_plain(src, valid, copies(), distance,
+                                            n_peaks, block)
+
+    before = K.peak_rounds.launches
+    got = kernel()
+    launched = K.peak_rounds.launches - before
+    want = plain()
+    same = all(a.dtype == b.dtype and np.array_equal(
+        a.cpu().numpy(), b.cpu().numpy(), equal_nan=True)
+        for a, b in zip(got, want))
+    rows_, nb = reduced[0].shape
+    shared = K.rounds_layout(nb, n_peaks)
+    found = int(torch.isfinite(got[1]).sum())
+    print(f"peak_rounds{label}: {rows_} rows x {nb} tiles, {n_peaks} slots, "
+          f"distance {distance}, {'shared' if shared else 'in-place'} "
+          f"layout, {launched} launch; {found} picks found; bit for bit "
+          f"the plain rounds: {same}")
+    if not same or launched != 1:
+        raise AssertionError(f"peak_rounds{label} disagrees with its plain "
+                             f"version ({launched} launches)")
+    t_copy = graph_ms(copies)
+    ms = profiled_ms(kernel, "peak_rounds")
+    plain_ms = graph_ms(plain) - t_copy
+    # each tile's four words, the slots' outputs, and the plane columns the
+    # rescans and the prominences read (five tiles a slot)
+    work = (rows_ * (16 * nb + 12 * n_peaks + 4 * block * 5 * n_peaks), 0)
+    b_ms, b_by = bound(*work)
+    if row is not None:
+        row.update(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+    print(f"peak_rounds{label}: kernel {ms:.4f} ms, plain rounds "
+          f"{plain_ms:.4f} ms ({plain_ms / max(ms, 1e-9):.1f}x), bound "
+          f"{b_ms:.5f} ms ({b_by}); the plain rounds' graph replay less "
+          f"the copies' {t_copy:.4f} ms; {CARD['line']}")
+    if no_slower and ms > plain_ms:
+        raise AssertionError(f"peak_rounds{label}: {ms:.4f} ms, slower than "
+                             f"the plain rounds' {plain_ms:.4f} ms")
+    return ms, plain_ms
 
 
 def read_once(label, planes, block, kernel_ms):
@@ -671,6 +794,8 @@ def check_kernels(scanner, episode_wire, rows):
     m_pad = torch.nn.functional.pad(st.m, (0, 2 * Qh - Q), value=1)
     valid = (win_len[:, None] - m_pad[None, :] + 1).clamp(min=0).reshape(-1)
     check_reduce_packed(zr, zi, scale, valid, rows)
+    check_rounds((zr, zi), scale, valid, scanner.distance_samples,
+                 scanner.n_peaks, ", config #3 slab", rows["peak_rounds"])
     del Z, zr, zi
 
 
@@ -941,9 +1066,12 @@ def check_single_query_kernels(matcher, episode_wire, record=None):
     scale = torch.full((2 * P,), matcher.snippet.inv_autocorr,
                        dtype=torch.float32, device=ep.device)
     name = "local_max_block_reduce_packed"
-    check_reduce_packed(Z[0].view(P, width), Z[1].view(P, width), scale,
-                        valid, {name: record[name]} if name in record
-                        else None, label=label)
+    zr, zi = Z[0].view(P, width), Z[1].view(P, width)
+    check_reduce_packed(zr, zi, scale, valid, {name: record[name]}
+                        if name in record else None, label=label)
+    check_rounds((zr, zi), scale, valid, matcher.distance_samples,
+                 matcher.n_peaks, label, record.get("peak_rounds"),
+                 no_slower=n_fft == 1 << 28)
 
 
 def compare_single_query_paths(matcher, plain_matcher, episode_wire,
@@ -2889,11 +3017,98 @@ def two_process_sweep(root, labels, device):
           f"{CARD['line']}")
 
 
+CELL_SLABS = (  # label, queries, wire, episodes, chunk s: the cells' slabs
+    ("snippet_1h", 1, "float32", 1, 60.0),
+    ("batch_scan", 4, "int16", 3, 60.0),
+    ("fft_len 2^28", 1, "float32", 1, 3100.0),
+)
+
+
+def device_kernels(run):
+    """Device kernels (and copies and fills) of one run of ``run``, warmed
+    first, under torch.profiler."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(not n.startswith(("Memcpy", "Memset")) for n in names), \
+        len(names)
+
+
+@contextlib.contextmanager
+def plain_rounds():
+    """Within, the fused picker runs the plain rounds after the kernel
+    reduction, as it did before the rounds kernel."""
+    kept = peaks_mod._PackedPairRows.peak_rounds
+
+    def rounds(src, valid_len, reduced, distance, n_peaks, block):
+        return peaks_mod._peak_rounds_plain(src, valid_len, reduced,
+                                            distance, n_peaks, block)
+
+    peaks_mod._PackedPairRows.peak_rounds = rounds
+    try:
+        yield
+    finally:
+        peaks_mod._PackedPairRows.peak_rounds = kept
+
+
+def rounds_at_the_cells(config, device, rows):
+    """Path 16: the rounds kernel against the plain rounds at the
+    benchmark cells' slabs and at fft_len 2^28's, on random planes of
+    those shapes; then the device kernels a slab of each cell's step."""
+    snippets, _, episode = make_bench_inputs(4, SINGLE_EPISODE_SECS)
+    g = torch.Generator(device=device).manual_seed(2027)
+    for label, n_q, _, _, chunk in CELL_SLABS:
+        cfg = dataclasses.replace(config, chunk_secs=chunk)
+        m = SnippetMatcher(snippets[0], SR, cfg, device=device)
+        width = correlation_crop(m.valid, cfg.block, m.fft_len, "vpu",
+                                 "pallas")
+        P = SLAB * n_q // 2  # planes: the slab's windows x Q rows, paired
+        zr = torch.randn(P, width, device=device, generator=g)
+        zi = torch.randn(P, width, device=device, generator=g)
+        scale = torch.rand(2 * P, device=device, generator=g) + 0.5
+        valid = torch.full((2 * P,), m.valid, dtype=torch.int64,
+                           device=device)
+        valid[-n_q:] = m.valid // 3  # a short last window
+        check_rounds((zr, zi), scale, valid, m.distance_samples, m.n_peaks,
+                     f", {label} slab ({2 * P} rows)",
+                     no_slower=m.fft_len == 1 << 28)
+        del zr, zi, m
+        torch.cuda.empty_cache()
+    for label, n_q, wire, n_ep, chunk in CELL_SLABS[:2]:
+        cfg = MatchConfig(chunk_secs=chunk, transfer_dtype=wire)
+        ep = quantize_wire(episode, wire)
+        slabs = n_ep * n_slabs(cfg, SINGLE_EPISODE_SECS)
+        if n_q == 1:
+            m = SnippetMatcher(snippets[0], SR, cfg, device=device,
+                               graphs=False)
+            staged = m.stage(ep)
+            run = lambda: m.match_staged(staged)  # noqa: E731
+        else:
+            sc = ShardedScanner(snippets[:n_q], SR, cfg, device=device,
+                                graphs=False)
+            staged = sc.stage_resident([ep] * n_ep)
+            run = lambda: sc.scan_staged(staged)  # noqa: E731
+        with plain_rounds():
+            before = device_kernels(run)
+        after = device_kernels(run)
+        print(f"device kernels a slab of the {label} step ({slabs} slabs, "
+              f"eager): plain rounds {before[0] / slabs:.1f} "
+              f"({before[1] / slabs:.1f} device events), the rounds kernel "
+              f"{after[0] / slabs:.1f} ({after[1] / slabs:.1f}); "
+              f"{CARD['line']}")
+        del staged, run
+        torch.cuda.empty_cache()
+
+
 def smoke_config() -> MatchConfig:
     return MatchConfig(slab=SLAB, slab_auto=True, transfer_dtype="mulaw8")
 
 
-def main() -> int:
+def main(only=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2918,18 +3133,21 @@ def main() -> int:
     rows = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": tpu}
             for name, (src, tpu) in KERNEL_ROWS.items()}
-    for phase in (batch_scan, single_query, xla_packed_scan, fft_modes,
-                  jnp_scan, single_query_jnp, large_fft, cluster_modes,
-                  wide_round_trip, wide_scan,
-                  wide_cli, step_graphs, graph_memory, spectrogram_batch,
-                  spectrogram_single, device_resample, archive_sweep,
-                  matcher_cli_run, sharded_scan, mesh_dryrun,
-                  worker_archive):
+    unknown = set(only or ()) - {p.__name__ for p in PHASES}
+    if unknown:
+        raise SystemExit(f"no phase {sorted(unknown)}")
+    for phase in PHASES:
+        if only and phase.__name__ not in only:
+            continue
         t0 = time.perf_counter()
         phase(config, dev, rows)
         torch.cuda.empty_cache()
         print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    if only:
+        print(json.dumps({"ok": True, "partial": True,
+                          "phases": sorted(only)}))
+        return 0
     for row in rows.values():
         missing = [k for k in ROW_KEYS if k not in row]
         if missing or not row["launches"] > 0:
@@ -2944,7 +3162,16 @@ def main() -> int:
     return 0
 
 
+PHASES = (rounds_at_the_cells, batch_scan, single_query, xla_packed_scan,
+          fft_modes, jnp_scan, single_query_jnp, large_fft, cluster_modes,
+          wide_round_trip, wide_scan, wide_cli, step_graphs, graph_memory,
+          spectrogram_batch, spectrogram_single, device_resample,
+          archive_sweep, matcher_cli_run, sharded_scan, mesh_dryrun,
+          worker_archive)
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        raise SystemExit(main(set(sys.argv[2].split(","))))
     if sys.argv[1:2] == ["--graph-alone"]:  # graph_memory's fresh process
         _build.load()
         print(json.dumps({"reserved_gb": graph_alone(

@@ -729,6 +729,153 @@ def test_block_reduce_near_max_rows(dev, block, rows):
     _reduce_both_modes(x, vl, block)
 
 
+# ------------------------------------------------------------ peak rounds
+CELL_NB = 5248  # the cells' tiles a row: fft_len 2^22, 60 s chunks, block 512
+CELL_DISTANCE = 480 * 44100  # the cells' distance: every pick empties a row
+
+
+def _rounds_planes(dev, seed, P, nb, block):
+    """Pair-packed planes [P, nb·block] with a scale and the picker's
+    traps planted in row 0's planes: a plateau, equal heights in two tiles,
+    many equal peaks across a tile edge, and (past one segment) peaks on
+    both blind seam columns tied with another column of their tiles and
+    with a tile of the next segment."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = nb * block
+    yr = torch.randn(P, V, device=dev, generator=g)
+    yi = torch.randn(P, V, device=dev, generator=g)
+    scale = torch.rand(2 * P, device=dev, generator=g) + 0.5
+    yr[0, 1000:1010] = 6.0  # a plateau: never a peak
+    yr[0, 3000] = yr[0, 3000 + 7 * block] = 7.0  # equal, in two tiles
+    yi[0, 4000:4600:2] = 5.0  # equal peaks across a tile edge
+    seg = K.GROUP * block
+    if V > 2 * seg:
+        yr[0, seg - 1] = yr[0, seg - 300] = 9.5  # strict seam: earlier wins
+        yi[0, seg] = yi[0, seg + 200] = 8.0  # the seam column wins a tie
+        yi[0, 2 * seg + 5] = 8.0  # the same height a segment on
+    return yr, yi, scale
+
+
+def _rounds_valid(dev, rows, V, block):
+    """valid_len through its edges; the last row a pad row (an odd
+    slab's), valid 0."""
+    edges = [V, V - 3000, V - 7, 0, block + 1, V + 1, K.GROUP * block + 3]
+    vl = [max(edges[r % len(edges)], 0) for r in range(rows)]
+    vl[-1] = 0
+    return torch.tensor(vl, dtype=torch.int32, device=dev)
+
+
+def _rounds_equal_plain(planes, scale, vl, distance, n_peaks, block):
+    """The rounds kernel against ``_peak_rounds_plain`` on copies of one
+    reduction, bit for bit in all three outputs (exhausted slots too); then
+    the picker through both routes. Returns the kernel's picks."""
+    from audio_matcher_tpu_torch.ops import peaks as TP
+
+    if scale is not None:
+        src = TP._PackedPairRows(*planes, scale)
+        src_plain = TP._PackedPairRows(*planes, scale, plain=True)
+    else:
+        src = TP._DenseRows(planes[0])
+        src_plain = TP._DenseRows(planes[0], plain=True)
+    reduced = src.block_reduce(vl, block)
+    before = K.peak_rounds.launches
+    got = K.peak_rounds(planes, scale, vl, [t.clone() for t in reduced],
+                        distance, n_peaks, block)
+    assert K.peak_rounds.launches == before + 1
+    want = TP._peak_rounds_plain(src, vl, [t.clone() for t in reduced],
+                                 distance, n_peaks, block)
+    _bitwise(got, want)
+    fused = TP._pick_peaks_from_source(src, vl, distance, n_peaks, block)
+    plain = TP._pick_peaks_from_source(src_plain, vl, distance, n_peaks,
+                                       block)
+    _bitwise(fused, got)
+    _bitwise(plain, got)
+    return got
+
+
+def _rounds_both_modes(yr, yi, scale, vl, distance, n_peaks, block):
+    """Packed over the planes, dense over the same logical rows: both equal
+    to plain, and to each other."""
+    packed = _rounds_equal_plain((yr, yi), scale, vl, distance, n_peaks,
+                                 block)
+    x = K._logical_rows(yr, yi, scale).contiguous()
+    dense = _rounds_equal_plain((x,), None, vl, distance, n_peaks, block)
+    _bitwise(dense, packed)
+    return packed
+
+
+@pytest.mark.parametrize("P", [4, 16], ids=["snippet_1h", "batch_scan"])
+def test_peak_rounds_at_the_cells_shapes_equal_plain(dev, P):
+    """NB 5248 and 8 or 32 logical rows, n_peaks 2, the cells' distance:
+    the shared layout; the second slot of every row exhausted."""
+    assert K.rounds_layout(CELL_NB, 2)
+    yr, yi, scale = _rounds_planes(dev, P, P, CELL_NB, 512)
+    vl = _rounds_valid(dev, 2 * P, CELL_NB * 512, 512)
+    pos, h, _ = _rounds_both_modes(yr, yi, scale, vl, CELL_DISTANCE, 2, 512)
+    assert torch.isfinite(h[0, 0]) and torch.isneginf(h[:, 1]).all()
+    assert torch.isneginf(h[-1]).all()  # the pad row
+
+
+@pytest.mark.parametrize(
+    "nb,block,distance,n_peaks",
+    [
+        (300, 512, 100, 64),  # many rounds, rescans within one tile
+        (300, 512, 1, 16),  # distance 1: nothing suppressed
+        (300, 512, 40 * 512 + 17, 8),  # an interval of ~80 tiles
+        (300, 128, 300, 64),  # narrow tiles, intervals over three
+        (260, 256, 10**7, 3),  # one pick empties the row
+    ],
+)
+def test_peak_rounds_equal_plain(dev, nb, block, distance, n_peaks):
+    """Many rounds and rescans that interact, intervals over many tiles,
+    ties in different tiles and across a seam, plateaus, pad rows."""
+    yr, yi, scale = _rounds_planes(dev, nb + distance, 3, nb, block)
+    vl = _rounds_valid(dev, 6, nb * block, block)
+    _rounds_both_modes(yr, yi, scale, vl, distance, n_peaks, block)
+
+
+@pytest.mark.parametrize("distance,n_peaks", [(CELL_DISTANCE, 3),
+                                              (5000, 16)])
+def test_peak_rounds_in_place_past_shared_memory(dev, distance, n_peaks):
+    """The 2^25 shape (600 s chunks: 51712 tiles a row), past shared
+    memory: the rounds work in place on the reduction's outputs."""
+    nb = 51712
+    assert not K.rounds_layout(nb, n_peaks)
+    yr, yi, scale = _rounds_planes(dev, 25, 1, nb, 512)
+    vl = torch.tensor([nb * 512 - 9000, nb * 512], dtype=torch.int32,
+                      device=dev)
+    _rounds_both_modes(yr, yi, scale, vl, distance, n_peaks, 512)
+
+
+def test_picker_launches_two_kernels_a_slab(dev, monkeypatch):
+    """``pick_peaks_packed`` and ``pick_peaks_dense`` on CUDA rows: the
+    reduction and the rounds kernel, one launch each, and none of the
+    plain rounds' torch ops (each of their functions refuses to run)."""
+    from audio_matcher_tpu_torch.ops import peaks as TP
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain rounds ran on CUDA rows")
+
+    for name in ("_peak_rounds_plain", "_merge_seams", "_rescan_tile",
+                 "_prominences_from_blocks"):
+        monkeypatch.setattr(TP, name, refuse)
+    yr, yi, scale = _rounds_planes(dev, 3, 4, CELL_NB, 512)
+    vl = _rounds_valid(dev, 8, CELL_NB * 512, 512)
+    x = K._logical_rows(yr, yi, scale).contiguous()
+    for reduce, pick in (
+        (K.local_max_block_reduce_packed,
+         lambda: TP.pick_peaks_packed(yr, yi, scale, vl, CELL_DISTANCE, 2,
+                                      2048)),
+        (K.local_max_block_reduce,
+         lambda: TP.pick_peaks_dense(x, vl, CELL_DISTANCE, 2, 2048)),
+    ):
+        before = reduce.launches, K.peak_rounds.launches
+        pos, h, prom = pick()
+        assert (reduce.launches, K.peak_rounds.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert pos.is_cuda and torch.isfinite(h[0, 0])
+
+
 def _offset_windows(ep, off, rows, W, chunk):
     """[rows, W] windows of ``ep`` ``chunk`` apart, starting ``off``
     elements in: row starts at every alignment."""
@@ -1241,6 +1388,42 @@ def test_graphed_matcher_equals_eager_bitwise(dev):
     assert graphed.step_graphs.stats["hits"] >= 2
     assert [p.position for p in graphed.match_staged(staged[1])] == [
         int(9.5 * sr)]
+
+
+def test_graphed_step_runs_the_rounds_once_a_slab(dev):
+    """The resident step with the rounds kernel: a replayed graph gives the
+    eager step's picks bit for bit, and each run launches the rounds once a
+    slab (as the reduction)."""
+    sr = 8000
+    rng = np.random.default_rng(27)
+    snippet = (rng.standard_normal(4000) * 0.2).astype(np.float32)
+    ep = (rng.standard_normal(37 * sr) * 0.05).astype(np.float32)
+    ep[int(6.5 * sr) : int(6.5 * sr) + 4000] = snippet
+    cfg = MatchConfig(chunk_secs=1.0, distance_secs=2.0, slab=4,
+                      slab_auto=False, transfer_dtype="float32")
+    graphed = SnippetMatcher(snippet, sr, cfg, device=dev)
+    eager = SnippetMatcher(snippet, sr, cfg, device=dev, graphs=False)
+    staged = graphed.stage(ep)
+    n_pad = (staged[0].shape[0] - graphed.overlap) // graphed.chunk
+    slab = scan_slab(cfg, graphed.chunk, staged[1], n_pad)
+    slabs = n_pad // slab
+    assert slabs > 1
+
+    def raw(m):
+        before = K.peak_rounds.launches, K.local_max_block_reduce_packed.launches
+        out = m._scan(staged[0][None], [staged[1]], True, slab, slabs)
+        return out, (K.peak_rounds.launches - before[0],
+                     K.local_max_block_reduce_packed.launches - before[1])
+
+    want, launched = raw(eager)
+    assert launched == (slabs, slabs)
+    for _ in range(3):  # first sight, capture, replay
+        got, launched = raw(graphed)
+        assert launched == (slabs, slabs)
+        _bitwise(got, want)
+    assert graphed.step_graphs.stats["hits"] >= 1
+    assert [p.position for p in graphed.match_staged(staged)] == [
+        int(6.5 * sr)]
 
 
 def test_graphed_spectrogram_scan_equals_eager_bitwise(dev):

@@ -204,7 +204,7 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
     assert _build.library_path().name != name
     assert {p.name for p in _build.sources()} == {
-        "fft_major.cu", "fft_minor.cu", "block_reduce.cu"
+        "fft_major.cu", "fft_minor.cu", "block_reduce.cu", "peak_rounds.cu"
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -34,6 +34,7 @@ from audio_matcher_tpu.ops.peaks import (  # noqa: E402
 
 from audio_matcher_tpu_torch.ops.cuda_kernels import (  # noqa: E402
     GROUP,
+    _logical_rows,
     local_max_block_reduce,
     local_max_block_reduce_packed,
 )
@@ -66,6 +67,15 @@ def _plant_edge_cases(yr, yi):
         yr[0, SEG] = 9.5
         yi[1 % yi.shape[0], 2 * SEG] = 8.0
         yr[0, SEG - 200] = 9.5  # ties with the seam column
+    return yr, yi
+
+
+def _plant_seam_ties(yr, yi):
+    """Equal heights in different tiles and across a seam on the second
+    logical pair (rows 2 and 3), beside _plant_edge_cases' on row 0."""
+    if yr.shape[1] > 2 * SEG:
+        yr[1, SEG - 1] = yr[1, SEG - 200] = 9.5  # a seam column ties its tile
+        yi[1, SEG] = yi[1, 2 * SEG + 3] = 9.0  # ... and a tile a segment on
     return yr, yi
 
 
@@ -133,11 +143,18 @@ def test_block_reduce_rejects_bad_shapes():
         (3, 512 * 32, 700, 6),
         (2, 512 * 260, 1, 3),  # distance 1: nothing suppressed
         (2, 512 * 20, 10**7, 3),  # one pick empties the row
+        (2, 512 * 300, 100, 24),  # many rounds, rescans inside a tile
+        (3, 512 * 300, 5000, 6),  # seam ties on rows 0 and 1
+        (3, 512 * 300, 100, 64),  # many rounds and rescans
+        (3, 512 * 300, 40 * 512 + 17, 12),  # intervals over many tiles
+        (3, 512 * 20, 10**7, 3),  # slots exhausted, a valid_len-0 row
     ],
 )
 def test_pick_peaks_packed_equals_jax(P, V, distance, n_peaks):
     yr, yi, scale = _planes(V + distance, P, V)
     yr, yi = _plant_edge_cases(yr, yi)
+    if P > 2:
+        yr, yi = _plant_seam_ties(yr, yi)
     vl = np.asarray([V, V - 3000, 0, V - 7, V, 5][: 2 * P], np.int32)
     want = pick_peaks_pallas_packed(
         jnp.asarray(yr), jnp.asarray(yi), jnp.asarray(scale),
@@ -157,6 +174,45 @@ def test_pick_peaks_packed_equals_jax(P, V, distance, n_peaks):
     )
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("mode", ["packed", "dense"])
+@pytest.mark.parametrize(
+    "V,distance,n_peaks",
+    [
+        (512 * 300, 5000, 6),  # seam ties, equal heights across tiles
+        (512 * 300, 100, 64),  # many rounds and rescans
+        (512 * 300, 40 * 512 + 17, 12),  # intervals over many tiles
+        (512 * 20, 10**7, 3),  # one pick empties the row: slots exhausted
+    ],
+)
+def test_single_read_pickers_equal_the_multi_pass_picker(mode, V, distance,
+                                                         n_peaks):
+    """An extra check beside the JAX comparisons above: the plain
+    single-read pickers against the port's multi-pass ``pick_peaks_core``,
+    which walks the whole rows: heights and prominences bit for bit in
+    every slot, positions in every found slot (an exhausted slot's position
+    is each picker's own); rows with valid_len 0 and cut mid-tile."""
+    P = 3
+    yr, yi, scale = _planes(V + distance + n_peaks, P, V)
+    yr, yi = _plant_seam_ties(*_plant_edge_cases(yr, yi))
+    vl = torch.tensor([V, V - 3000, 0, V - 7, 600, 0])
+    t = [torch.from_numpy(a) for a in (yr, yi, scale)]
+    x = _logical_rows(*t)
+    if mode == "packed":
+        got = pick_peaks_packed(*t, vl, distance, n_peaks, 2048)
+    else:
+        got = pick_peaks_dense(x, vl, distance, n_peaks, 2048)
+    want = TP.pick_peaks_core(x, vl, distance, n_peaks, 1024)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    found = torch.isfinite(want[1])
+    assert torch.equal(got[0][found], want[0][found])
+    assert not found[2].any() and not found[5].any()
+    if distance > V:
+        assert not found[:, 1:].any()
+    else:
+        assert found[0].sum() > 2
 
 
 def test_crop_width_matches():
@@ -211,12 +267,18 @@ def test_dense_block_reduce_plain_equals_jax_kernel(block):
         (3, 512 * 300, 5000, 4),  # seams repaired, mid-tile suppression
         (4, 4096, 700, 6),  # the fallback's crop: one segment
         (2, 4000, 300, 3),  # V off the tile grid: zero-padded
+        (3, 512 * 300, 100, 64),  # many rounds and rescans
+        (3, 512 * 300, 40 * 512 + 17, 12),  # intervals over many tiles
+        (3, 512 * 20, 10**7, 3),  # slots exhausted, a valid_len-0 row
     ],
 )
 def test_pick_peaks_dense_equals_jax(B, V, distance, n_peaks):
     x = _dense(V + distance, B, V, 512) if V > SEG else (
         np.random.default_rng(V).standard_normal((B, V)).astype(np.float32)
     )
+    if V > 2 * SEG:  # equal heights in other tiles and across a seam
+        x[0, SEG - 1] = x[0, SEG - 200] = 9.5
+        x[2, SEG] = x[2, 2 * SEG + 3] = 9.0
     vl = np.asarray([V, V - 3000, 0, V - 7][:B], np.int32).clip(0)
     want = pick_peaks_pallas(
         jnp.asarray(x), jnp.asarray(vl), distance, n_peaks, 2048,
